@@ -10,7 +10,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    the full-width llama3.2-3b shapes (rtol = atol = 2e-2 on bf16 inputs),
    timed with CUDA events (median of 20 after warm-up, L2 flushed before
    each call): the kernel, its plain version, and a PyTorch yardstick that
-   the port itself never calls.
+   the port itself never calls. Decode attention in its three forms: one
+   query per slot, the speculative verify window (qs = K+1 queries, causal
+   and not), and the fresh rows of the fused draft propose.
 4. serve: llama3.2-3b FULL (28 layers, d_model 3072) from seeded random
    weights, EWQ-planned on the card and served with int8 KV, then an
    explicit raw/int8/int4/ternary plan served with int4 KV; every kernel's
@@ -20,6 +22,13 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    without their bf16 roundings, the plain versions with only the order of
    their f32 sums changed, and the kernels on params with one int4 layer's
    nibbles swapped (a planted fault the limit must catch).
+4b. speculative serve: the EWQ plan with int8 KV and SpecConfig(k=4),
+   once with the int4 self-draft (fused propose) and once with the ngram
+   draft, on the same requests. Then, at the same limit: a 5-token verify
+   window through the kernels against the plain versions and against five
+   single-query decode steps; one fused propose step against a decode step
+   on a clone of the cache, with the real cache unchanged to the byte; and
+   the window run with causal=False (a planted fault the limit must catch).
 5. a JSON line naming each kernel, then the device line last.
 
 ``--quick`` skips the timings and the lm_head shape (a short first call
@@ -32,6 +41,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import pathlib
 import subprocess
@@ -44,6 +54,7 @@ BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor-core peak
 TOL = dict(rtol=2e-2, atol=2e-2)
 QUICK = "--quick" in sys.argv   # skip timings and the lm_head shape
 SLOTS = 4                       # decode slots of the serve phase
+SPEC_K = 4                      # draft tokens per speculative round
 
 
 def log(*a):
@@ -133,10 +144,80 @@ def serve_prompts(vocab: int) -> list:
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_kernels(torch, timer, rows: list) -> dict:
+def attn_case(torch, timer, compare, kernel: str, shape: str, q, kp, vp,
+              valid, causal: bool = True, fresh=None, **extra) -> dict:
+    """One decode-attention form against its plain version at one shape:
+    the kernel, the plain version and SDPA on the dequantized cache with
+    the same boolean mask (a yardstick the port never calls), timed, with
+    the bound of the rows its queries see. ``fresh``: raw (fresh_k,
+    fresh_v, base), quantized here with the page's write math."""
     from repro_torch.kernels.decode_attn import ops as DA
+    from repro_torch.quant.kvcache import dequantize_kv
+    b, s, h, hd = q.shape
+    S = kp.data.shape[1]
+    hkv = kp.num_kv_heads
+    rep = h // hkv
+    dev = q.device
+    fq = None
+    if fresh is not None:
+        fq = (DA._fresh_page(fresh[0], kp), DA._fresh_page(fresh[1], vp),
+              fresh[2])
+    got = DA.decode_attn_cuda(q, kp, vp, valid, causal, fq).float()
+    want = DA.decode_attention_plain(q, kp, vp, valid, causal, fq).float()
+    compare(kernel, [got], [want])
+    vl = valid.long()
+    limit = (vl[:, None] - s + 1 + torch.arange(s, device=dev)[None] if causal
+             else vl[:, None].expand(b, s))
+    cache_lim = limit if fq is None else torch.minimum(
+        limit, fq[2].long()[:, None])
+    blind = limit <= 0                                    # (B, s) sees no row
+    if bool(blind.any()) and float(got[blind].abs().max()) != 0.0:
+        raise AssertionError(f"{kernel}: a query that sees no row must "
+                             "give 0")
+    row = dict(kernel=kernel, shape=shape, precision=kp.precision, m=b,
+               qs=s, causal=causal, err=float((got - want).abs().max()),
+               **extra)
+    if QUICK:
+        return row
+    row["ms"] = timer.ms(lambda: DA.decode_attn_cuda(q, kp, vp, valid,
+                                                      causal, fq))
+    row["plain_ms"] = timer.ms(lambda: DA.decode_attention_plain(
+        q, kp, vp, valid, causal, fq))
+    pos = torch.arange(S, device=dev)
+    mask = pos[None, None, :] < cache_lim[:, :, None]     # (B, s, S)
+    kd, vd = (dequantize_kv(p, torch.bfloat16) for p in (kp, vp))
+    seen = cache_lim.clamp(0, S).sum()
+    rows_read = int(vl.clamp(0, S).sum() if fq is None
+                    else torch.minimum(vl, fq[2].long()).clamp(0, S).sum())
+    extra_bytes = 0
+    if fq is not None:
+        sf = fq[0].data.shape[1]
+        fpos = fq[2].long()[:, None] + torch.arange(sf, device=dev)[None]
+        fmask = fpos[:, None, :] < limit[:, :, None]      # (B, s, Sf)
+        seen = seen + fmask.sum()
+        mask = torch.cat([mask, fmask], dim=2)
+        kd = torch.cat([kd, dequantize_kv(fq[0], torch.bfloat16)], dim=1)
+        vd = torch.cat([vd, dequantize_kv(fq[1], torch.bfloat16)], dim=1)
+        extra_bytes = 2 * sum(t.numel() * t.element_size() for t in
+                              (fq[0].data, fq[0].scale) if t is not None)
+        extra_bytes += b * 4
+    kd, vd = (x.repeat_interleave(rep, 2).transpose(1, 2) for x in (kd, vd))
+    qt = q.transpose(1, 2)                                # (B, H, s, hd)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    row["library_ms"] = timer.ms(lambda: sdpa(qt, kd, vd,
+                                              attn_mask=mask[:, None]))
+    per_row = (kp.data[0, 0].numel() * kp.data.element_size()
+               + (0 if kp.scale is None else kp.scale[0, 0].numel() * 2))
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        2 * rows_read * per_row + extra_bytes + q.numel() * 2
+        + b * h * s * hd * 4 + b * 4,
+        4.0 * int(seen) * h * hd)
+    return row
+
+
+def check_kernels(torch, timer, rows: list) -> dict:
     from repro_torch.kernels.qmatmul import ops as QM
-    from repro_torch.quant.kvcache import dequantize_kv, make_page
+    from repro_torch.quant.kvcache import make_page
     from repro_torch.quant.quantize import dequantize, quantize
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -147,12 +228,13 @@ def check_kernels(torch, timer, rows: list) -> dict:
     # instantiation among them: decode runs every slot (M = 4, the MT = 4
     # kernel; 1-3 are the MT = 1, 2 kernels and a masked MT = 4 tile), a
     # prefill's head runs M = 1, and prefill runs M = the prompt length in
-    # 8-row tiles: 8, 256, and a serve prompt whose last tile is partial.
+    # 8-row tiles: 8, 256, and a serve prompt whose last tile is partial;
+    # a speculative verify runs every slot's K+1 window (M = 20).
     lens = [len(p) for p in serve_prompts(vocab)]
     ragged = next(n for n in lens if n % 8)
-    ms_list = (1, 2, 3, SLOTS, 8, 256, ragged)
+    ms_list = (1, 2, 3, SLOTS, 8, SLOTS * (SPEC_K + 1), 256, ragged)
     precs = ("int8", "int4", "ternary")
-    worst = {k: 0.0 for k in ("qmatmul", "qkv", "qmlp", "decode_attn")}
+    worst = {k: 0.0 for k in KERNEL_SOURCES}
 
     def weight(n, k):
         w = torch.randn((n, k), generator=gen, device="cuda") / k ** 0.5
@@ -242,53 +324,67 @@ def check_kernels(torch, timer, rows: list) -> dict:
             log(json.dumps(row))
         del wq, wk, wv, wg, wu, wdn, wqkv
 
-    # decode attention: one layer's cache at 8 slots x 2048 rows, and at
-    # the serve phase's 4 slots x 1024 rows mid-decode
+    # decode attention, one layer's cache. One query per slot at 8 slots x
+    # 2048 rows and at the serve phase's 4 slots x 1024 rows mid-decode;
+    # the verify window (qs = K+1, and 9 where shared memory is largest)
+    # at the serve shape and at 8 x 2048, where slot 0's first queries see
+    # no row; the fresh rows of a draft propose at the serve shape, one
+    # case per propose step (count rows already written, base per slot).
     hkv, rep, hd = 8, 3, 128
-    cases = ((8, 2048, [0, 1, 1000, 2048, 517, 64, 1500, 2000]),
-             (SLOTS, 1024, [n + 16 for n in lens[:SLOTS]]))
-    for b, s, valid_rows in cases:
-        valid = torch.tensor(valid_rows, dtype=torch.int32, device="cuda")
-        q = torch.randn((b, 1, hkv * rep, hd), generator=gen,
+    serve_valid = [n + 16 for n in lens[:SLOTS]]
+    big_valid = [0, 1, 1000, 2048, 517, 64, 1500, 2000]
+
+    def attn_inputs(b, s, qs):
+        q = torch.randn((b, qs, hkv * rep, hd), generator=gen,
                         device="cuda").to(torch.bfloat16)
-        kraw = torch.randn((b, s, hkv, hd), generator=gen, device="cuda")
-        vraw = torch.randn((b, s, hkv, hd), generator=gen, device="cuda")
-        rows_read = int(valid.clamp(0, s).sum())
-        for prec in ("int8", "int4", "bf16"):
+        kv = [torch.randn((b, s, hkv, hd), generator=gen, device="cuda")
+              for _ in range(2)]
+        return q, kv
+
+    def add(row):
+        rows.append(row)
+        log(json.dumps(row))
+
+    def valid_of(v):
+        return torch.tensor(v, dtype=torch.int32, device="cuda")
+
+    cases = [("decode_attn", 8, 2048, 1, True, big_valid,
+              ("int8", "int4", "bf16")),
+             ("decode_attn", SLOTS, 1024, 1, True, serve_valid,
+              ("int8", "int4", "bf16")),
+             ("decode_attn_window", SLOTS, 1024, SPEC_K + 1, True,
+              serve_valid, ("int8", "int4", "bf16")),
+             ("decode_attn_window", SLOTS, 1024, SPEC_K + 1, False,
+              serve_valid, ("int8",)),
+             ("decode_attn_window", SLOTS, 1024, 9, True, serve_valid,
+              ("int8",)),
+             ("decode_attn_window", 8, 2048, SPEC_K + 1, True, big_valid,
+              ("int8",))]
+    for kname, b, s, qs, causal, valid_rows, cprecs in cases:
+        q, (kraw, vraw) = attn_inputs(b, s, qs)
+        valid = valid_of([v + qs - 1 if kname != "decode_attn" and v > 1
+                          else v for v in valid_rows])
+        for prec in cprecs:
             kp, vp = make_page(kraw, prec, 64), make_page(vraw, prec, 64)
-            got = DA.decode_attn_cuda(q, kp, vp, valid).float()
-            want = DA.decode_attention_plain(q, kp, vp, valid).float()
-            compare("decode_attn", [got], [want])
-            if 0 in valid_rows and float(
-                    got[valid_rows.index(0)].abs().max()) != 0.0:
-                raise AssertionError("decode_attn: empty slot must give 0")
-            row = dict(kernel="decode_attn", shape=f"B{b} S{s} Hkv{hkv} "
-                       f"rep{rep} hd{hd}", precision=prec, m=b,
-                       err=float((got - want).abs().max()))
-            if not QUICK:
-                row["ms"] = timer.ms(
-                    lambda: DA.decode_attn_cuda(q, kp, vp, valid))
-                row["plain_ms"] = timer.ms(
-                    lambda: DA.decode_attention_plain(q, kp, vp, valid))
-                kd, vd = (dequantize_kv(p, torch.bfloat16)
-                          .repeat_interleave(rep, 2)
-                          .transpose(1, 2) for p in (kp, vp))  # (B, H, S, hd)
-                qt = q.transpose(1, 2)
-                mask = (torch.arange(s, device="cuda")[None, :]
-                        < valid[:, None])[:, None, None, :]
-                sdpa = torch.nn.functional.scaled_dot_product_attention
-                row["library_ms"] = timer.ms(lambda: sdpa(qt, kd, vd,
-                                                          attn_mask=mask))
-                per_row = (kp.data[0, 0].numel() * kp.data.element_size()
-                           + (0 if kp.scale is None
-                              else kp.scale[0, 0].numel() * 2))
-                row["bound_ms"], row["bound_by"] = bound_ms(
-                    2 * rows_read * per_row + q.numel() * 2
-                    + b * hkv * rep * hd * 4 + b * 4,
-                    4.0 * rows_read * hkv * rep * hd)
-                del kd, vd
-            rows.append(row)
-            log(json.dumps(row))
+            suffix = "" if qs == 1 else f" qs{qs}"
+            add(attn_case(torch, timer, compare, kname,
+                          f"B{b} S{s} Hkv{hkv} rep{rep} hd{hd}{suffix}",
+                          q, kp, vp, valid, causal))
+            del kp, vp
+    sf = SPEC_K
+    base = valid_of(serve_valid)
+    _, (kraw, vraw) = attn_inputs(SLOTS, 1024, 1)
+    fk, fv = (torch.randn((SLOTS, sf, hkv, hd), generator=gen, device="cuda")
+              .to(torch.bfloat16) for _ in range(2))
+    for prec in ("int8", "int4"):
+        kp, vp = make_page(kraw, prec, 64), make_page(vraw, prec, 64)
+        for count in range(sf):
+            q = torch.randn((SLOTS, 1, hkv * rep, hd), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            add(attn_case(torch, timer, compare, "decode_attn_fresh",
+                          f"B{SLOTS} S1024 Hkv{hkv} rep{rep} hd{hd} Sf{sf} "
+                          f"count{count}", q, kp, vp, base + count + 1,
+                          fresh=(fk, fv, base), count=count))
     return worst
 
 
@@ -305,13 +401,20 @@ KERNEL_SOURCES = {
              "src/repro/kernels/qmatmul/kernel.py:143"),
     "decode_attn": ("src/repro_torch/csrc/decode_attn.cu",
                     "src/repro/kernels/decode_attn/kernel.py:162"),
+    "decode_attn_window": ("src/repro_torch/csrc/decode_attn.cu",
+                           "src/repro/kernels/decode_attn/kernel.py:94-99"),
+    "decode_attn_fresh": ("src/repro_torch/csrc/decode_attn.cu",
+                          "src/repro/kernels/decode_attn/kernel.py:129-151"),
 }
 # the row of each kernel reported on the kernels line: the serve phase's
 # decode shape (4 slots) for the matmul kernels
 HEADLINE = {"qmatmul": ("wq 3072x3072", "int8", SLOTS),
             "qkv": ("wq|wk|wv 5120x3072", "int8", SLOTS),
             "qmlp": ("swiglu 3072->8192->3072", "int8", SLOTS),
-            "decode_attn": ("B8 S2048 Hkv8 rep3 hd128", "int8", 8)}
+            "decode_attn": ("B8 S2048 Hkv8 rep3 hd128", "int8", 8),
+            "decode_attn_window": ("B8 S2048 Hkv8 rep3 hd128 qs5", "int8", 8),
+            "decode_attn_fresh": ("B4 S1024 Hkv8 rep3 hd128 Sf4 count3",
+                                  "int8", SLOTS)}
 # Limit on the relative L2 distance of one decode step's logits, kernels
 # against plain versions. PERF.md gives the readings that place it: the
 # kernels against the plain versions, and against the plain versions
@@ -392,20 +495,32 @@ def swap_nibbles_one_layer(torch, params) -> dict:
     return {**params, "layers": dataclasses.replace(layers, segments=segs)}
 
 
-def clone_cache(torch, cache):
-    """Deep copy of a slotted cache whose fields may be KVPages."""
-    import dataclasses
-    from repro_torch.quant.kvcache import KVPage
+def window_rel_l2(a, b) -> float:
+    """The largest relative L2 distance over the positions of a verify
+    window's logits (B, s, V): each position is held to the limit."""
+    return max(rel_l2(a[:, i], b[:, i]) for i in range(a.shape[1]))
 
-    def one(x):
-        if isinstance(x, tuple):
-            return tuple(one(p) for p in x)
-        if isinstance(x, KVPage):
-            return dataclasses.replace(
-                x, data=x.data.clone(),
-                scale=None if x.scale is None else x.scale.clone())
-        return x.clone()
-    return type(cache)(*(one(f) for f in cache))
+
+@contextlib.contextmanager
+def noncausal_attention():
+    """A planted fault: every decode attention of the model runs with
+    causal=False, so a verify window's queries see their own future."""
+    from repro_torch.models import attention as ATT
+    saved = ATT.decode_attention
+    ATT.decode_attention = functools.partial(saved, causal=False)
+    try:
+        yield
+    finally:
+        ATT.decode_attention = saved
+
+
+def cache_tensors(cache) -> list:
+    """Every tensor of a cache's K/V fields (page data and scales)."""
+    out = []
+    for field in (cache.k, cache.v):
+        for page in field if isinstance(field, tuple) else (field,):
+            out += [t for t in (page.data, page.scale) if t is not None]
+    return out
 
 
 def serve_full_width(torch, build, report: dict, smoke: bool = False,
@@ -414,6 +529,7 @@ def serve_full_width(torch, build, report: dict, smoke: bool = False,
     import numpy as np
     from repro_torch.configs.registry import get_config
     from repro_torch.models.model import build as build_model
+    from repro_torch.quant.kvcache import clone_cache
     from repro_torch.serving.engine import ServeEngine
     from repro_torch.serving.quantized import explicit_plan, plan_for_variant
     from repro_torch.serving.scheduler import Request
@@ -485,10 +601,8 @@ def serve_full_width(torch, build, report: dict, smoke: bool = False,
                    launches=counts)
         log("serve: " + json.dumps(run))
         runs.append(run)
-    for k, v in launches.items():
-        if v <= 0 and device == "cuda":
-            raise AssertionError(f"kernel {k} never launched on the main path")
-
+        if kv == "int8":
+            base_outs = outs                   # the EWQ non-spec tokens
     # first decode step through the kernels against the plain versions, on
     # the explicit plan's params and an identical int4 cache
     eng = engine
@@ -498,7 +612,7 @@ def serve_full_width(torch, build, report: dict, smoke: bool = False,
     toks = torch.argmax(state.last_logits[:, :cfg.vocab_size], -1)[:, None]
 
     def step_logits(params, plain=False):
-        logits, _ = model.decode_step(params, clone_cache(torch, state.cache),
+        logits, _ = model.decode_step(params, clone_cache(state.cache),
                                       toks, plain=plain)
         return logits.float()
 
@@ -535,12 +649,25 @@ def serve_full_width(torch, build, report: dict, smoke: bool = False,
                   logit_rel_l2_planted_fault=rel_fault,
                   logit_max_abs_diff=err, greedy_agreement=agree,
                   ewq_counts=ewq.counts())
-    if device != "cuda":
-        return launches
+    if device == "cuda":
+        decode_step_times(torch, model, eng, state, toks, report)
+    eng = engine = state = None
+    spec_launches = serve_speculative(torch, build, report, model, params,
+                                      ewq, prompts, base_outs, device)
+    for k, v in spec_launches.items():
+        launches[k] += v
+    for k, v in launches.items():
+        if v <= 0 and device == "cuda":
+            raise AssertionError(f"kernel {k} never launched on the serve "
+                                 "paths")
+    return launches
 
-    # where a decode step's time goes: the same step eagerly (host
-    # dispatch included) and replayed from a CUDA graph (device time only)
-    cache = clone_cache(torch, state.cache)
+
+def decode_step_times(torch, model, eng, state, toks, report: dict) -> None:
+    """Where a decode step's time goes: the same step eagerly (host
+    dispatch included) and replayed from a CUDA graph (device time only)."""
+    from repro_torch.quant.kvcache import clone_cache
+    cache = clone_cache(state.cache)
 
     def step():
         model.decode_step(eng.params, cache, toks)
@@ -561,7 +688,170 @@ def serve_full_width(torch, build, report: dict, smoke: bool = False,
         f"replay); the device is busy {device_ms / eager_ms:.0%} of the "
         f"eager step")
     report["decode_step"] = dict(eager_ms=eager_ms, device_ms=device_ms)
+
+
+def repeat_share(outs) -> float:
+    """Share of generated tokens whose (previous, token) bigram already
+    occurred earlier in the same request: what an ngram lookup can copy."""
+    hits = total = 0
+    for o in outs:
+        toks = [int(t) for t in o.tokens]
+        seen = {tuple(toks[j - 1:j + 1]) for j in range(1, o.prompt_len)}
+        for i in range(o.prompt_len, len(toks)):
+            pair = (toks[i - 1], toks[i])
+            hits += pair in seen
+            total += 1
+            seen.add(pair)
+    return hits / max(total, 1)
+
+
+def serve_speculative(torch, build, report: dict, model, params, plan,
+                      prompts, base_outs, device: str) -> dict:
+    """Phase 4b: the EWQ plan with int8 KV served speculatively
+    (SpecConfig(k=4)), with the int4 self-draft (fused propose) and with
+    the ngram draft; then the window, step and propose readings on the
+    model-draft engine. Returns the launches of both serves."""
+    import numpy as np
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.scheduler import Request
+    from repro_torch.serving.spec import SpecConfig
+    cfg = model.cfg
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    launches = {k: 0 for k in build.LAUNCHES}
+    runs = []
+    for label, source in (("spec-model-draft", "model"),
+                          ("spec-ngram-draft", "ngram")):
+        engine = None                          # free the previous engine
+        if device == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        engine = ServeEngine(model, params, max_seq=1024, plan=plan,
+                             kv_precision="int8", device=device,
+                             spec=SpecConfig(k=SPEC_K, draft_source=source))
+        t0 = time.perf_counter()
+        engine.draft_params                    # the draft, derived once
+        sync()
+        draft_s = time.perf_counter() - t0
+        build.reset_launches()                 # main path: counts from 0
+        outs, stats = engine.serve(
+            [Request(rid=i, prompt=p, max_new_tokens=32)
+             for i, p in enumerate(prompts)], num_slots=SLOTS, chunk=8)
+        sync()
+        counts = dict(build.LAUNCHES)
+        for k, v in counts.items():
+            launches[k] += v
+        for o in outs:
+            gen_toks = o.generated
+            if (len(gen_toks) != 32 or gen_toks.min() < 0
+                    or gen_toks.max() >= cfg.vocab_size
+                    or not np.all(np.isfinite(o.logprobs))):
+                raise AssertionError(f"{label}: bad output for request "
+                                     f"{o.rid}: {gen_toks}")
+        agree = float(np.mean([np.mean(o.generated == b.generated)
+                               for o, b in zip(outs, base_outs)]))
+        run = dict(run=label, kv="int8", k=SPEC_K, requests=len(outs),
+                   generated=stats.generated_tokens,
+                   tokens_per_s=stats.tokens_per_s,
+                   ttft_mean_s=stats.ttft_mean_s,
+                   tpot_p50_s=stats.tpot_p50_s,
+                   decode_chunk_p50_s=stats.decode_gap_p50_s,
+                   wall_s=stats.wall_s, rounds_run=stats.decode_steps,
+                   spec_rounds=stats.spec_rounds,
+                   acceptance_rate=stats.acceptance_rate,
+                   tokens_per_round=stats.tokens_per_round,
+                   draft_derive_s=draft_s,
+                   draft_overhead_bytes=engine.draft_overhead_bytes(),
+                   draft_weight_bytes=engine.draft_weight_bytes(),
+                   weight_bytes=engine.weight_bytes(),
+                   max_memory_allocated=(torch.cuda.max_memory_allocated()
+                                         if device == "cuda" else None),
+                   launches=counts,
+                   launches_per_round={k: v / stats.decode_steps
+                                       for k, v in counts.items()},
+                   greedy_agreement_with_nonspec=agree,
+                   bigram_repeat_share=repeat_share(outs))
+        log("spec serve: " + json.dumps(run))
+        runs.append(run)
+        if source == "model":
+            report["spec_readings"] = spec_readings(torch, model, engine,
+                                                    prompts, device)
+    report["spec_runs"] = runs
     return launches
+
+
+def spec_readings(torch, model, eng, prompts, device: str) -> dict:
+    """On freshly admitted slots: a (K+1)-token verify window through the
+    kernels against the plain versions, and against K+1 single-query
+    decode steps (the check that the causal offsets are right); one fused
+    propose step against the draft's decode step on a clone of the cache,
+    with the real cache unchanged to the byte; and the window run with
+    causal=False, a planted fault the limit must catch."""
+    from repro_torch.models.common import dtype_of
+    from repro_torch.quant.apply import segment_slices
+    from repro_torch.quant.kvcache import clone_cache
+    cfg = model.cfg
+    state = eng.init_decode_state(SLOTS)
+    for slot in range(SLOTS):
+        eng.insert(state, slot, eng.prefill_request(prompts[slot]), 32)
+    gen = torch.Generator(device=device).manual_seed(1)
+    first = torch.argmax(state.last_logits[:, :cfg.vocab_size], -1)
+    window = torch.cat([first[:, None], torch.randint(
+        0, cfg.vocab_size, (SLOTS, SPEC_K), generator=gen, device=device)], 1)
+
+    def verify(plain=False):
+        logits, _ = model.spec_verify(eng.params, clone_cache(state.cache),
+                                      window, plain=plain)
+        return logits.float()
+
+    k_win, p_win = verify(), verify(plain=True)
+    if not bool(torch.isfinite(k_win).all()):
+        raise AssertionError("non-finite verify logits through the kernels")
+    cache, steps = clone_cache(state.cache), []
+    for i in range(SPEC_K + 1):
+        logits, cache = model.decode_step(eng.params, cache,
+                                          window[:, i:i + 1])
+        steps.append(logits.float())
+    steps = torch.cat(steps, dim=1)
+    with noncausal_attention():
+        f_win = verify()
+    draft = eng.draft_params
+    n_draft = segment_slices(draft["layers"])[-1][2]
+    fk = torch.zeros((n_draft, SLOTS, SPEC_K, cfg.num_kv_heads,
+                      cfg.head_dim), dtype=dtype_of(cfg), device=device)
+    before = [t.clone() for t in cache_tensors(state.cache)]
+    p_logits, _, _ = model.draft_propose_step(
+        draft, state.cache, fk, torch.zeros_like(fk), 0, first[:, None])
+    unchanged = all(torch.equal(a, b) for a, b in
+                    zip(before, cache_tensors(state.cache)))
+    d_logits, _ = model.decode_step(draft, clone_cache(state.cache),
+                                    first[:, None])
+    readings = dict(
+        window_vs_plain=window_rel_l2(k_win, p_win),
+        window_vs_steps=window_rel_l2(k_win, steps),
+        propose_vs_step=rel_l2(p_logits.float(), d_logits.float()),
+        window_noncausal_fault=window_rel_l2(f_win, p_win),
+        cache_unchanged_by_propose=unchanged,
+        window_greedy_agreement=float(
+            (k_win.argmax(-1) == p_win.argmax(-1)).float().mean()))
+    log(f"spec: {SPEC_K + 1}-token verify window (largest relative L2 over "
+        f"its positions, limit {LOGIT_REL_L2}): kernels vs plain versions "
+        f"{readings['window_vs_plain']:.4g}; kernels vs {SPEC_K + 1} "
+        f"single-query decode steps {readings['window_vs_steps']:.4g}; "
+        f"fused propose step vs draft decode step on a clone "
+        f"{readings['propose_vs_step']:.4g}, cache unchanged by the propose: "
+        f"{unchanged}; planted fault (causal=False) vs plain versions "
+        f"{readings['window_noncausal_fault']:.4g}")
+    for name in ("window_vs_plain", "window_vs_steps", "propose_vs_step"):
+        if readings[name] > LOGIT_REL_L2:
+            raise AssertionError(f"{name}: relative L2 {readings[name]} "
+                                 f"above {LOGIT_REL_L2}")
+    if not unchanged:
+        raise AssertionError("the fused propose wrote the cache")
+    if readings["window_noncausal_fault"] <= LOGIT_REL_L2:
+        raise AssertionError(
+            f"the logit limit {LOGIT_REL_L2} misses the planted causal=False "
+            f"fault (relative L2 {readings['window_noncausal_fault']})")
+    return readings
 
 
 # ---------------------------------------------------------------------------

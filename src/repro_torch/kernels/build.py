@@ -32,7 +32,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 SOURCES = ("qmatmul", "qmlp", "decode_attn")
 
-LAUNCHES = {"qmatmul": 0, "qkv": 0, "qmlp": 0, "decode_attn": 0}
+# decode_attn_window: a multi-query (verify) window; decode_attn_fresh: with
+# fresh rows (fused draft propose); decode_attn: the single-query step.
+LAUNCHES = {"qmatmul": 0, "qkv": 0, "qmlp": 0, "decode_attn": 0,
+            "decode_attn_window": 0, "decode_attn_fresh": 0}
 
 _libs: dict = {}
 BUILD_INFO: dict = {}
@@ -53,8 +56,8 @@ _SIGNATURES = {
     },
     "decode_attn": {
         "repro_decode_attn_smem": [_I, _I],
-        "repro_decode_attn": [_P, _P, _P, _P, _P, _P, _P,
-                              _I, _I, _I, _I, _I, _I, _I, _P],
+        "repro_decode_attn": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     },
 }
 

@@ -2,20 +2,27 @@
 
 ``decode_attention(q, k, v, valid_len=...)`` is what the model calls on the
 decode path when its cache holds ``KVPage``s. ``q`` is one decode token per
-slot, (B, 1, H, hd); ``k``/``v`` are int8, split-half int4 or bf16 pages of
-one layer, (B, S, ...); ``valid_len`` (B,) counts each slot's valid cache
-rows including the token just written.
+slot (B, 1, H, hd), or a speculative verify window of s = K+1 tokens
+(B, s, H, hd); ``k``/``v`` are int8, split-half int4 or bf16 pages of one
+layer, (B, S, ...); ``valid_len`` (B,) counts each slot's valid cache rows
+including the s rows just written. With ``causal=True`` query i sees the
+rows ``< valid_len - s + 1 + i``; with ``causal=False`` every query sees
+all ``valid_len`` rows (cross-attention).
+
+``fresh_kv=(fresh_k, fresh_v, base)`` adds raw (B, Sf, Hkv, hd) side rows
+at logical positions ``base + j`` without writing the cache: they are
+quantized with the page's own write math (``quantize_kv``), and cache rows
+at positions >= base are masked stale. This is the fused draft propose.
 
 Two implementations side by side:
 
 * the CUDA kernel (``csrc/decode_attn.cu``), launched for tensors on the
-  GPU; it takes only the dense single-query causal form and raises on
-  anything else;
+  GPU; it raises on anything it does not take;
 * ``decode_attention_plain``, which mirrors the JAX package's ``_grouped``
   backend: a chunked online softmax in f32 that dequantizes one KV chunk at
-  a time. Like the TPU kernel, it zeroes V rows at or past valid_len, so a
-  slot with valid_len 0 gives 0 (the reference's jnp backends give the mean
-  of V there; see ROADMAP.md section 3).
+  a time, then the fresh rows as one more block. Like the TPU kernel, it
+  zeroes V rows at or past valid_len. A query that sees no row gives 0 in
+  both (the reference's backends disagree there; see ROADMAP.md section 3).
 
 A tensor on the CPU takes the plain version; ``plain=True`` asks for it on
 the GPU too.
@@ -28,12 +35,13 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.quant.kvcache import KVPage, dequantize_kv
+from repro_torch.quant.kvcache import KVPage, dequantize_kv, quantize_kv
 
 NEG_INF = -1e30
 DEFAULT_KV_CHUNK = 256
 _PREC = {"int8": 0, "int4": 1, "bf16": 2}
-_SMEM_LIMIT = 48 * 1024
+_SMEM_LIMIT = 227 * 1024        # dynamic shared memory a Hopper block can opt into
+_MAX_FRESH = 32                 # fresh rows the kernel's epilogue tile takes
 
 
 def _page_of(x) -> KVPage:
@@ -45,6 +53,16 @@ def _page_of(x) -> KVPage:
                   group=x.shape[-1])
 
 
+def _fresh_page(raw: torch.Tensor, like: KVPage) -> KVPage:
+    """Quantize fresh rows with the page's write math (``update_page``'s
+    quantize-on-insert), so they read exactly what a cache write would have
+    stored."""
+    data, scale = quantize_kv(raw, like.precision, like.group)
+    return KVPage(data=data.to(like.data.dtype), scale=scale,
+                  precision=like.precision, head_dim=raw.shape[-1],
+                  group=like.group)
+
+
 def _slice_rows(page: KVPage, lo: int, hi: int) -> KVPage:
     return KVPage(data=page.data[:, lo:hi],
                   scale=None if page.scale is None else page.scale[:, lo:hi],
@@ -52,11 +70,20 @@ def _slice_rows(page: KVPage, lo: int, hi: int) -> KVPage:
                   group=page.group)
 
 
+def _limits(valid: torch.Tensor, s: int, causal: bool) -> torch.Tensor:
+    """(B, s) rows each query sees: ``valid - s + 1 + i`` or ``valid``."""
+    if not causal:
+        return valid[:, None].expand(valid.shape[0], s)
+    return valid[:, None] - s + 1 + torch.arange(s, device=valid.device)[None]
+
+
 def decode_attention_plain(q: torch.Tensor, kp: KVPage, vp: KVPage,
-                           valid_len: torch.Tensor,
+                           valid_len: torch.Tensor, causal: bool = True,
+                           fresh=None,
                            kv_chunk: int = DEFAULT_KV_CHUNK) -> torch.Tensor:
-    """Chunked online-softmax (multi-)query GQA attention; query i of s sees
-    rows < valid_len - s + 1 + i. Returns (B, s, H, hd) in q's dtype."""
+    """Chunked online-softmax (multi-)query GQA attention. ``fresh`` is
+    ``(fresh_k_page, fresh_v_page, base)`` with pages already quantized.
+    Returns (B, s, H, hd) in q's dtype."""
     b, s, h, d = q.shape
     hkv = kp.num_kv_heads
     rep = h // hkv
@@ -66,98 +93,154 @@ def decode_attention_plain(q: torch.Tensor, kp: KVPage, vp: KVPage,
     qh = q.reshape(b, s, hkv, rep, d).permute(0, 2, 3, 1, 4).float()
     inv_sqrt = 1.0 / torch.sqrt(torch.full((), float(d), dtype=torch.float32,
                                            device=dev))
-    limit = valid[:, None] - s + 1 + torch.arange(s, device=dev)[None, :]
+    limit = _limits(valid, s, causal)
+    cache_limit = limit
+    if fresh is not None:
+        base = fresh[2].to(device=dev, dtype=torch.long).expand(b)
+        cache_limit = torch.minimum(limit, base[:, None])
     m = torch.full((b, hkv, rep, s), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((b, hkv, rep, s), dtype=torch.float32, device=dev)
     acc = torch.zeros((b, hkv, rep, s, d), dtype=torch.float32, device=dev)
-    for lo in range(0, t, kv_chunk):
-        hi = min(t, lo + kv_chunk)
-        kf = dequantize_kv(_slice_rows(kp, lo, hi))        # (B, C, Hkv, hd)
-        vf = dequantize_kv(_slice_rows(vp, lo, hi))
-        pos = torch.arange(lo, hi, device=dev)
-        vf = torch.where((pos[None, :] < valid[:, None])[..., None, None],
-                         vf, torch.zeros_like(vf))
+
+    def update(kpage, vpage, pos, lim):
+        """One online-softmax block over rows at positions ``pos`` (B, C)."""
+        nonlocal m, l, acc
+        kf = dequantize_kv(kpage)                           # (B, C, Hkv, hd)
+        vf = dequantize_kv(vpage)
+        vf = torch.where((pos < valid[:, None])[..., None, None], vf,
+                         torch.zeros_like(vf))
         scores = torch.einsum("bhrsd,bchd->bhrsc", qh, kf) * inv_sqrt
-        mask = pos[None, None, :] < limit[:, :, None]      # (B, s, C)
-        scores = torch.where(mask[:, None, None], scores,
-                             torch.full_like(scores, NEG_INF))
+        mask = (pos[:, None, :] < lim[:, :, None])[:, None, None]  # (B,1,1,s,C)
+        scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
         m_new = torch.maximum(m, scores.amax(dim=-1))
-        p = torch.exp(scores - m_new[..., None])
+        # a masked score has probability exactly 0, so a query that sees no
+        # row keeps l = 0 and gives 0
+        p = torch.where(mask, torch.exp(scores - m_new[..., None]),
+                        torch.zeros_like(scores))
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + torch.einsum("bhrsc,bchd->bhrsd", p, vf)
         m = m_new
+
+    for lo in range(0, t, kv_chunk):
+        hi = min(t, lo + kv_chunk)
+        pos = torch.arange(lo, hi, device=dev)[None].expand(b, hi - lo)
+        update(_slice_rows(kp, lo, hi), _slice_rows(vp, lo, hi), pos,
+               cache_limit)
+    if fresh is not None:
+        fkp, fvp, _ = fresh
+        sf = fkp.data.shape[1]
+        pos = base[:, None] + torch.arange(sf, device=dev)[None]
+        update(fkp, fvp, pos, limit)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d).to(q.dtype)
 
 
+def _check_pages(kp: KVPage, vp: KVPage, b: int, rows: int, hkv: int, d: int,
+                 dev, what: str) -> list:
+    """The kernel's layout: contiguous pages on ``dev``. Returns the
+    tensors the kernel reads: K data, K scales, V data, V scales (a bf16
+    page passes its data in place of the scales it does not have)."""
+    f = hkv * d
+    want = {"int8": (torch.int8, (b, rows, hkv, d)),
+            "int4": (torch.int8, (b, rows, f // 2)),
+            "bf16": (torch.bfloat16, (b, rows, hkv, d))}[kp.precision]
+    out = []
+    for page in (kp, vp):
+        if (page.data.dtype, tuple(page.data.shape)) != want:
+            raise ValueError(f"decode_attn: {kp.precision} {what} data must "
+                             f"be {want}, got {page.data.dtype} "
+                             f"{tuple(page.data.shape)}")
+        scale = page.data
+        if page.precision != "bf16":
+            if (page.scale is None or page.scale.dtype != torch.bfloat16
+                    or tuple(page.scale.shape) != (b, rows, f // page.group)):
+                raise ValueError(f"decode_attn: {what} scales must be bf16 "
+                                 f"({b}, {rows}, {f // page.group})")
+            scale = page.scale
+        for t in (page.data, scale):
+            if not t.is_cuda or t.device != dev or not t.is_contiguous():
+                raise ValueError(f"decode_attn: {what} pages must be "
+                                 f"contiguous CUDA tensors on {dev}")
+        out += [page.data, scale]
+    return out
+
+
 def decode_attn_cuda(q: torch.Tensor, kp: KVPage, vp: KVPage,
-                     valid_len: torch.Tensor) -> torch.Tensor:
-    """The decode attention kernel: dense pages, one query per slot,
-    causal. Returns (B, 1, H, hd) in q's dtype."""
+                     valid_len: torch.Tensor, causal: bool = True,
+                     fresh=None) -> torch.Tensor:
+    """The decode attention kernel: dense pages, s >= 1 queries per slot,
+    causal or not, with optional quantized fresh rows ``(fresh_k_page,
+    fresh_v_page, base)``. Returns (B, s, H, hd) in q's dtype."""
     b, s, h, d = q.shape
-    if s != 1:
-        raise NotImplementedError(
-            "the decode attention kernel takes one query per slot; the "
-            "multi-query window is still to be ported (ROADMAP.md)")
-    if kp.precision != vp.precision or kp.group != vp.group:
-        raise ValueError("K and V pages must share precision and group")
+    dev = q.device
     if kp.precision not in _PREC:
         raise ValueError(f"unsupported KV precision {kp.precision!r}")
+    if kp.precision != vp.precision or kp.group != vp.group:
+        raise ValueError("decode_attn: K and V pages must share precision "
+                         "and group")
+    if fresh is not None:
+        fkp, fvp, base = fresh
+        if (fkp.precision, fkp.group, fvp.precision, fvp.group) != \
+                (kp.precision, kp.group) * 2:
+            raise ValueError("decode_attn: fresh rows must share the cache "
+                             "pages' precision and group")
+        if not 1 <= fkp.data.shape[1] <= _MAX_FRESH:
+            raise ValueError(f"decode_attn: the kernel takes 1 to "
+                             f"{_MAX_FRESH} fresh rows, got "
+                             f"{fkp.data.shape[1]}")
+    if not q.is_cuda:
+        raise ValueError("decode_attn: q must be a CUDA tensor")
     hkv = kp.num_kv_heads
     if h % hkv:
         raise ValueError(f"{h} query heads do not group over {hkv} KV heads")
     rep = h // hkv
     seq = kp.data.shape[1]
-    f = hkv * d
-    dev = q.device
-    want_data = {"int8": (torch.int8, (b, seq, hkv, d)),
-                 "int4": (torch.int8, (b, seq, f // 2)),
-                 "bf16": (torch.bfloat16, (b, seq, hkv, d))}[kp.precision]
-    for page in (kp, vp):
-        if (page.data.dtype, tuple(page.data.shape)) != want_data:
-            raise ValueError(f"decode_attn: {kp.precision} page data must be "
-                             f"{want_data}, got {page.data.dtype} "
-                             f"{tuple(page.data.shape)}")
-        tensors = [page.data]
-        if page.precision != "bf16":
-            if (page.scale is None or page.scale.dtype != torch.bfloat16
-                    or tuple(page.scale.shape) != (b, seq, f // page.group)):
-                raise ValueError("decode_attn: scales must be bf16 "
-                                 f"({b}, {seq}, {f // page.group})")
-            tensors.append(page.scale)
-        for t in tensors:
-            if not t.is_cuda or t.device != dev or not t.is_contiguous():
-                raise ValueError("decode_attn: pages must be contiguous on "
-                                 f"{dev}")
+    cache = _check_pages(kp, vp, b, seq, hkv, d, dev, "cache")
     lib = build.library("decode_attn")
-    if lib.repro_decode_attn_smem(rep, d) > _SMEM_LIMIT:
-        raise ValueError(f"decode_attn: rep={rep}, hd={d} exceeds the "
-                         "kernel's shared-memory tile")
-    qf = q.reshape(b, hkv, rep, d).float().contiguous()
+    if lib.repro_decode_attn_smem(rep * s, d) > _SMEM_LIMIT:
+        raise ValueError(f"decode_attn: rep={rep} x s={s} query rows at "
+                         f"hd={d} exceed the kernel's shared memory")
+    sf = 0
+    fresh_ptrs = [0, 0, 0, 0, 0]
+    if fresh is not None:
+        sf = fkp.data.shape[1]
+        fresh_t = _check_pages(fkp, fvp, b, sf, hkv, d, dev, "fresh")
+        base = base.to(device=dev, dtype=torch.int32).expand(b).contiguous()
+        fresh_ptrs = [t.data_ptr() for t in fresh_t] + [base.data_ptr()]
+    qf = (q.reshape(b, s, hkv, rep, d).permute(0, 2, 3, 1, 4).float()
+          .contiguous())                                  # (B, Hkv, rep, s, hd)
     valid = valid_len.to(device=dev, dtype=torch.int32).expand(b).contiguous()
-    out = torch.empty((b, hkv, rep, d), dtype=torch.float32, device=dev)
-    if b == 0:
-        return out.reshape(b, 1, h, d).to(q.dtype)
-    ks = kp.scale if kp.scale is not None else kp.data
-    vs = vp.scale if vp.scale is not None else vp.data
-    build.LAUNCHES["decode_attn"] += 1
-    build.check(lib.repro_decode_attn(
-        qf.data_ptr(), kp.data.data_ptr(), ks.data_ptr(), vp.data.data_ptr(),
-        vs.data_ptr(), valid.data_ptr(), out.data_ptr(), b, seq, hkv, rep, d,
-        kp.group, _PREC[kp.precision], build.stream_ptr(dev)), "decode_attn")
-    return out.reshape(b, 1, h, d).to(q.dtype)
+    out = torch.empty((b, hkv, rep, s, d), dtype=torch.float32, device=dev)
+    if b > 0:
+        name = ("decode_attn_fresh" if fresh is not None else
+                "decode_attn_window" if s > 1 else "decode_attn")
+        build.LAUNCHES[name] += 1
+        build.check(lib.repro_decode_attn(
+            qf.data_ptr(), *(t.data_ptr() for t in cache), valid.data_ptr(),
+            *fresh_ptrs, out.data_ptr(), b, seq, hkv, rep, s, d, kp.group,
+            _PREC[kp.precision], int(causal), sf, build.stream_ptr(dev)),
+            name)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d).to(q.dtype)
 
 
 def decode_attention(q: torch.Tensor, k, v, *,
                      valid_len: Optional[torch.Tensor] = None,
+                     causal: bool = True, fresh_kv=None,
                      plain: bool = False) -> torch.Tensor:
-    """Single-query GQA attention of q (B, 1, H, hd) against one layer's
-    cached K/V (KVPage, or raw (B, S, Hkv, hd)). Returns (B, 1, H, hd)."""
+    """(Multi-)query GQA attention of q (B, s, H, hd) against one layer's
+    cached K/V (KVPage, or raw (B, S, Hkv, hd)). ``fresh_kv=(fresh_k,
+    fresh_v, base)``: raw (B, Sf, Hkv, hd) rows at positions ``base + j``
+    (scalar or (B,)); ``valid_len`` counts them too. Returns (B, s, H, hd)."""
     kp, vp = _page_of(k), _page_of(v)
     if valid_len is None:
         valid_len = torch.full((q.shape[0],), kp.data.shape[1],
                                dtype=torch.int32, device=q.device)
+    fresh = None
+    if fresh_kv is not None:
+        fk, fv, base = fresh_kv
+        fresh = (_fresh_page(fk, kp), _fresh_page(fv, vp),
+                 torch.as_tensor(base, device=q.device))
     if q.is_cuda and not plain:
-        return decode_attn_cuda(q, kp, vp, valid_len)
-    return decode_attention_plain(q, kp, vp, valid_len)
+        return decode_attn_cuda(q, kp, vp, valid_len, causal, fresh)
+    return decode_attention_plain(q, kp, vp, valid_len, causal, fresh)

@@ -3,6 +3,8 @@
     python -m repro_torch.launch.serve --arch llama3.2-3b --variant 4bit/8bit \
         --kv-precision int8 --num-requests 8 --num-slots 4 --chunk 8
     python -m repro_torch.launch.serve --arch llama3.2-3b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch llama3.2-3b --spec-k 4 \
+        --spec-draft model     # self-speculative decoding, int4 self-draft
 
 Weights are random, drawn from a seeded ``torch.Generator`` at the JAX
 package's init scales (real checkpoints are not in the repository), so the
@@ -22,6 +24,7 @@ from repro_torch.models.model import build
 from repro_torch.serving.engine import ServeEngine, resolve_device
 from repro_torch.serving.quantized import plan_for_variant
 from repro_torch.serving.scheduler import synthetic_stream
+from repro_torch.serving.spec import SpecConfig
 
 
 def main(argv=None) -> dict:
@@ -43,6 +46,14 @@ def main(argv=None) -> dict:
     ap.add_argument("--arrival-rate", type=float, default=0.0)
     ap.add_argument("--max-seq", type=int, default=0,
                     help="cache depth per slot (0: prompt + 1.25 x max-new)")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="speculative decoding: draft tokens per round "
+                         "(0 disables; the all-int4 draft is derived from "
+                         "the plan and shares payloads with the target)")
+    ap.add_argument("--spec-draft", default="model",
+                    choices=("model", "ngram"),
+                    help="with --spec-k: 'model' drafts with the int4 "
+                         "self-draft; 'ngram' proposes by prompt lookup")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="default: cuda; 'cpu' runs the plain versions")
@@ -59,9 +70,13 @@ def main(argv=None) -> dict:
     if plan is not None:
         print(f"plan ({args.variant}): {plan.counts()}  "
               f"[{time.perf_counter() - t0:.2f} s]")
-    max_seq = args.max_seq or (args.prompt_len + int(args.max_new * 1.25) + 1)
+    spec = (SpecConfig(k=args.spec_k, draft_source=args.spec_draft)
+            if args.spec_k > 0 else None)
+    max_seq = args.max_seq or (args.prompt_len + int(args.max_new * 1.25) + 1
+                               + args.spec_k)   # verify-window headroom
     engine = ServeEngine(model, params, max_seq=max_seq, plan=plan,
-                         kv_precision=args.kv_precision, device=device)
+                         kv_precision=args.kv_precision, spec=spec,
+                         device=device)
     del params
     reqs = synthetic_stream(args.num_requests, vocab_size=cfg.vocab_size,
                             prompt_len=args.prompt_len,
@@ -76,6 +91,12 @@ def main(argv=None) -> dict:
                   ttft_mean_s=stats.ttft_mean_s,
                   weight_bytes=engine.weight_bytes(),
                   kv_bytes_per_slot=engine.kv_bytes_per_slot())
+    if spec is not None:
+        report.update(spec_k=spec.k, spec_draft=spec.draft_source,
+                      spec_rounds=stats.spec_rounds,
+                      acceptance_rate=stats.acceptance_rate,
+                      tokens_per_round=stats.tokens_per_round,
+                      draft_overhead_bytes=engine.draft_overhead_bytes())
     for k, v in report.items():
         print(f"{k}: {v}")
     return report

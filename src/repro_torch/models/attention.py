@@ -112,15 +112,22 @@ def attention(p, x, *, num_heads: int, num_kv_heads: int, head_dim: int,
               cache: Optional[KVCache] = None,
               cache_pos: Optional[torch.Tensor] = None,
               valid_bias: Optional[torch.Tensor] = None,
+              fresh_kv: Optional[tuple] = None,
               emit_kv: bool = False, plain: bool = False):
     """Causal self-attention.
 
     * prefill (``cache=None``): full or chunked causal attention; with
       ``emit_kv`` the layer's raw K/V come back as a KVCache.
-    * decode (``cache`` given, x is (B, 1, D)): K/V are written into the
+    * decode (``cache`` given, x is (B, s, D)): K/V are written into the
       cache IN PLACE at ``cache_pos`` (scalar or (B,) per slot), then a raw
       cache is attended with ``valid_bias`` and a quantized cache
-      (``KVPage``, quantize-on-write) through the decode attention kernel.
+      (``KVPage``, quantize-on-write) through the decode attention kernel;
+      s > 1 is a verify window with per-query causal offsets.
+    * read-only decode (fused draft propose): ``cache`` and
+      ``fresh_kv=(fresh_k, fresh_v, count)`` given. The new K/V go into row
+      ``count`` of the raw (B, K, Hkv, hd) side buffers (in place), never
+      into the cache; decode attention sweeps the cache and the buffer rows
+      at positions ``cache_pos + j``. The buffers come back as the cache.
     Returns (out, cache_or_None)."""
     b, s, _ = x.shape
     yq, yk, yv = fused_qkv(x, p["wq"], p["wk"], p["wv"], plain=plain)
@@ -134,7 +141,15 @@ def attention(p, x, *, num_heads: int, num_kv_heads: int, head_dim: int,
         q = rope(q, positions, rope_theta)
         k = rope(k, positions, rope_theta)
 
-    if cache is not None:
+    if cache is not None and fresh_kv is not None:
+        fk, fv, count = fresh_kv
+        fk[:, count:count + s] = k.to(fk.dtype)
+        fv[:, count:count + s] = v.to(fv.dtype)
+        out = decode_attention(q, cache.k, cache.v,
+                               valid_len=cache_pos + count + s,
+                               fresh_kv=(fk, fv, cache_pos), plain=plain)
+        new_cache = KVCache(k=fk, v=fv)
+    elif cache is not None:
         if KV.is_kv_page(cache.k):
             KV.update_page(cache.k, k, cache_pos)
             KV.update_page(cache.v, v, cache_pos)

@@ -55,6 +55,32 @@ class Model:
         return self.module.decode_step(params, cache, tokens, self.cfg,
                                        plain=plain)
 
+    # ---- speculative decoding -----------------------------------------------
+    @property
+    def supports_fused_propose(self) -> bool:
+        """True when the family has a read-only draft decode step."""
+        return hasattr(self.module, "draft_propose_step")
+
+    def draft_propose_step(self, params, cache, fresh_k, fresh_v, count,
+                           tokens, *, plain: bool = False):
+        """One read-only draft decode step: K/V go to row ``count`` of the
+        (L_draft, B, K, Hkv, hd) side buffers, never to the cache. Returns
+        (logits, fresh_k, fresh_v)."""
+        return self.module.draft_propose_step(params, cache, fresh_k,
+                                              fresh_v, count, tokens,
+                                              self.cfg, plain=plain)
+
+    def spec_verify(self, params, cache, tokens, *, plain: bool = False):
+        """Score a (B, K+1) verify window in one multi-query decode step.
+        Returns (logits (B, K+1, V_pad), snap) for ``spec_commit``."""
+        return self.module.spec_verify(params, cache, tokens, self.cfg,
+                                       plain=plain)
+
+    def spec_commit(self, snap, committed):
+        """Commit ``committed`` (B,) tokens of a verify window; 0 rolls a
+        slot back to its pre-verify cache position."""
+        return self.module.spec_commit(snap, committed)
+
     # ---- slotted decode (continuous batching) -----------------------------
     @property
     def cache_batch_axes(self):

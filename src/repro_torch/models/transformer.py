@@ -18,7 +18,8 @@ from repro_torch.models.common import (decode_positions, dtype_of,
                                        embed_init, embed_lookup, lm_head,
                                        norm)
 from repro_torch.quant.apply import segment_slices
-from repro_torch.quant.kvcache import is_kv_page, kv_layer, kv_segment
+from repro_torch.quant.kvcache import (is_kv_page, kv_layer, kv_segment,
+                                       kv_take_layers)
 from repro_torch.tree import tree_index, tree_leaves
 
 
@@ -64,14 +65,15 @@ def init(cfg, gen: torch.Generator, device) -> dict:
 
 
 def _layer(p, h, positions, cfg, cache_kv=None, cache_pos=None,
-           valid_bias=None, emit_kv=False, plain=False):
+           valid_bias=None, fresh_kv=None, emit_kv=False, plain=False):
     a, kv = A.attention(
         p["attn"], norm(h, p.get("ln1"), cfg),
         num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
         head_dim=cfg.head_dim, positions=positions,
         rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
         norm_eps=cfg.norm_eps, cache=cache_kv, cache_pos=cache_pos,
-        valid_bias=valid_bias, emit_kv=emit_kv, plain=plain)
+        valid_bias=valid_bias, fresh_kv=fresh_kv, emit_kv=emit_kv,
+        plain=plain)
     h = h + a
     m = M.mlp(p["mlp"], norm(h, p.get("ln2"), cfg), cfg.mlp_act, plain)
     return h + m, kv
@@ -141,6 +143,52 @@ def decode_step(params, cache: DecodeCache, tokens: torch.Tensor, cfg, *,
                           plain=plain)
     logits = _head(params, h, cfg, plain)
     return logits, cache._replace(pos=cache.pos + s)
+
+
+def draft_propose_step(params, cache: DecodeCache, fresh_k: torch.Tensor,
+                       fresh_v: torch.Tensor, count: int,
+                       tokens: torch.Tensor, cfg, *, plain: bool = False):
+    """One READ-ONLY draft decode step (the fused speculative propose): the
+    cache is only read. Each layer's new K/V land in row ``count`` of the
+    raw side buffers ``fresh_k``/``fresh_v`` ((L_draft, B, K, Hkv, hd),
+    written in place), and decode attention sweeps cache and buffer in one
+    pass with buffer rows at positions ``cache.pos + j``. ``params`` may be
+    a draft truncated to its first layers; its segments each sit inside
+    one cache page (``kv_take_layers``). tokens (B, 1) -> (logits
+    (B, 1, V_pad), fresh_k, fresh_v)."""
+    _require_dense(cfg)
+    b, s = tokens.shape
+    h = embed_lookup(params["embed"]["tok"], tokens, dtype_of(cfg))
+    positions = decode_positions(cache.pos + count, b, s)
+    for part, lo, hi in segment_slices(params["layers"]):
+        kseg = kv_take_layers(cache.k, lo, hi)
+        vseg = kv_take_layers(cache.v, lo, hi)
+        for i in range(hi - lo):
+            h, _ = _layer(tree_index(part, i), h, positions, cfg,
+                          cache_kv=A.KVCache(k=kv_layer(kseg, i),
+                                             v=kv_layer(vseg, i)),
+                          cache_pos=cache.pos,
+                          fresh_kv=(fresh_k[lo + i], fresh_v[lo + i], count),
+                          plain=plain)
+    return _head(params, h, cfg, plain), fresh_k, fresh_v
+
+
+def spec_verify(params, cache: DecodeCache, tokens: torch.Tensor, cfg, *,
+                plain: bool = False):
+    """Score a verify window ``tokens`` (B, K+1) in one multi-query decode
+    step (rows written in place at ``cache.pos``). Returns (logits
+    (B, K+1, V_pad), snap); ``spec_commit(snap, committed)`` rolls each
+    slot back to its accepted length by position arithmetic alone: rows
+    past the commit point stay in memory, masked invalid."""
+    logits, new_cache = decode_step(params, cache, tokens, cfg, plain=plain)
+    return logits, (new_cache, tokens.shape[1])
+
+
+def spec_commit(snap, committed: torch.Tensor) -> DecodeCache:
+    """Keep ``committed`` (B,) rows of the verify window (0 rolls a slot
+    all the way back to its pre-verify position)."""
+    cache, s = snap
+    return cache._replace(pos=cache.pos - s + committed.to(cache.pos.dtype))
 
 
 def block_params(params) -> list[Any]:

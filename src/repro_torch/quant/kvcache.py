@@ -250,6 +250,48 @@ def kv_segment(field, si: int, lo: int, hi: int):
     return field[lo:hi]
 
 
+def _slice_layers(field, lo: int, hi: int):
+    if isinstance(field, KVPage):
+        return dataclasses.replace(
+            field, data=field.data[lo:hi],
+            scale=None if field.scale is None else field.scale[lo:hi])
+    return field[lo:hi]
+
+
+def kv_take_layers(field, lo: int, hi: int):
+    """Read-only view of cache layers [lo, hi) from any container (raw
+    stack, single page, page tuple). Unlike ``kv_segment`` the range need
+    not BE a page, only sit inside one: a truncated draft's last segment
+    ends inside the page of the target segment it was cut from."""
+    if isinstance(field, tuple):
+        plo = 0
+        for page in field:
+            phi = plo + page.data.shape[0]
+            if plo <= lo and hi <= phi:
+                return _slice_layers(page, lo - plo, hi - plo)
+            plo = phi
+        raise ValueError(
+            f"layer range [{lo},{hi}) straddles KV page boundaries (page "
+            f"lengths {[p.data.shape[0] for p in field]}): draft segments "
+            f"must refine the segmentation the cache pages were cut at")
+    return _slice_layers(field, lo, hi)
+
+
+def clone_cache(cache):
+    """Deep copy of a family cache NamedTuple whose fields may be raw
+    tensors, KVPages or tuples of KVPages (page writes are in place, so a
+    scratch decode runs on a clone)."""
+    def one(x):
+        if isinstance(x, tuple):
+            return tuple(one(p) for p in x)
+        if isinstance(x, KVPage):
+            return dataclasses.replace(
+                x, data=x.data.clone(),
+                scale=None if x.scale is None else x.scale.clone())
+        return x.clone()
+    return type(cache)(*(one(f) for f in cache))
+
+
 def kv_layer(seg_field, i: int):
     """Layer ``i`` of a segment's cache field (a view)."""
     if isinstance(seg_field, KVPage):

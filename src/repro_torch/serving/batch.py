@@ -10,6 +10,7 @@ the device, and the helpers below update it in place:
   (B,) vector); with a quantized KV plan its K/V fields are KVPages and
   admission quantizes the prefilled K/V on insert;
 * ``insert_request`` overwrites one slot with a prefilled request;
+  ``commit_tokens`` appends a speculative round's tokens;
   ``release_slot`` drops the slot's active flag.
 
 The sampling controls are also mirrored on the host (``host_*``), so the
@@ -109,6 +110,32 @@ def insert_request(model, state: DecodeState, slot: int,
     state.host_temperature[slot] = temperature
     state.host_top_k[slot] = top_k
     state.host_top_p[slot] = top_p
+    return state
+
+
+def commit_tokens(state: DecodeState, cand: torch.Tensor,
+                  cand_lp: torch.Tensor, counts: torch.Tensor) -> DecodeState:
+    """Append up to K+1 tokens per slot in one step (speculative commit).
+    ``cand``/``cand_lp``: (B, K+1) candidate tokens and their
+    chosen-token logprobs; ``counts`` (B,): how many leading candidates
+    each slot keeps (0 for done and empty slots). Candidate j lands at
+    ``lengths[slot] + j``; ``lengths`` advances by ``counts``. The caller
+    handles done flags and the cache rollback."""
+    dev = cand.device
+    jidx = torch.arange(cand.shape[1], device=dev)[None, :]
+    wpos = state.lengths[:, None] + jidx                      # (B, K+1)
+    # (B, K+1, S_max): candidate j goes to column wpos[:, j]; positions
+    # past the buffer are dropped, as a JAX scatter drops them
+    at = ((torch.arange(state.tokens.shape[1], device=dev)[None, None, :]
+           == wpos[:, :, None]) & (jidx < counts[:, None])[:, :, None])
+    hit = at.any(dim=1)
+    zero = torch.zeros((), dtype=cand_lp.dtype, device=dev)
+    toks = torch.where(at, cand[:, :, None], 0).sum(dim=1)
+    lps = torch.where(at, cand_lp[:, :, None], zero).sum(dim=1)
+    state.tokens = torch.where(hit, toks.to(state.tokens.dtype), state.tokens)
+    state.logprobs = torch.where(hit, lps.to(state.logprobs.dtype),
+                                 state.logprobs)
+    state.lengths = state.lengths + counts.to(state.lengths.dtype)
     return state
 
 

@@ -16,6 +16,12 @@ Structure:
     Scheduler admits queued requests into freed slots and harvests finished
     ones (one device read per chunk).
   * ``generate`` drains one fixed batch through the same loop.
+  * With ``spec=SpecConfig(k=...)`` a chunk runs ``steps`` self-speculative
+    draft-propose / target-verify rounds instead of single-token steps
+    (``serving/spec``); the all-int4 draft is derived from the plan by
+    entropy order and shares the target's tensors where the plan already
+    chose int4 or lower. Greedy output is token-identical to the non-spec
+    engine.
 
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"`` (the
 tests do, and then every kernel's plain version runs). With no GPU and no
@@ -34,13 +40,14 @@ import torch
 from repro_torch.core.policy import QuantPlan
 from repro_torch.quant.apply import (SegmentedParams, segment_slices,
                                      tree_nbytes)
-from repro_torch.quant.compiler import compile_kv_plan
+from repro_torch.quant.compiler import compile_draft_plan, compile_kv_plan
 from repro_torch.quant.kvcache import (DEFAULT_KV_GROUP, KVPlan,
                                        kv_field_nbytes, quantize_model_cache)
 from repro_torch.serving import batch as B
 from repro_torch.serving import sampling as S
 from repro_torch.serving.quantized import apply_plan_to_params
 from repro_torch.serving.scheduler import Request, RequestOutput, Scheduler
+from repro_torch.serving.spec import SpecConfig, SpecMetrics, make_spec_round
 
 DEFAULT_CHUNK = 8
 
@@ -85,6 +92,12 @@ class ServeStats:
     ttft_p50_s: float = 0.0
     tpot_p50_s: float = 0.0    # per-output-token latency after the first
     decode_gap_p50_s: float = 0.0   # wall seconds per decode chunk
+    # speculative decoding (spec=SpecConfig(...) engines only)
+    spec_rounds: int = 0       # draft-propose/verify rounds executed
+    draft_proposed: int = 0    # draft tokens proposed to live slots
+    draft_accepted: int = 0    # draft tokens verified AND committed
+    acceptance_rate: float = 0.0   # accepted / proposed
+    tokens_per_round: float = 0.0  # committed tokens per round
 
 
 class ServeEngine:
@@ -95,7 +108,7 @@ class ServeEngine:
                  plan: Optional[QuantPlan] = None, group: int = 128,
                  eos_id: Optional[int] = None, pad_id: int = 0,
                  kv_precision="bf16", kv_group: Optional[int] = None,
-                 device=None):
+                 spec: Optional[SpecConfig] = None, device=None):
         self.device = resolve_device(device)
         self.model = model
         self.cfg = model.cfg
@@ -103,6 +116,8 @@ class ServeEngine:
         self.plan = plan
         self.eos_id = eos_id
         self.pad_id = pad_id
+        self.spec = spec
+        self._draft = None            # compiled at first use
         if plan is not None:
             params = apply_plan_to_params(model, params, plan, group)
         self.params = params
@@ -202,13 +217,67 @@ class ServeEngine:
                                                   nxt[:, None].long())
         st.last_logits = logits[:, 0].float()
 
-    def decode_chunk(self, state: B.DecodeState,
-                     steps: int = DEFAULT_CHUNK) -> B.DecodeState:
+    def decode_chunk(self, state: B.DecodeState, steps: int = DEFAULT_CHUNK):
         """Run ``steps`` decode steps over every slot; does not wait for
-        the device."""
+        the device. A spec engine runs ``steps`` propose/verify rounds and
+        returns ``(state, SpecMetrics)``; a plain engine returns the
+        state."""
+        if self.spec is not None:
+            run = make_spec_round(
+                self.model, self.spec.k, steps, self.eos_id,
+                fused_propose=(self.spec.fused_propose
+                               and self.model.supports_fused_propose),
+                draft_source=self.spec.draft_source)
+            return run(self.params, self.draft_params, state)
         for _ in range(steps):
             self._step(state)
         return state
+
+    # -- self-speculative decoding ----------------------------------------------
+    def _ensure_draft(self):
+        """Compile the all-int4 draft at first use."""
+        if self._draft is None:
+            self._draft = compile_draft_plan(
+                self.model, self.params, self.plan, self.spec.draft_group,
+                draft_layers=self.spec.draft_layers)
+        return self._draft
+
+    @property
+    def draft_params(self):
+        # the ngram draft proposes from committed context: no draft model
+        # exists, and the round never reads these params
+        if self.spec is not None and self.spec.draft_source == "ngram":
+            return self.params
+        return self._ensure_draft().params
+
+    def draft_overhead_bytes(self) -> float:
+        """Draft-only weight bytes (blocks the plan left raw/int8,
+        requantized to int4 for the draft); the rest is shared with the
+        target."""
+        if self.spec is not None and self.spec.draft_source == "ngram":
+            return 0.0
+        return float(self._ensure_draft().overhead_bytes)
+
+    def draft_weight_bytes(self) -> float:
+        """Effective weight bytes ONE draft decode step reads (shared
+        payloads and draft-only copies)."""
+        if self.spec is not None and self.spec.draft_source == "ngram":
+            return 0.0
+        return self._weight_bytes(self.draft_params)
+
+    def _slot_seq_budget(self, prompt_len: int, max_new: int) -> int:
+        """Deepest cache row a request can write, plus 1: a spec verify
+        writes ``k`` rows past the last committed token."""
+        k = self.spec.k if self.spec is not None else 0
+        return prompt_len + max_new + k
+
+    def _spec_budget_check(self, prompt_len: int, max_new: int) -> None:
+        need = self._slot_seq_budget(prompt_len, max_new)
+        if need > self.max_seq:
+            raise ValueError(
+                f"speculative serving needs max_seq >= prompt + max_new + k "
+                f"= {need} (k={self.spec.k} verify headroom); max_seq is "
+                f"{self.max_seq}")
 
     # -- generation ---------------------------------------------------------------
     @torch.no_grad()
@@ -223,7 +292,10 @@ class ServeEngine:
         toks = self._tokens(prompts)
         b, p = toks.shape
         total = p + max_new_tokens
-        assert total <= self.max_seq, (total, self.max_seq)
+        if self.spec is not None:
+            self._spec_budget_check(p, max_new_tokens)
+        else:
+            assert total <= self.max_seq, (total, self.max_seq)
         state = self.init_decode_state(b, seed)
         cache, last = self.prefill(toks.cpu().numpy())
         for i in range(b):
@@ -234,6 +306,8 @@ class ServeEngine:
                                                          max_new_tokens)
         steps = 0
         while True:
+            # a spec round commits >= 1 token per live slot, so
+            # max_new_tokens rounds suffice
             self.decode_chunk(state, chunk)
             steps += chunk
             if steps >= max_new_tokens or bool(state.done.all()):
@@ -250,14 +324,20 @@ class ServeEngine:
         """Drain a request stream with continuous batching: admit ready
         requests into free slots (monolithic prefill + insert), run one
         decode chunk, harvest finished slots; repeat. Outputs come back
-        ordered by request id."""
+        ordered by request id. On a spec engine a chunk is ``chunk``
+        propose/verify rounds (1 to k+1 tokens per live slot each) and the
+        stats carry the acceptance counters."""
         if chunk < 1 or num_slots < 1:
             raise ValueError("chunk and num_slots must be >= 1")
         t_start = time.perf_counter()
         sched = Scheduler(num_slots)
         for r in requests:
-            assert len(r.prompt) + r.max_new_tokens <= self.max_seq, r.rid
+            if self.spec is not None:
+                self._spec_budget_check(len(r.prompt), r.max_new_tokens)
+            else:
+                assert len(r.prompt) + r.max_new_tokens <= self.max_seq, r.rid
             sched.submit(r)
+        spec_m = SpecMetrics.zeros(self.device)
         state = self.init_decode_state(num_slots, seed)
         clock, admissions, generated = 0, 0, 0
         occupancy: list[float] = []
@@ -283,7 +363,11 @@ class ServeEngine:
                 continue
             occupancy.append(sched.num_active / num_slots)
             t0 = time.perf_counter()
-            self.decode_chunk(state, chunk)
+            if self.spec is not None:
+                state, m = self.decode_chunk(state, chunk)
+                spec_m = spec_m.plus(m)
+            else:
+                self.decode_chunk(state, chunk)
             clock += chunk
             done_np = state.done.cpu().numpy()      # the one device read
             len_np = state.lengths.cpu().numpy()
@@ -308,6 +392,7 @@ class ServeEngine:
         outputs = sorted(sched.finished, key=lambda o: o.rid)
         ttfts = [o.ttft_s for o in outputs if o.ttft_s is not None]
         tpots = [o.tpot_s for o in outputs if o.tpot_s is not None]
+        proposed, accepted, committed, rounds = (int(v) for v in spec_m)
         stats = ServeStats(
             decode_steps=len(occupancy) * chunk, generated_tokens=generated,
             occupancy=float(np.mean(occupancy)) if occupancy else 0.0,
@@ -316,7 +401,11 @@ class ServeEngine:
             ttft_mean_s=float(np.mean(ttfts)) if ttfts else 0.0,
             ttft_p50_s=float(np.median(ttfts)) if ttfts else 0.0,
             tpot_p50_s=float(np.median(tpots)) if tpots else 0.0,
-            decode_gap_p50_s=float(np.median(gaps)) if gaps else 0.0)
+            decode_gap_p50_s=float(np.median(gaps)) if gaps else 0.0,
+            spec_rounds=rounds, draft_proposed=proposed,
+            draft_accepted=accepted,
+            acceptance_rate=accepted / proposed if proposed else 0.0,
+            tokens_per_round=committed / rounds if rounds else 0.0)
         return outputs, stats
 
     # -- accounting ----------------------------------------------------------------
@@ -329,10 +418,11 @@ class ServeEngine:
         return float(sum(kv_field_nbytes(getattr(cache, name))
                          for name in self.model.kv_cache_fields))
 
+    @staticmethod
+    def _weight_bytes(params) -> float:
+        return sum(v.nbytes_effective() if isinstance(v, SegmentedParams)
+                   else tree_nbytes(v) for v in params.values())
+
     def weight_bytes(self) -> float:
         """Effective weight bytes (ternary counted at 1.58 bits)."""
-        total = 0.0
-        for v in self.params.values():
-            total += (v.nbytes_effective() if isinstance(v, SegmentedParams)
-                      else tree_nbytes(v))
-        return total
+        return self._weight_bytes(self.params)

@@ -24,11 +24,17 @@ _MIN_TEMP = 1e-6
 def masked_dist(lp: torch.Tensor, temperature: torch.Tensor,
                 top_k: torch.Tensor, top_p: torch.Tensor,
                 need_mask: bool = True) -> torch.Tensor:
-    """lp (B, V) normalized log-probs -> masked, temperature-scaled,
-    renormalized log-probs. ``need_mask=False`` skips the O(V log V) sort
-    when the caller knows no slot uses top-k / top-p."""
+    """lp (..., V) normalized log-probs -> masked, temperature-scaled,
+    renormalized log-probs. Each control broadcasts against ``lp[..., 0]``:
+    (B,) vectors for a (B, V) step, ``temperature[:, None]`` etc. for a
+    (B, K+1, V) verify window. ``need_mask=False`` skips the O(V log V)
+    sort when the caller knows no slot uses top-k / top-p."""
     v = lp.shape[-1]
-    temp, tk, tp = temperature[:, None], top_k[:, None], top_p[:, None]
+    shape = torch.broadcast_shapes(lp.shape[:-1], temperature.shape,
+                                   top_k.shape, top_p.shape)
+    temp, tk, tp = (x.expand(shape)[..., None]
+                    for x in (temperature, top_k, top_p))
+    lp = lp.expand(*shape, v)
     masked = lp
     if need_mask:
         sorted_lp = torch.sort(lp, dim=-1, descending=True).values
