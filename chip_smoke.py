@@ -12,7 +12,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    each call): the kernel, its plain version, and a PyTorch yardstick that
    the port itself never calls. Decode attention in its three forms: one
    query per slot, the speculative verify window (qs = K+1 queries, causal
-   and not), and the fresh rows of the fused draft propose.
+   and not), and the fresh rows of the fused draft propose; each again
+   over a paged pool (pages of 64 rows, a permuted table with a page
+   mapped by two slots and dump entries past each allocation), where it
+   must also equal the dense kernel on the gathered rows to the bit. The
+   bound of each TPU kernel still to port, from its shapes
+   (``unported_bounds``).
 4. serve: llama3.2-3b FULL (28 layers, d_model 3072) from seeded random
    weights, EWQ-planned on the card and served with int8 KV, then an
    explicit raw/int8/int4/ternary plan served with int4 KV; every kernel's
@@ -29,6 +34,13 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    single-query decode steps; one fused propose step against a decode step
    on a clone of the cache, with the real cache unchanged to the byte; and
    the window run with causal=False (a planted fault the limit must catch).
+4c. paged serve: phase 4's requests on the EWQ plan from an equal-memory
+   paged pool with prefix sharing (tokens and logprobs identical to phase
+   4's dense run; one decode step's device time paged against dense); a
+   shared-prefix stream (8 x (256 common + 32 own tokens)) from an 11-page
+   pool, which must hit the prefix 7 times, requeue at least once and
+   leak nothing, beside the same stream without sharing and dense; phase
+   4b's model-draft speculative serve over the pool (tokens identical).
 5. a JSON line naming each kernel, then the device line last.
 
 ``--quick`` skips the timings and the lm_head shape (a short first call
@@ -51,10 +63,12 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS = 67e12               # H100 SXM f32 outside the tensor cores
 TOL = dict(rtol=2e-2, atol=2e-2)
 QUICK = "--quick" in sys.argv   # skip timings and the lm_head shape
 SLOTS = 4                       # decode slots of the serve phase
 SPEC_K = 4                      # draft tokens per speculative round
+PAGE = 64                       # tokens per page of the paged KV pool
 
 
 def log(*a):
@@ -123,9 +137,36 @@ class Timer:
         return max(total - self.flush_ms, 0.0) / self.calls
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+def bound_ms(nbytes: float, flops: float,
+             rate: float = BF16_FLOPS) -> tuple[float, str]:
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def unported_bounds() -> list:
+    """The bound of each TPU kernel still to port, from its shapes alone
+    (each input read once, each output written once): ``entropy_pallas``
+    over one 3072x8192 bf16 matrix (one f32 out; about 6 f32 operations an
+    element, off the tensor cores); the gelu ``qmlp_pallas`` at
+    whisper-medium width (d_model 1024, d_ff 4096) with int8 weights in
+    groups of 128 and bf16 scales, M = 4; ``quantize_int8_pallas`` on a
+    3072x8192 bf16 weight (int8 payload, one f32 scale per 128, about 5
+    f32 operations an element). Arithmetic only: needs no card."""
+    n, k = 3072, 8192
+    m, d, ff = 4, 1024, 4096
+    rows = [("entropy_pallas", "3072x8192 bf16", n * k * 2 + 4,
+             6.0 * n * k, F32_FLOPS),
+            ("qmlp_pallas gelu", "whisper-medium 1024->4096->1024 int8 M4",
+             m * d * 2 + 2 * ff * d + 2 * (ff * d // 128) * 2 + m * d * 4,
+             2.0 * m * 2 * ff * d, BF16_FLOPS),
+            ("quantize_int8_pallas", "3072x8192 bf16, group 128",
+             n * k * 2 + n * k + n * (k // 128) * 4, 5.0 * n * k, F32_FLOPS)]
+    out = []
+    for name, shape, nbytes, flops, rate in rows:
+        ms, by = bound_ms(nbytes, flops, rate)
+        out.append(dict(kernel=name, shape=shape, bytes=nbytes, flops=flops,
+                        bound_ms=ms, bound_by=by))
+    return out
 
 
 def qbytes(w) -> int:
@@ -144,20 +185,60 @@ def serve_prompts(vocab: int) -> list:
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+def paged_pair(torch, gen, b: int, s: int, rows_needed, prec: str,
+               seed: int, hkv: int = 8, hd: int = 128) -> list:
+    """One layer's K and V pools for ``b`` slots of ``s`` logical rows in
+    pages of PAGE tokens: slot i holds ceil(rows_needed[i] / PAGE) pages at
+    physical ids drawn by a seeded permutation; the first page of the
+    second slot that holds any is the first slot's (one physical page
+    mapped by two slots, as a shared prefix is); every table entry past a
+    slot's allocation is the dump page 0, filled with large garbage that
+    no read may see. Rows are random, quantized with the page write math."""
+    import numpy as np
+    from repro_torch.quant.kvcache import PagedKV, make_page
+    n_log = s // PAGE
+    need = [min(-(-int(r) // PAGE), n_log) for r in rows_needed]
+    owners = [i for i, n in enumerate(need) if n > 0][:2]
+    shared = (owners[1], 0)
+    unique = [(i, j) for i in range(b) for j in range(need[i])
+              if (i, j) != shared]
+    perm = np.random.RandomState(seed).permutation(len(unique)) + 1
+    table = np.zeros((b, n_log), np.int32)
+    for (i, j), pid in zip(unique, perm):
+        table[i, j] = pid
+    table[shared] = table[owners[0], 0]
+    pools = []
+    for _ in range(2):
+        raw = torch.randn((len(unique) + 1, PAGE, hkv, hd), generator=gen,
+                          device="cuda")
+        raw[0] *= 100.0
+        page = make_page(raw, prec, 64)
+        pools.append(PagedKV(
+            data=page.data, scale=page.scale,
+            table=torch.from_numpy(table.copy()).cuda(), precision=prec,
+            head_dim=hd, group=64, page_size=PAGE))
+    return pools
+
+
 def attn_case(torch, timer, compare, kernel: str, shape: str, q, kp, vp,
               valid, causal: bool = True, fresh=None, **extra) -> dict:
     """One decode-attention form against its plain version at one shape:
     the kernel, the plain version and SDPA on the dequantized cache with
     the same boolean mask (a yardstick the port never calls), timed, with
     the bound of the rows its queries see. ``fresh``: raw (fresh_k,
-    fresh_v, base), quantized here with the page's write math."""
+    fresh_v, base), quantized here with the page's write math. ``kp``/
+    ``vp`` may be PagedKV pools: the kernel must then also equal, to the
+    bit, the dense kernel on the rows gathered through the tables, and
+    the yardstick is that gather followed by SDPA."""
     from repro_torch.kernels.decode_attn import ops as DA
-    from repro_torch.quant.kvcache import dequantize_kv
+    from repro_torch.quant import paged as PG
+    from repro_torch.quant.kvcache import KVPage, PagedKV, dequantize_kv
     b, s, h, hd = q.shape
-    S = kp.data.shape[1]
+    S = kp.seq_len
     hkv = kp.num_kv_heads
     rep = h // hkv
     dev = q.device
+    paged = isinstance(kp, PagedKV)
     fq = None
     if fresh is not None:
         fq = (DA._fresh_page(fresh[0], kp), DA._fresh_page(fresh[1], vp),
@@ -165,6 +246,17 @@ def attn_case(torch, timer, compare, kernel: str, shape: str, q, kp, vp,
     got = DA.decode_attn_cuda(q, kp, vp, valid, causal, fq).float()
     want = DA.decode_attention_plain(q, kp, vp, valid, causal, fq).float()
     compare(kernel, [got], [want])
+    extra_row = {}
+    if paged:
+        dense = DA.decode_attn_cuda(q, PG.gather(kp), PG.gather(vp), valid,
+                                    causal, fq).float()
+        torch.cuda.synchronize()
+        if not torch.equal(got, dense):
+            raise AssertionError(
+                f"{kernel}: the paged kernel differs from the dense kernel "
+                f"on the gathered rows (max abs "
+                f"{float((got - dense).abs().max())}): an addressing fault")
+        extra_row["equal_to_dense_kernel"] = True
     vl = valid.long()
     limit = (vl[:, None] - s + 1 + torch.arange(s, device=dev)[None] if causal
              else vl[:, None].expand(b, s))
@@ -176,7 +268,7 @@ def attn_case(torch, timer, compare, kernel: str, shape: str, q, kp, vp,
                              "give 0")
     row = dict(kernel=kernel, shape=shape, precision=kp.precision, m=b,
                qs=s, causal=causal, err=float((got - want).abs().max()),
-               **extra)
+               **extra_row, **extra)
     if QUICK:
         return row
     row["ms"] = timer.ms(lambda: DA.decode_attn_cuda(q, kp, vp, valid,
@@ -185,27 +277,55 @@ def attn_case(torch, timer, compare, kernel: str, shape: str, q, kp, vp,
         q, kp, vp, valid, causal, fq))
     pos = torch.arange(S, device=dev)
     mask = pos[None, None, :] < cache_lim[:, :, None]     # (B, s, S)
-    kd, vd = (dequantize_kv(p, torch.bfloat16) for p in (kp, vp))
+    if paged:
+        # the yardstick gathers the dequantized pool through the table
+        pools = [dequantize_kv(KVPage(data=p.data, scale=p.scale,
+                                      precision=p.precision,
+                                      head_dim=p.head_dim, group=p.group),
+                               torch.bfloat16).repeat_interleave(rep, 2)
+                 for p in (kp, vp)]                       # (N, P, H, hd)
+        tables = [p.table.long() for p in (kp, vp)]
+    else:
+        kd, vd = (dequantize_kv(p, torch.bfloat16) for p in (kp, vp))
     seen = cache_lim.clamp(0, S).sum()
     rows_read = int(vl.clamp(0, S).sum() if fq is None
                     else torch.minimum(vl, fq[2].long()).clamp(0, S).sum())
     extra_bytes = 0
+    fresh_kv = []
     if fq is not None:
         sf = fq[0].data.shape[1]
         fpos = fq[2].long()[:, None] + torch.arange(sf, device=dev)[None]
         fmask = fpos[:, None, :] < limit[:, :, None]      # (B, s, Sf)
         seen = seen + fmask.sum()
         mask = torch.cat([mask, fmask], dim=2)
-        kd = torch.cat([kd, dequantize_kv(fq[0], torch.bfloat16)], dim=1)
-        vd = torch.cat([vd, dequantize_kv(fq[1], torch.bfloat16)], dim=1)
+        fresh_kv = [dequantize_kv(f, torch.bfloat16) for f in fq[:2]]
         extra_bytes = 2 * sum(t.numel() * t.element_size() for t in
                               (fq[0].data, fq[0].scale) if t is not None)
         extra_bytes += b * 4
-    kd, vd = (x.repeat_interleave(rep, 2).transpose(1, 2) for x in (kd, vd))
     qt = q.transpose(1, 2)                                # (B, H, s, hd)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    row["library_ms"] = timer.ms(lambda: sdpa(qt, kd, vd,
-                                              attn_mask=mask[:, None]))
+    if paged:
+        fresh_h = [f.repeat_interleave(rep, 2) for f in fresh_kv]
+
+        def library():
+            kx, vx = (pool[t].reshape(b, S, h, hd)
+                      for pool, t in zip(pools, tables))
+            if fresh_h:
+                kx = torch.cat([kx, fresh_h[0]], dim=1)
+                vx = torch.cat([vx, fresh_h[1]], dim=1)
+            return sdpa(qt, kx.transpose(1, 2), vx.transpose(1, 2),
+                        attn_mask=mask[:, None])
+
+        row["library_ms"] = timer.ms(library)
+        extra_bytes += 2 * kp.table.numel() * 4           # both page tables
+    else:
+        if fresh_kv:
+            kd = torch.cat([kd, fresh_kv[0]], dim=1)
+            vd = torch.cat([vd, fresh_kv[1]], dim=1)
+        kd, vd = (x.repeat_interleave(rep, 2).transpose(1, 2)
+                  for x in (kd, vd))
+        row["library_ms"] = timer.ms(lambda: sdpa(qt, kd, vd,
+                                                  attn_mask=mask[:, None]))
     per_row = (kp.data[0, 0].numel() * kp.data.element_size()
                + (0 if kp.scale is None else kp.scale[0, 0].numel() * 2))
     row["bound_ms"], row["bound_by"] = bound_ms(
@@ -385,6 +505,41 @@ def check_kernels(torch, timer, rows: list) -> dict:
                           f"B{SLOTS} S1024 Hkv{hkv} rep{rep} hd{hd} Sf{sf} "
                           f"count{count}", q, kp, vp, base + count + 1,
                           fresh=(fk, fv, base), count=count))
+    # the same forms over paged pools (pages of 64 rows, permuted tables
+    # with a shared page and dump entries), each also held to the dense
+    # kernel on the gathered rows to the bit
+    paged_cases = [("decode_attn_paged", 8, 2048, 1, True, big_valid,
+                    ("int8", "int4", "bf16")),
+                   ("decode_attn_paged_window", 8, 2048, SPEC_K + 1, True,
+                    big_valid, ("int8",)),
+                   ("decode_attn_paged_window", SLOTS, 1024, SPEC_K + 1, True,
+                    serve_valid, ("int8", "int4", "bf16")),
+                   ("decode_attn_paged_window", SLOTS, 1024, SPEC_K + 1,
+                    False, serve_valid, ("int8",))]
+    for ci, (kname, b, s, qs, causal, valid_rows, cprecs) in enumerate(
+            paged_cases):
+        q, _ = attn_inputs(b, 1, qs)
+        needed = [v + qs - 1 if qs > 1 and v > 1 else v for v in valid_rows]
+        valid = valid_of(needed)
+        for prec in cprecs:
+            kp, vp = paged_pair(torch, gen, b, s, needed, prec, seed=ci)
+            suffix = "" if qs == 1 else f" qs{qs}"
+            add(attn_case(torch, timer, compare, kname,
+                          f"B{b} S{s} Hkv{hkv} rep{rep} hd{hd} P{PAGE}"
+                          f"{suffix}", q, kp, vp, valid, causal))
+            del kp, vp
+    for prec in ("int8", "int4"):
+        kp, vp = paged_pair(torch, gen, SLOTS, 1024,
+                            [v + sf for v in serve_valid], prec, seed=9)
+        for count in range(sf):
+            q = torch.randn((SLOTS, 1, hkv * rep, hd), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            add(attn_case(torch, timer, compare, "decode_attn_paged_fresh",
+                          f"B{SLOTS} S1024 Hkv{hkv} rep{rep} hd{hd} P{PAGE} "
+                          f"Sf{sf} count{count}", q, kp, vp,
+                          base + count + 1, fresh=(fk, fv, base),
+                          count=count))
+        del kp, vp
     return worst
 
 
@@ -405,6 +560,14 @@ KERNEL_SOURCES = {
                            "src/repro/kernels/decode_attn/kernel.py:94-99"),
     "decode_attn_fresh": ("src/repro_torch/csrc/decode_attn.cu",
                           "src/repro/kernels/decode_attn/kernel.py:129-151"),
+    "decode_attn_paged": ("src/repro_torch/csrc/decode_attn.cu",
+                          "src/repro/kernels/decode_attn/kernel.py:203-260"),
+    "decode_attn_paged_window": (
+        "src/repro_torch/csrc/decode_attn.cu",
+        "src/repro/kernels/decode_attn/kernel.py:203-260"),
+    "decode_attn_paged_fresh": (
+        "src/repro_torch/csrc/decode_attn.cu",
+        "src/repro/kernels/decode_attn/kernel.py:203-260"),
 }
 # the row of each kernel reported on the kernels line: the serve phase's
 # decode shape (4 slots) for the matmul kernels
@@ -414,7 +577,12 @@ HEADLINE = {"qmatmul": ("wq 3072x3072", "int8", SLOTS),
             "decode_attn": ("B8 S2048 Hkv8 rep3 hd128", "int8", 8),
             "decode_attn_window": ("B8 S2048 Hkv8 rep3 hd128 qs5", "int8", 8),
             "decode_attn_fresh": ("B4 S1024 Hkv8 rep3 hd128 Sf4 count3",
-                                  "int8", SLOTS)}
+                                  "int8", SLOTS),
+            "decode_attn_paged": ("B8 S2048 Hkv8 rep3 hd128 P64", "int8", 8),
+            "decode_attn_paged_window": ("B8 S2048 Hkv8 rep3 hd128 P64 qs5",
+                                         "int8", 8),
+            "decode_attn_paged_fresh": (
+                "B4 S1024 Hkv8 rep3 hd128 P64 Sf4 count3", "int8", SLOTS)}
 # Limit on the relative L2 distance of one decode step's logits, kernels
 # against plain versions. PERF.md gives the readings that place it: the
 # kernels against the plain versions, and against the plain versions
@@ -652,9 +820,13 @@ def serve_full_width(torch, build, report: dict, smoke: bool = False,
     if device == "cuda":
         decode_step_times(torch, model, eng, state, toks, report)
     eng = engine = state = None
-    spec_launches = serve_speculative(torch, build, report, model, params,
-                                      ewq, prompts, base_outs, device)
+    spec_launches, spec_outs = serve_speculative(
+        torch, build, report, model, params, ewq, prompts, base_outs, device)
     for k, v in spec_launches.items():
+        launches[k] += v
+    paged_launches = serve_paged(torch, build, report, model, params, ewq,
+                                 prompts, base_outs, spec_outs, device)
+    for k, v in paged_launches.items():
         launches[k] += v
     for k, v in launches.items():
         if v <= 0 and device == "cuda":
@@ -663,14 +835,15 @@ def serve_full_width(torch, build, report: dict, smoke: bool = False,
     return launches
 
 
-def decode_step_times(torch, model, eng, state, toks, report: dict) -> None:
-    """Where a decode step's time goes: the same step eagerly (host
-    dispatch included) and replayed from a CUDA graph (device time only)."""
+def step_ms(torch, model, params, state, toks) -> tuple[float, float]:
+    """One decode step on a clone of ``state``'s cache: its eager wall time
+    (host dispatch included, median of 5) and its device time (the step
+    replayed from a CUDA graph)."""
     from repro_torch.quant.kvcache import clone_cache
     cache = clone_cache(state.cache)
 
     def step():
-        model.decode_step(eng.params, cache, toks)
+        model.decode_step(params, cache, toks)
 
     for _ in range(2):
         step()
@@ -681,8 +854,13 @@ def decode_step_times(torch, model, eng, state, toks, report: dict) -> None:
         step()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-    eager_ms = sorted(walls)[2]
-    device_ms = replay_ms(torch, capture(torch, step))
+    return sorted(walls)[2], replay_ms(torch, capture(torch, step))
+
+
+def decode_step_times(torch, model, eng, state, toks, report: dict) -> None:
+    """Where a decode step's time goes: the same step eagerly (host
+    dispatch included) and replayed from a CUDA graph (device time only)."""
+    eager_ms, device_ms = step_ms(torch, model, eng.params, state, toks)
     log(f"serve: one decode step at {SLOTS} slots (explicit plan, int4 "
         f"KV): eager {eager_ms:.2f} ms wall, device {device_ms:.2f} ms (CUDA graph "
         f"replay); the device is busy {device_ms / eager_ms:.0%} of the "
@@ -773,9 +951,182 @@ def serve_speculative(torch, build, report: dict, model, params, plan,
         log("spec serve: " + json.dumps(run))
         runs.append(run)
         if source == "model":
+            model_outs = outs
             report["spec_readings"] = spec_readings(torch, model, engine,
                                                     prompts, device)
     report["spec_runs"] = runs
+    return launches, model_outs
+
+
+def serve_paged(torch, build, report: dict, model, params, plan, prompts,
+                base_outs, spec_outs, device: str) -> dict:
+    """Phase 4c: the paged KV pool (pages of PAGE tokens) at full width.
+    Phase 4's requests on the EWQ plan with int8 KV from an equal-memory
+    pool with prefix sharing on (tokens and logprobs identical to phase
+    4's dense run), one decode step's device time paged against dense; a
+    shared-prefix stream from an 11-page pool (backpressure, prefix hits,
+    no leak), against the same stream without sharing from a 20-page pool
+    and from the dense engine; phase 4b's model-draft speculative serve
+    over the equal-memory pool (tokens identical to phase 4b's). Returns
+    the launches of the serves."""
+    import numpy as np
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.pool import PagedConfig
+    from repro_torch.serving.scheduler import Request
+    from repro_torch.serving.spec import SpecConfig
+    cfg = model.cfg
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    launches = {k: 0 for k in build.LAUNCHES}
+    runs = []
+
+    def fresh_memory():
+        if device == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def serve(engine, prompt_list, label):
+        build.reset_launches()                 # main path: counts from 0
+        outs, stats = engine.serve(
+            [Request(rid=i, prompt=p, max_new_tokens=32)
+             for i, p in enumerate(prompt_list)], num_slots=SLOTS, chunk=8)
+        sync()
+        counts = dict(build.LAUNCHES)
+        for k, v in counts.items():
+            launches[k] += v
+        for o in outs:
+            if (len(o.generated) != 32 or o.generated.min() < 0
+                    or o.generated.max() >= cfg.vocab_size
+                    or not np.all(np.isfinite(o.logprobs))):
+                raise AssertionError(f"{label}: bad output for request "
+                                     f"{o.rid}: {o.generated}")
+        run = dict(run=label, requests=len(outs),
+                   generated=stats.generated_tokens,
+                   tokens_per_s=stats.tokens_per_s,
+                   ttft_mean_s=stats.ttft_mean_s,
+                   tpot_p50_s=stats.tpot_p50_s,
+                   decode_chunk_p50_s=stats.decode_gap_p50_s,
+                   wall_s=stats.wall_s, pool_pages=stats.pool_pages_total,
+                   pool_pages_peak=stats.pool_pages_peak,
+                   prefix_hits=stats.prefix_hits,
+                   prefix_hit_tokens=stats.prefix_hit_tokens,
+                   cow_copies=stats.cow_copies, requeues=stats.requeues,
+                   kv_bytes_peak=stats.kv_bytes_peak,
+                   spec_rounds=stats.spec_rounds,
+                   acceptance_rate=stats.acceptance_rate,
+                   max_memory_allocated=(torch.cuda.max_memory_allocated()
+                                         if device == "cuda" else None),
+                   launches=counts)
+        log("paged serve: " + json.dumps(run))
+        runs.append(run)
+        return outs, stats, run
+
+    def same(outs, ref, logprobs: bool) -> bool:
+        return all(np.array_equal(o.tokens, r.tokens)
+                   and (not logprobs or np.array_equal(o.logprobs,
+                                                       r.logprobs))
+                   for o, r in zip(outs, ref))
+
+    # -- 1) phase 4's requests from an equal-memory pool --------------------
+    fresh_memory()
+    peng = ServeEngine(model, params, max_seq=1024, plan=plan,
+                       kv_precision="int8", device=device,
+                       paged=PagedConfig(page_size=PAGE))
+    outs, _, run = serve(peng, prompts, "paged-ewq-int8")
+    if not same(outs, base_outs, logprobs=True):
+        raise AssertionError("the paged serve's tokens or logprobs differ "
+                             "from phase 4's dense serve")
+    run["identical_to_dense"] = True
+    # the dense engine on the same quantized weights (no second plan pass)
+    dense = ServeEngine(model, peng.params, max_seq=1024,
+                        kv_precision="int8", device=device)
+    readings = dict(dense_tokens_per_s=report["runs"][0]["tokens_per_s"],
+                    dense_ttft_mean_s=report["runs"][0]["ttft_mean_s"],
+                    paged_tokens_per_s=run["tokens_per_s"],
+                    paged_ttft_mean_s=run["ttft_mean_s"])
+    if device == "cuda":
+        for label, eng in (("dense", dense), ("paged", peng), ("dense", dense),
+                           ("paged", peng)):
+            state = eng.init_decode_state(SLOTS)
+            for slot in range(SLOTS):
+                eng.insert(state, slot, eng.prefill_request(prompts[slot]),
+                           32)
+            toks = torch.argmax(state.last_logits[:, :cfg.vocab_size],
+                                -1)[:, None]
+            eager, dev_ms = step_ms(torch, model, eng.params, state, toks)
+            readings.setdefault(f"{label}_step_eager_ms", []).append(eager)
+            readings.setdefault(f"{label}_step_device_ms", []).append(dev_ms)
+            state = None
+        log(f"paged: one decode step at {SLOTS} slots (EWQ, int8 KV), "
+            f"dense then paged, twice: device ms "
+            f"{readings['dense_step_device_ms']} / "
+            f"{readings['paged_step_device_ms']}, eager ms "
+            f"{readings['dense_step_eager_ms']} / "
+            f"{readings['paged_step_eager_ms']}")
+
+    # -- 2) a shared-prefix stream from an 11-page pool ---------------------
+    rng = np.random.RandomState(1)
+    prefix = rng.randint(0, cfg.vocab_size, size=(256,))
+    stream = [np.concatenate([prefix, rng.randint(0, cfg.vocab_size,
+                                                  size=(32,))])
+              .astype(np.int32) for _ in range(8)]
+    seng = ServeEngine(model, peng.params, max_seq=1024, kv_precision="int8",
+                       device=device,
+                       paged=PagedConfig(page_size=PAGE, pool_pages=11))
+    s_outs, s_stats, s_run = serve(seng, stream, "paged-shared-prefix-11")
+    pool = seng.pool
+    checks = {
+        "prefix_hits == 7": s_stats.prefix_hits == 7,
+        "prefix_hit_tokens == 7 * 256": s_stats.prefix_hit_tokens == 7 * 256,
+        "pool_pages_peak <= 11": s_stats.pool_pages_peak <= 11,
+        "an admission was requeued": s_stats.requeues >= 1,
+        "only the prefix cache holds pages after the run":
+            pool.pages_in_use == pool.prefix.evictable(pool._ref)}
+    flushed = pool.flush_prefix()
+    checks["pool.pages_in_use == 0 after flushing the prefix cache"] = \
+        pool.pages_in_use == 0
+    pool.check_invariants()
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"shared-prefix stream: {failed} ({s_run})")
+    n_outs, _, n_run = serve(
+        ServeEngine(model, peng.params, max_seq=1024, kv_precision="int8",
+                    device=device,
+                    paged=PagedConfig(page_size=PAGE, pool_pages=20,
+                                      prefix_sharing=False)),
+        stream, "paged-no-sharing-20")
+    d_outs, _, d_run = serve(dense, stream, "dense-shared-prefix-stream")
+    readings.update(
+        stream_kv_bytes_peak=s_stats.kv_bytes_peak,
+        stream_dense_reservation=SLOTS * dense.kv_bytes_per_slot(),
+        stream_flushed_prefix_pages=flushed,
+        stream_ttft_mean_s_sharing=s_run["ttft_mean_s"],
+        stream_ttft_mean_s_no_sharing=n_run["ttft_mean_s"],
+        stream_ttft_mean_s_dense=d_run["ttft_mean_s"],
+        stream_greedy_agreement_with_dense=float(np.mean(
+            [np.mean(o.generated == d.generated)
+             for o, d in zip(s_outs, d_outs)])),
+        stream_no_sharing_identical_to_dense=same(n_outs, d_outs, True))
+    log(f"paged: shared-prefix stream: {json.dumps(checks)}; KV bytes at "
+        f"peak {readings['stream_kv_bytes_peak']:.0f} against the dense "
+        f"reservation {readings['stream_dense_reservation']:.0f}; mean TTFT "
+        f"{s_run['ttft_mean_s']:.4f} s with sharing, "
+        f"{n_run['ttft_mean_s']:.4f} s without (20 pages), "
+        f"{d_run['ttft_mean_s']:.4f} s dense; greedy agreement with the "
+        f"dense serve {readings['stream_greedy_agreement_with_dense']:.4f}")
+    seng = dense = peng = None
+
+    # -- 3) phase 4b's model-draft spec serve over the pool -------------------
+    fresh_memory()
+    speng = ServeEngine(model, params, max_seq=1024, plan=plan,
+                        kv_precision="int8", device=device,
+                        spec=SpecConfig(k=SPEC_K),
+                        paged=PagedConfig(page_size=PAGE))
+    sp_outs, _, sp_run = serve(speng, prompts, "paged-spec-model-draft")
+    if not same(sp_outs, spec_outs, logprobs=False):
+        raise AssertionError("the paged spec serve's tokens differ from "
+                             "phase 4b's dense spec serve")
+    sp_run["identical_to_dense_spec"] = True
+    report.update(paged_runs=runs, paged_readings=readings)
     return launches
 
 
@@ -888,7 +1239,10 @@ def main() -> int:
     log(f"kernels: all within rtol=atol=2e-2 of their plain versions; "
         f"max abs err {worst}")
     report: dict = {"device": name, "nvidia_smi": smi, "rows": rows,
-                    "build": dict(build.BUILD_INFO)}
+                    "build": dict(build.BUILD_INFO),
+                    "unported_bounds": unported_bounds()}
+    for row in report["unported_bounds"]:
+        log("still to port: " + json.dumps(row))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     out_file = out_dir / "chip_smoke.json"

@@ -2,18 +2,23 @@
 
 ``from_jax(tree, device)`` takes the JAX package's parameters after
 ``jax.tree.map(np.asarray, ...)`` (numpy leaves, with QTensor / Segment /
-SegmentedParams / KVPage nodes still in place) and returns the port's tree
-on ``device``. Nodes are recognised by their fields, so this module imports
-nothing of the JAX package:
+SegmentedParams / KVPage / PagedKV nodes still in place) and returns the
+port's tree on ``device``. Nodes are recognised by their fields, so this
+module imports nothing of the JAX package:
 
 * ``(data, scale, precision, shape, group)``      -> ``QTensor``
 * ``(precision, start, stop, params)``            -> ``Segment``
 * ``(segments, num_layers)``                      -> ``SegmentedParams``
-* ``(data, scale, precision, head_dim, group)``   -> ``KVPage``
+* ``(data, scale, precision, head_dim, group)``
+  with ``(table, page_size)``                     -> ``PagedKV``
+* the same fields without them                    -> ``KVPage``
 * dicts, lists, tuples and NamedTuples keep their structure.
 
 bf16 leaves arrive as ``ml_dtypes.bfloat16`` arrays and are carried over
 bit for bit through a uint16 view; int8 payloads keep their bytes.
+
+``device=None`` means the GPU, as everywhere in the port: it raises when
+there is none (pass ``device="cpu"`` for the CPU).
 """
 
 from __future__ import annotations
@@ -23,8 +28,9 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.quant.apply import Segment, SegmentedParams
-from repro_torch.quant.kvcache import KVPage
+from repro_torch.quant.kvcache import KVPage, PagedKV
 from repro_torch.quant.qtypes import QTensor
 
 _DTYPES = {np.dtype(np.float32): torch.float32,
@@ -34,8 +40,10 @@ _DTYPES = {np.dtype(np.float32): torch.float32,
            np.dtype(np.int64): torch.int64, np.dtype(np.bool_): torch.bool}
 
 
-def to_torch(a, device="cpu") -> torch.Tensor:
-    """One numpy array (bf16 via ml_dtypes included) -> torch tensor."""
+def to_torch(a, device=None) -> torch.Tensor:
+    """One numpy array (bf16 via ml_dtypes included) -> torch tensor on
+    ``device`` (None: the GPU)."""
+    device = resolve_device(device)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
@@ -49,14 +57,23 @@ def _has(x, *names) -> bool:
     return all(hasattr(x, n) for n in names)
 
 
-def from_jax(tree: Any, device="cpu") -> Any:
-    """Convert a numpy-leaved JAX parameter tree (see module docstring)."""
+def from_jax(tree: Any, device=None) -> Any:
+    """Convert a numpy-leaved JAX parameter tree (see module docstring) to
+    the port's tree on ``device`` (None: the GPU)."""
+    device = resolve_device(device)
     if tree is None:
         return None
     if isinstance(tree, dict):
         return {k: from_jax(v, device) for k, v in tree.items()}
     if isinstance(tree, (np.ndarray, np.generic)):
         return to_torch(tree, device)
+    if _has(tree, "data", "scale", "precision", "head_dim", "group",
+            "table", "page_size"):
+        return PagedKV(data=to_torch(tree.data, device),
+                       scale=from_jax(tree.scale, device),
+                       table=to_torch(tree.table, device),
+                       precision=tree.precision, head_dim=tree.head_dim,
+                       group=tree.group, page_size=tree.page_size)
     if _has(tree, "data", "scale", "precision", "head_dim", "group"):
         return KVPage(data=to_torch(tree.data, device),
                       scale=from_jax(tree.scale, device),

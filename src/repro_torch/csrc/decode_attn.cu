@@ -1,10 +1,12 @@
 // Multi-query GQA decode attention over a quantized KV cache, for Hopper.
 //
-// Replaces the dense forms of the TPU kernel ``decode_attn_pallas``
-// (src/repro/kernels/decode_attn/kernel.py:162): the single-query decode
-// step, the multi-query window of a speculative verify (qs = K+1 queries
-// per slot, causal offsets or causal=False; kernel.py:94-99), and the
-// fresh-row epilogue of the fused draft propose (kernel.py:129-151):
+// Replaces the TPU kernel ``decode_attn_pallas``
+// (src/repro/kernels/decode_attn/kernel.py:162) in all its forms: the
+// single-query decode step, the multi-query window of a speculative verify
+// (qs = K+1 queries per slot, causal offsets or causal=False;
+// kernel.py:94-99), the fresh-row epilogue of the fused draft propose
+// (kernel.py:129-151), and the paged cache (kernel.py:203-260), each of the
+// first three over a dense or a paged cache:
 //
 //   out[b, h, r, i] = softmax_t(q[b, h, r, i] . K[b, t, h] / sqrt(hd))
 //                     . V[b, t, h]
@@ -19,9 +21,20 @@
 // src/repro/quant/kvcache.py:236-253) with one bf16 scale per ``group``
 // elements of the flat F axis, or bf16 with no scale.
 //
+// Dense and paged caches differ only in where logical row t of slot b lives:
+// row b * S + t of the dense (B, S, F_store) page, or row
+// table[b, t / P] * P + t % P of the (N, P, F_store) pool, where the slot's
+// (n_log,) int32 table maps logical pages to physical ones (page 0 is the
+// dump page, never read below valid) and S = n_log * P. Each tile looks its
+// rows up once (K and V through their own tables) into shared memory; P
+// need not divide the tile. A page is not a grid step, as it is on the TPU:
+// the block keeps walking rows, so the arithmetic, and the result, is the
+// dense kernel's to the bit on the same rows.
+//
 // What bounds it on the H100: the cache bytes of the rows the queries see
-// over 3.35 TB/s. A window reuses each K/V row for rep * qs query rows (15
-// at rep 3, qs 5), still far below the point where arithmetic would bound.
+// (plus the tables) over 3.35 TB/s. A window reuses each K/V row for
+// rep * qs query rows (15 at rep 3, qs 5), still far below the point where
+// arithmetic would bound.
 //
 // Design: one block per (slot, KV head) holds that head's rep * qs query
 // rows in shared memory and loops over the cache rows any of its queries
@@ -59,6 +72,8 @@ __device__ __forceinline__ float kv_elem(const void* data,
 }
 
 struct Smem {
+  long long* krow;  // kTile     K row of each tile row in the flat source
+  long long* vrow;  // kTile     V row of each tile row in the flat source
   float* q;     // R * hd        query rows
   float* K;     // kTile * (hd + 1), padded rows
   float* V;     // kTile * hd
@@ -70,25 +85,38 @@ struct Smem {
   int* lim;     // R             rows a query row sees in the current tile source
 };
 
-// One tile of the online softmax: rows j < nrows of a K/V source at global
-// row index grow0 + j and logical position pos0 + j. A row is read when its
+// One tile of the online softmax: rows j < nrows of a K/V source at
+// logical position pos0 + j, stored at flat row grow0 + j of a dense
+// source, or, when ``ktab`` is given (the slot's K and V page tables),
+// at row tab[pos / P] * P + pos % P of a pool. A row is read when its
 // position is < valid (else K = V = 0) and seen by query row r when its
 // position is < sm.lim[r].
 template <int PREC>
 __device__ __forceinline__ void attend_tile(
     const Smem& sm, const void* kd, const __nv_bfloat16* ks, const void* vd,
-    const __nv_bfloat16* vs, size_t grow0, int nrows, int pos0, int valid,
-    int F, int h, int R, int hd, int group, float inv_sqrt) {
+    const __nv_bfloat16* vs, const int* ktab, const int* vtab, int P,
+    size_t grow0, int nrows, int pos0, int valid, int F, int h, int R, int hd,
+    int group, float inv_sqrt) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int nwarps = kThreads / 32;
+  __syncthreads();
+  if (tid < nrows) {
+    const int pos = pos0 + tid;
+    if (ktab != nullptr) {
+      sm.krow[tid] = (long long)ktab[pos / P] * P + pos % P;
+      sm.vrow[tid] = (long long)vtab[pos / P] * P + pos % P;
+    } else {
+      sm.krow[tid] = sm.vrow[tid] = (long long)(grow0 + tid);
+    }
+  }
   __syncthreads();
   for (int i = tid; i < kTile * hd; i += kThreads) {
     const int t = i / hd, d = i - t * hd;
     float kv = 0.f, vv = 0.f;
     if (t < nrows && pos0 + t < valid) {
       const int e = h * hd + d;
-      kv = kv_elem<PREC>(kd, ks, grow0 + t, F, group, e);
-      vv = kv_elem<PREC>(vd, vs, grow0 + t, F, group, e);
+      kv = kv_elem<PREC>(kd, ks, (size_t)sm.krow[t], F, group, e);
+      vv = kv_elem<PREC>(vd, vs, (size_t)sm.vrow[t], F, group, e);
     }
     sm.K[t * (hd + 1) + d] = kv;
     sm.V[t * hd + d] = vv;
@@ -131,17 +159,21 @@ decode_attn_kernel(const float* __restrict__ q, const void* __restrict__ kd,
                    const void* __restrict__ vd,
                    const __nv_bfloat16* __restrict__ vs,
                    const int* __restrict__ valid_len,
+                   const int* __restrict__ ktable,
+                   const int* __restrict__ vtable,
                    const void* __restrict__ fkd,
                    const __nv_bfloat16* __restrict__ fks,
                    const void* __restrict__ fvd,
                    const __nv_bfloat16* __restrict__ fvs,
                    const int* __restrict__ base_pos, float* __restrict__ out,
-                   int S, int Hkv, int rep, int qs, int hd, int group,
-                   int causal, int Sf, float inv_sqrt) {
-  extern __shared__ __align__(16) float smem[];
+                   int S, int P, int n_log, int Hkv, int rep, int qs,
+                   int hd, int group, int causal, int Sf, float inv_sqrt) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int R = rep * qs;
   Smem sm;
-  sm.q = smem;
+  sm.krow = reinterpret_cast<long long*>(smem_raw);
+  sm.vrow = sm.krow + kTile;
+  sm.q = reinterpret_cast<float*>(sm.vrow + kTile);
   sm.K = sm.q + R * hd;
   sm.V = sm.K + kTile * (hd + 1);
   sm.p = sm.V + kTile * hd;
@@ -156,6 +188,9 @@ decode_attn_kernel(const float* __restrict__ q, const void* __restrict__ kd,
   const int F = Hkv * hd;
   const int valid = valid_len[b];
   const int base = Sf > 0 ? base_pos[b] : valid;
+  // a pool's logical rows go through the slot's page tables
+  const int* ktab = ktable != nullptr ? ktable + (size_t)b * n_log : nullptr;
+  const int* vtab = vtable != nullptr ? vtable + (size_t)b * n_log : nullptr;
   const size_t qbase = ((size_t)b * Hkv + h) * R * hd;
 
   // query row r is query i = r % qs of head-group row r / qs
@@ -173,16 +208,17 @@ decode_attn_kernel(const float* __restrict__ q, const void* __restrict__ kd,
   end = end < 0 ? 0 : (end > S ? S : end);
   for (int t0 = 0; t0 < end; t0 += kTile) {
     const int n = end - t0 < kTile ? end - t0 : kTile;
-    attend_tile<PREC>(sm, kd, ks, vd, vs, (size_t)b * S + t0, n, t0, valid, F,
-                      h, R, hd, group, inv_sqrt);
+    attend_tile<PREC>(sm, kd, ks, vd, vs, ktab, vtab, P, (size_t)b * S + t0,
+                      n, t0, valid, F, h, R, hd, group, inv_sqrt);
   }
   if (Sf > 0) {
     __syncthreads();
     for (int r = tid; r < R; r += kThreads) {
       sm.lim[r] = causal ? valid - qs + 1 + r % qs : valid;
     }
-    attend_tile<PREC>(sm, fkd, fks, fvd, fvs, (size_t)b * Sf, Sf, base, valid,
-                      F, h, R, hd, group, inv_sqrt);
+    attend_tile<PREC>(sm, fkd, fks, fvd, fvs, nullptr, nullptr, 1,
+                      (size_t)b * Sf, Sf, base, valid, F, h, R, hd, group,
+                      inv_sqrt);
   }
   __syncthreads();
   for (int i = tid; i < R * hd; i += kThreads) {
@@ -194,11 +230,11 @@ decode_attn_kernel(const float* __restrict__ q, const void* __restrict__ kd,
 template <int PREC>
 int launch(const dim3 grid, int smem, cudaStream_t st, const float* q,
            const void* kd, const __nv_bfloat16* ks, const void* vd,
-           const __nv_bfloat16* vs, const int* valid, const void* fkd,
-           const __nv_bfloat16* fks, const void* fvd,
-           const __nv_bfloat16* fvs, const int* base, float* out, int S,
-           int Hkv, int rep, int qs, int hd, int group, int causal, int Sf,
-           float inv_sqrt) {
+           const __nv_bfloat16* vs, const int* valid, const int* ktable,
+           const int* vtable, const void* fkd, const __nv_bfloat16* fks,
+           const void* fvd, const __nv_bfloat16* fvs, const int* base,
+           float* out, int S, int P, int n_log, int Hkv, int rep, int qs,
+           int hd, int group, int causal, int Sf, float inv_sqrt) {
   // past 48 KB a block needs the instantiation's opt-in, set once (not per
   // launch, so a launch can be captured in a CUDA graph)
   static int opted = 48 * 1024;
@@ -210,8 +246,8 @@ int launch(const dim3 grid, int smem, cudaStream_t st, const float* q,
     opted = smem;
   }
   decode_attn_kernel<PREC><<<grid, kThreads, smem, st>>>(
-      q, kd, ks, vd, vs, valid, fkd, fks, fvd, fvs, base, out, S, Hkv, rep, qs,
-      hd, group, causal, Sf, inv_sqrt);
+      q, kd, ks, vd, vs, valid, ktable, vtable, fkd, fks, fvd, fvs, base, out,
+      S, P, n_log, Hkv, rep, qs, hd, group, causal, Sf, inv_sqrt);
   return (int)cudaGetLastError();
 }
 
@@ -219,27 +255,34 @@ int launch(const dim3 grid, int smem, cudaStream_t st, const float* q,
 
 // Dynamic shared memory of one block for ``rows`` = rep * qs query rows.
 REPRO_API int repro_decode_attn_smem(int rows, int hd) {
-  return (int)sizeof(float) *
-         (rows * hd + kTile * (hd + 1) + kTile * hd + rows * kTile +
-          rows * hd + 4 * rows);
+  return (int)sizeof(long long) * 2 * kTile +
+         (int)sizeof(float) *
+             (rows * hd + kTile * (hd + 1) + kTile * hd + rows * kTile +
+              rows * hd + 4 * rows);
 }
 
-// q (B, Hkv, rep, qs, hd) f32; K/V data (B, S, F_store) with scales
-// (B, S, F / group) bf16 (ignored for bf16 pages); valid (B,) int32 counts
-// the valid rows including the fresh ones; fresh K/V (B, Sf, F_store) and
-// scales (B, Sf, F / group) at positions base (B,) int32 + j (all ignored
-// when Sf == 0); out (B, Hkv, rep, qs, hd) f32. prec: 0 int8, 1 int4,
-// 2 bf16.
+// q (B, Hkv, rep, qs, hd) f32; a dense cache (n_log == 0): K/V data
+// (B, S, F_store) with scales (B, S, F / group) bf16 (ignored for bf16
+// pages), tables ignored; a paged cache (n_log > 0): K/V pools
+// (N, P, F_store) with scales (N, P, F / group) and K/V tables (B, n_log)
+// int32, S ignored (it is n_log * P); valid (B,) int32 counts the valid rows
+// including the fresh ones; fresh K/V (B, Sf, F_store) and scales
+// (B, Sf, F / group) at positions base (B,) int32 + j (all ignored when
+// Sf == 0); out (B, Hkv, rep, qs, hd) f32. prec: 0 int8, 1 int4, 2 bf16.
 REPRO_API int repro_decode_attn(const void* q, const void* kd, const void* ks,
                                 const void* vd, const void* vs,
-                                const void* valid, const void* fkd,
+                                const void* valid, const void* ktable,
+                                const void* vtable, const void* fkd,
                                 const void* fks, const void* fvd,
                                 const void* fvs, const void* base, void* out,
-                                int B, int S, int Hkv, int rep, int qs, int hd,
-                                int group, int prec, int causal, int Sf,
-                                void* stream) {
+                                int B, int S, int P, int n_log, int Hkv,
+                                int rep, int qs, int hd, int group, int prec,
+                                int causal, int Sf, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int smem = repro_decode_attn_smem(rep * qs, hd);
+  const int* ktp = n_log > 0 ? static_cast<const int*>(ktable) : nullptr;
+  const int* vtp = n_log > 0 ? static_cast<const int*>(vtable) : nullptr;
+  if (n_log > 0) S = n_log * P;
   const float inv_sqrt = 1.0f / sqrtf((float)hd);
   const dim3 grid(B * Hkv);
   const float* qp = static_cast<const float*>(q);
@@ -251,16 +294,16 @@ REPRO_API int repro_decode_attn(const void* q, const void* kd, const void* ks,
   const int* bp = static_cast<const int*>(base);
   float* op = static_cast<float*>(out);
   if (prec == 0) {
-    return launch<0>(grid, smem, st, qp, kd, ksp, vd, vsp, vp, fkd, fksp, fvd,
-                     fvsp, bp, op, S, Hkv, rep, qs, hd, group, causal, Sf,
-                     inv_sqrt);
+    return launch<0>(grid, smem, st, qp, kd, ksp, vd, vsp, vp, ktp, vtp, fkd,
+                     fksp, fvd, fvsp, bp, op, S, P, n_log, Hkv, rep, qs, hd,
+                     group, causal, Sf, inv_sqrt);
   }
   if (prec == 1) {
-    return launch<1>(grid, smem, st, qp, kd, ksp, vd, vsp, vp, fkd, fksp, fvd,
-                     fvsp, bp, op, S, Hkv, rep, qs, hd, group, causal, Sf,
-                     inv_sqrt);
+    return launch<1>(grid, smem, st, qp, kd, ksp, vd, vsp, vp, ktp, vtp, fkd,
+                     fksp, fvd, fvsp, bp, op, S, P, n_log, Hkv, rep, qs, hd,
+                     group, causal, Sf, inv_sqrt);
   }
-  return launch<2>(grid, smem, st, qp, kd, ksp, vd, vsp, vp, fkd, fksp, fvd,
-                   fvsp, bp, op, S, Hkv, rep, qs, hd, group, causal, Sf,
-                   inv_sqrt);
+  return launch<2>(grid, smem, st, qp, kd, ksp, vd, vsp, vp, ktp, vtp, fkd,
+                   fksp, fvd, fvsp, bp, op, S, P, n_log, Hkv, rep, qs, hd,
+                   group, causal, Sf, inv_sqrt);
 }

@@ -33,9 +33,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SOURCES = ("qmatmul", "qmlp", "decode_attn")
 
 # decode_attn_window: a multi-query (verify) window; decode_attn_fresh: with
-# fresh rows (fused draft propose); decode_attn: the single-query step.
+# fresh rows (fused draft propose); decode_attn: the single-query step; the
+# _paged counters count the same three forms over a paged KV pool.
 LAUNCHES = {"qmatmul": 0, "qkv": 0, "qmlp": 0, "decode_attn": 0,
-            "decode_attn_window": 0, "decode_attn_fresh": 0}
+            "decode_attn_window": 0, "decode_attn_fresh": 0,
+            "decode_attn_paged": 0, "decode_attn_paged_window": 0,
+            "decode_attn_paged_fresh": 0}
 
 _libs: dict = {}
 BUILD_INFO: dict = {}
@@ -57,7 +60,8 @@ _SIGNATURES = {
     "decode_attn": {
         "repro_decode_attn_smem": [_I, _I],
         "repro_decode_attn": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                              _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                              _I, _I, _P],
     },
 }
 

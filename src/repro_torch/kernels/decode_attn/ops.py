@@ -1,10 +1,13 @@
 """Decode attention over a quantized KV cache: ``decode_attention``.
 
 ``decode_attention(q, k, v, valid_len=...)`` is what the model calls on the
-decode path when its cache holds ``KVPage``s. ``q`` is one decode token per
-slot (B, 1, H, hd), or a speculative verify window of s = K+1 tokens
-(B, s, H, hd); ``k``/``v`` are int8, split-half int4 or bf16 pages of one
-layer, (B, S, ...); ``valid_len`` (B,) counts each slot's valid cache rows
+decode path when its cache holds ``KVPage``s or ``PagedKV`` pools. ``q`` is
+one decode token per slot (B, 1, H, hd), or a speculative verify window of
+s = K+1 tokens (B, s, H, hd); ``k``/``v`` are int8, split-half int4 or bf16
+pages of one layer, (B, S, ...), or one layer's pools (N, P, ...) with
+their (B, n_log) page tables, whose logical row t of slot b is row
+t % P of physical page table[b, t // P]; ``valid_len`` (B,) counts each
+slot's valid cache rows
 including the s rows just written. With ``causal=True`` query i sees the
 rows ``< valid_len - s + 1 + i``; with ``causal=False`` every query sees
 all ``valid_len`` rows (cross-attention).
@@ -20,9 +23,12 @@ Two implementations side by side:
   GPU; it raises on anything it does not take;
 * ``decode_attention_plain``, which mirrors the JAX package's ``_grouped``
   backend: a chunked online softmax in f32 that dequantizes one KV chunk at
-  a time, then the fresh rows as one more block. Like the TPU kernel, it
-  zeroes V rows at or past valid_len. A query that sees no row gives 0 in
-  both (the reference's backends disagree there; see ROADMAP.md section 3).
+  a time, then the fresh rows as one more block. A pool is read through
+  its tables a whole number of pages per chunk, with the dense masking
+  arithmetic, so a pool and the dense page gathered from it give the same
+  result to the bit. Like the TPU kernel, it zeroes V rows at or past
+  valid_len. A query that sees no row gives 0 in both (the reference's
+  backends disagree there; see ROADMAP.md section 3).
 
 A tensor on the CPU takes the plain version; ``plain=True`` asks for it on
 the GPU too.
@@ -35,7 +41,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.quant.kvcache import KVPage, dequantize_kv, quantize_kv
+from repro_torch.quant.kvcache import (KVPage, PagedKV, dequantize_kv,
+                                       quantize_kv)
 
 NEG_INF = -1e30
 DEFAULT_KV_CHUNK = 256
@@ -44,16 +51,16 @@ _SMEM_LIMIT = 227 * 1024        # dynamic shared memory a Hopper block can opt i
 _MAX_FRESH = 32                 # fresh rows the kernel's epilogue tile takes
 
 
-def _page_of(x) -> KVPage:
+def _page_of(x):
     """Normalize a cache operand to a KVPage (raw (B, S, Hkv, hd) tensors
-    become bf16-style pages with no scales)."""
-    if isinstance(x, KVPage):
+    become bf16-style pages with no scales); pools pass through."""
+    if isinstance(x, (KVPage, PagedKV)):
         return x
     return KVPage(data=x, scale=None, precision="bf16", head_dim=x.shape[-1],
                   group=x.shape[-1])
 
 
-def _fresh_page(raw: torch.Tensor, like: KVPage) -> KVPage:
+def _fresh_page(raw: torch.Tensor, like) -> KVPage:
     """Quantize fresh rows with the page's write math (``update_page``'s
     quantize-on-insert), so they read exactly what a cache write would have
     stored."""
@@ -70,6 +77,39 @@ def _slice_rows(page: KVPage, lo: int, hi: int) -> KVPage:
                   group=page.group)
 
 
+def _take_pages(pg: PagedKV, lo: int, hi: int) -> KVPage:
+    """Logical pages [lo, hi) of every slot, read through the pool's
+    table: a dense (B, (hi - lo) * P, ...) KVPage."""
+    ids = pg.table[:, lo:hi].long()                       # (B, npg)
+
+    def gat(x):
+        y = x[ids]                                        # (B, npg, P, ...)
+        return y.reshape(y.shape[0], y.shape[1] * y.shape[2], *y.shape[3:])
+
+    return KVPage(data=gat(pg.data),
+                  scale=None if pg.scale is None else gat(pg.scale),
+                  precision=pg.precision, head_dim=pg.head_dim,
+                  group=pg.group)
+
+
+def _chunks(kp, vp, kv_chunk: int):
+    """(K rows, V rows, first position) of each cache chunk in order: a
+    dense page sliced ``kv_chunk`` rows at a time, a pool read through its
+    tables a whole number of pages at a time (as ``_grouped`` snaps the
+    chunk to pages)."""
+    if isinstance(kp, PagedKV):
+        p_sz, n_log = kp.page_size, kp.table.shape[-1]
+        g = max(1, min(kv_chunk // p_sz, n_log))
+        for lo in range(0, n_log, g):
+            hi = min(n_log, lo + g)
+            yield _take_pages(kp, lo, hi), _take_pages(vp, lo, hi), lo * p_sz
+        return
+    t = kp.data.shape[1]
+    for lo in range(0, t, kv_chunk):
+        hi = min(t, lo + kv_chunk)
+        yield _slice_rows(kp, lo, hi), _slice_rows(vp, lo, hi), lo
+
+
 def _limits(valid: torch.Tensor, s: int, causal: bool) -> torch.Tensor:
     """(B, s) rows each query sees: ``valid - s + 1 + i`` or ``valid``."""
     if not causal:
@@ -77,17 +117,16 @@ def _limits(valid: torch.Tensor, s: int, causal: bool) -> torch.Tensor:
     return valid[:, None] - s + 1 + torch.arange(s, device=valid.device)[None]
 
 
-def decode_attention_plain(q: torch.Tensor, kp: KVPage, vp: KVPage,
+def decode_attention_plain(q: torch.Tensor, kp, vp,
                            valid_len: torch.Tensor, causal: bool = True,
                            fresh=None,
                            kv_chunk: int = DEFAULT_KV_CHUNK) -> torch.Tensor:
-    """Chunked online-softmax (multi-)query GQA attention. ``fresh`` is
-    ``(fresh_k_page, fresh_v_page, base)`` with pages already quantized.
-    Returns (B, s, H, hd) in q's dtype."""
+    """Chunked online-softmax (multi-)query GQA attention over KVPages or
+    PagedKV pools. ``fresh`` is ``(fresh_k_page, fresh_v_page, base)`` with
+    pages already quantized. Returns (B, s, H, hd) in q's dtype."""
     b, s, h, d = q.shape
     hkv = kp.num_kv_heads
     rep = h // hkv
-    t = kp.data.shape[1]
     dev = q.device
     valid = valid_len.to(device=dev, dtype=torch.long).expand(b)
     qh = q.reshape(b, s, hkv, rep, d).permute(0, 2, 3, 1, 4).float()
@@ -122,11 +161,10 @@ def decode_attention_plain(q: torch.Tensor, kp: KVPage, vp: KVPage,
         acc = acc * corr[..., None] + torch.einsum("bhrsc,bchd->bhrsd", p, vf)
         m = m_new
 
-    for lo in range(0, t, kv_chunk):
-        hi = min(t, lo + kv_chunk)
-        pos = torch.arange(lo, hi, device=dev)[None].expand(b, hi - lo)
-        update(_slice_rows(kp, lo, hi), _slice_rows(vp, lo, hi), pos,
-               cache_limit)
+    for kc, vc, lo in _chunks(kp, vp, kv_chunk):
+        c = kc.data.shape[1]
+        pos = torch.arange(lo, lo + c, device=dev)[None].expand(b, c)
+        update(kc, vc, pos, cache_limit)
     if fresh is not None:
         fkp, fvp, _ = fresh
         sf = fkp.data.shape[1]
@@ -136,15 +174,17 @@ def decode_attention_plain(q: torch.Tensor, kp: KVPage, vp: KVPage,
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d).to(q.dtype)
 
 
-def _check_pages(kp: KVPage, vp: KVPage, b: int, rows: int, hkv: int, d: int,
-                 dev, what: str) -> list:
-    """The kernel's layout: contiguous pages on ``dev``. Returns the
-    tensors the kernel reads: K data, K scales, V data, V scales (a bf16
-    page passes its data in place of the scales it does not have)."""
+def _check_pages(kp, vp, lead: tuple, hkv: int, d: int, dev,
+                 what: str) -> list:
+    """The kernel's layout: contiguous pages on ``dev`` whose rows are
+    indexed by ``lead`` ((B, S) for a dense page, (N, P) for a pool).
+    Returns the tensors the kernel reads: K data, K scales, V data, V
+    scales (a bf16 page passes its data in place of the scales it does not
+    have)."""
     f = hkv * d
-    want = {"int8": (torch.int8, (b, rows, hkv, d)),
-            "int4": (torch.int8, (b, rows, f // 2)),
-            "bf16": (torch.bfloat16, (b, rows, hkv, d))}[kp.precision]
+    want = {"int8": (torch.int8, (*lead, hkv, d)),
+            "int4": (torch.int8, (*lead, f // 2)),
+            "bf16": (torch.bfloat16, (*lead, hkv, d))}[kp.precision]
     out = []
     for page in (kp, vp):
         if (page.data.dtype, tuple(page.data.shape)) != want:
@@ -154,9 +194,9 @@ def _check_pages(kp: KVPage, vp: KVPage, b: int, rows: int, hkv: int, d: int,
         scale = page.data
         if page.precision != "bf16":
             if (page.scale is None or page.scale.dtype != torch.bfloat16
-                    or tuple(page.scale.shape) != (b, rows, f // page.group)):
+                    or tuple(page.scale.shape) != (*lead, f // page.group)):
                 raise ValueError(f"decode_attn: {what} scales must be bf16 "
-                                 f"({b}, {rows}, {f // page.group})")
+                                 f"{(*lead, f // page.group)}")
             scale = page.scale
         for t in (page.data, scale):
             if not t.is_cuda or t.device != dev or not t.is_contiguous():
@@ -166,12 +206,33 @@ def _check_pages(kp: KVPage, vp: KVPage, b: int, rows: int, hkv: int, d: int,
     return out
 
 
-def decode_attn_cuda(q: torch.Tensor, kp: KVPage, vp: KVPage,
-                     valid_len: torch.Tensor, causal: bool = True,
-                     fresh=None) -> torch.Tensor:
-    """The decode attention kernel: dense pages, s >= 1 queries per slot,
-    causal or not, with optional quantized fresh rows ``(fresh_k_page,
-    fresh_v_page, base)``. Returns (B, s, H, hd) in q's dtype."""
+def _check_tables(kp: PagedKV, vp: PagedKV, b: int, dev) -> list:
+    """Both pools' page tables: (B, n_log) int32, contiguous, on ``dev``,
+    over the same page size; at least one physical page."""
+    if kp.page_size != vp.page_size:
+        raise ValueError("decode_attn: K and V pools must share the page "
+                         "size")
+    n_log = kp.table.shape[-1]
+    for pg in (kp, vp):
+        t = pg.table
+        if (t.dtype != torch.int32 or tuple(t.shape) != (b, n_log)
+                or not t.is_cuda or t.device != dev
+                or not t.is_contiguous()):
+            raise ValueError(f"decode_attn: a page table must be a "
+                             f"contiguous ({b}, {n_log}) int32 CUDA tensor "
+                             f"on {dev}, got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+        if pg.data.shape[0] < 1:
+            raise ValueError("decode_attn: a pool needs at least one page")
+    return [kp.table, vp.table]
+
+
+def decode_attn_cuda(q: torch.Tensor, kp, vp, valid_len: torch.Tensor,
+                     causal: bool = True, fresh=None) -> torch.Tensor:
+    """The decode attention kernel: dense pages or paged pools, s >= 1
+    queries per slot, causal or not, with optional quantized fresh rows
+    ``(fresh_k_page, fresh_v_page, base)``. Returns (B, s, H, hd) in q's
+    dtype."""
     b, s, h, d = q.shape
     dev = q.device
     if kp.precision not in _PREC:
@@ -179,6 +240,10 @@ def decode_attn_cuda(q: torch.Tensor, kp: KVPage, vp: KVPage,
     if kp.precision != vp.precision or kp.group != vp.group:
         raise ValueError("decode_attn: K and V pages must share precision "
                          "and group")
+    paged = isinstance(kp, PagedKV)
+    if paged != isinstance(vp, PagedKV):
+        raise ValueError("decode_attn: K and V must both be pools or both "
+                         "dense pages")
     if fresh is not None:
         fkp, fvp, base = fresh
         if (fkp.precision, fkp.group, fvp.precision, fvp.group) != \
@@ -189,14 +254,19 @@ def decode_attn_cuda(q: torch.Tensor, kp: KVPage, vp: KVPage,
             raise ValueError(f"decode_attn: the kernel takes 1 to "
                              f"{_MAX_FRESH} fresh rows, got "
                              f"{fkp.data.shape[1]}")
+    tables, p_sz, n_log = [0, 0], 1, 0
+    if paged:
+        tables = [t.data_ptr() for t in _check_tables(kp, vp, b, dev)]
+        p_sz, n_log = kp.page_size, kp.table.shape[-1]
     if not q.is_cuda:
         raise ValueError("decode_attn: q must be a CUDA tensor")
     hkv = kp.num_kv_heads
     if h % hkv:
         raise ValueError(f"{h} query heads do not group over {hkv} KV heads")
     rep = h // hkv
-    seq = kp.data.shape[1]
-    cache = _check_pages(kp, vp, b, seq, hkv, d, dev, "cache")
+    seq = kp.seq_len
+    cache = _check_pages(kp, vp, tuple(kp.data.shape[:2]) if paged
+                         else (b, seq), hkv, d, dev, "cache")
     lib = build.library("decode_attn")
     if lib.repro_decode_attn_smem(rep * s, d) > _SMEM_LIMIT:
         raise ValueError(f"decode_attn: rep={rep} x s={s} query rows at "
@@ -205,7 +275,7 @@ def decode_attn_cuda(q: torch.Tensor, kp: KVPage, vp: KVPage,
     fresh_ptrs = [0, 0, 0, 0, 0]
     if fresh is not None:
         sf = fkp.data.shape[1]
-        fresh_t = _check_pages(fkp, fvp, b, sf, hkv, d, dev, "fresh")
+        fresh_t = _check_pages(fkp, fvp, (b, sf), hkv, d, dev, "fresh")
         base = base.to(device=dev, dtype=torch.int32).expand(b).contiguous()
         fresh_ptrs = [t.data_ptr() for t in fresh_t] + [base.data_ptr()]
     qf = (q.reshape(b, s, hkv, rep, d).permute(0, 2, 3, 1, 4).float()
@@ -213,14 +283,15 @@ def decode_attn_cuda(q: torch.Tensor, kp: KVPage, vp: KVPage,
     valid = valid_len.to(device=dev, dtype=torch.int32).expand(b).contiguous()
     out = torch.empty((b, hkv, rep, s, d), dtype=torch.float32, device=dev)
     if b > 0:
-        name = ("decode_attn_fresh" if fresh is not None else
-                "decode_attn_window" if s > 1 else "decode_attn")
+        name = ("decode_attn" + ("_paged" if paged else "")
+                + ("_fresh" if fresh is not None else
+                   "_window" if s > 1 else ""))
         build.LAUNCHES[name] += 1
         build.check(lib.repro_decode_attn(
             qf.data_ptr(), *(t.data_ptr() for t in cache), valid.data_ptr(),
-            *fresh_ptrs, out.data_ptr(), b, seq, hkv, rep, s, d, kp.group,
-            _PREC[kp.precision], int(causal), sf, build.stream_ptr(dev)),
-            name)
+            *tables, *fresh_ptrs, out.data_ptr(), b, seq, p_sz, n_log, hkv,
+            rep, s, d, kp.group, _PREC[kp.precision], int(causal), sf,
+            build.stream_ptr(dev)), name)
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d).to(q.dtype)
 
 
@@ -229,12 +300,13 @@ def decode_attention(q: torch.Tensor, k, v, *,
                      causal: bool = True, fresh_kv=None,
                      plain: bool = False) -> torch.Tensor:
     """(Multi-)query GQA attention of q (B, s, H, hd) against one layer's
-    cached K/V (KVPage, or raw (B, S, Hkv, hd)). ``fresh_kv=(fresh_k,
-    fresh_v, base)``: raw (B, Sf, Hkv, hd) rows at positions ``base + j``
-    (scalar or (B,)); ``valid_len`` counts them too. Returns (B, s, H, hd)."""
+    cached K/V (KVPage, PagedKV, or raw (B, S, Hkv, hd)). ``fresh_kv=
+    (fresh_k, fresh_v, base)``: raw (B, Sf, Hkv, hd) rows at positions
+    ``base + j`` (scalar or (B,)); ``valid_len`` counts them too. Returns
+    (B, s, H, hd)."""
     kp, vp = _page_of(k), _page_of(v)
     if valid_len is None:
-        valid_len = torch.full((q.shape[0],), kp.data.shape[1],
+        valid_len = torch.full((q.shape[0],), kp.seq_len,
                                dtype=torch.int32, device=q.device)
     fresh = None
     if fresh_kv is not None:

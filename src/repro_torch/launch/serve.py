@@ -5,6 +5,8 @@
     python -m repro_torch.launch.serve --arch llama3.2-3b --smoke --device cpu
     python -m repro_torch.launch.serve --arch llama3.2-3b --spec-k 4 \
         --spec-draft model     # self-speculative decoding, int4 self-draft
+    python -m repro_torch.launch.serve --arch llama3.2-3b --paged \
+        --shared-prefix-len 12 # paged KV pool with prefix sharing
 
 Weights are random, drawn from a seeded ``torch.Generator`` at the JAX
 package's init scales (real checkpoints are not in the repository), so the
@@ -22,6 +24,7 @@ import torch
 from repro_torch.configs.registry import ARCHS, get_config
 from repro_torch.models.model import build
 from repro_torch.serving.engine import ServeEngine, resolve_device
+from repro_torch.serving.pool import PagedConfig
 from repro_torch.serving.quantized import plan_for_variant
 from repro_torch.serving.scheduler import synthetic_stream
 from repro_torch.serving.spec import SpecConfig
@@ -54,6 +57,21 @@ def main(argv=None) -> dict:
                     choices=("model", "ngram"),
                     help="with --spec-k: 'model' drafts with the int4 "
                          "self-draft; 'ngram' proposes by prompt lookup")
+    ap.add_argument("--paged", action="store_true",
+                    help="serve K/V from a paged pool with copy-on-write "
+                         "prefix sharing instead of contiguous per-slot "
+                         "reservations")
+    ap.add_argument("--page-size", type=int, default=64,
+                    help="tokens per KV page (with --paged)")
+    ap.add_argument("--pool-pages", type=int, default=0,
+                    help="physical pages in the pool (0: equal-memory "
+                         "default, num_slots * ceil(max_seq/page_size))")
+    ap.add_argument("--no-prefix-sharing", action="store_true",
+                    help="with --paged: disable the prefix cache")
+    ap.add_argument("--shared-prefix-len", type=int, default=0,
+                    help="overwrite the first N prompt tokens of every "
+                         "request with a common prefix (exercises prefix "
+                         "sharing)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="default: cuda; 'cpu' runs the plain versions")
@@ -74,14 +92,25 @@ def main(argv=None) -> dict:
             if args.spec_k > 0 else None)
     max_seq = args.max_seq or (args.prompt_len + int(args.max_new * 1.25) + 1
                                + args.spec_k)   # verify-window headroom
+    paged = (PagedConfig(page_size=args.page_size,
+                         pool_pages=args.pool_pages or None,
+                         prefix_sharing=not args.no_prefix_sharing)
+             if args.paged else None)
     engine = ServeEngine(model, params, max_seq=max_seq, plan=plan,
                          kv_precision=args.kv_precision, spec=spec,
-                         device=device)
+                         paged=paged, device=device)
     del params
     reqs = synthetic_stream(args.num_requests, vocab_size=cfg.vocab_size,
                             prompt_len=args.prompt_len,
                             max_new_tokens=args.max_new,
                             arrival_rate=args.arrival_rate, seed=args.seed)
+    if args.shared_prefix_len > 0:
+        if args.shared_prefix_len >= args.prompt_len:
+            raise SystemExit("--shared-prefix-len must be shorter than "
+                             "--prompt-len")
+        shared = reqs[0].prompt[:args.shared_prefix_len].copy()
+        for r in reqs:
+            r.prompt[:args.shared_prefix_len] = shared
     outs, stats = engine.serve(reqs, num_slots=args.num_slots,
                                chunk=args.chunk)
     report = dict(arch=cfg.name, device=str(device), variant=args.variant,
@@ -91,6 +120,14 @@ def main(argv=None) -> dict:
                   ttft_mean_s=stats.ttft_mean_s,
                   weight_bytes=engine.weight_bytes(),
                   kv_bytes_per_slot=engine.kv_bytes_per_slot())
+    if paged is not None:
+        report.update(page_size=paged.page_size,
+                      pool_pages=stats.pool_pages_total,
+                      pool_pages_peak=stats.pool_pages_peak,
+                      prefix_hits=stats.prefix_hits,
+                      prefix_hit_tokens=stats.prefix_hit_tokens,
+                      cow_copies=stats.cow_copies, requeues=stats.requeues,
+                      kv_bytes_peak=stats.kv_bytes_peak)
     if spec is not None:
         report.update(spec_k=spec.k, spec_draft=spec.draft_source,
                       spec_rounds=stats.spec_rounds,

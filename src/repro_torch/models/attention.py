@@ -7,7 +7,8 @@ Prefill runs causal attention in plain tensor ops (materialized scores, or
 a chunked online softmax above ``CHUNK_THRESHOLD`` tokens), as the JAX
 package leaves it to XLA. Decode writes the new K/V into the cache in place
 and attends over it: a raw cache with a validity bias, a quantized
-``KVPage`` cache through the decode attention kernel.
+``KVPage`` cache or a ``PagedKV`` pool (written through its page table)
+through the decode attention kernel.
 """
 
 from __future__ import annotations
@@ -28,8 +29,8 @@ KV_CHUNK = 2048
 
 
 class KVCache(NamedTuple):
-    """One layer's attention cache: raw (B, S_max, Hkv, hd) tensors, or
-    ``KVPage``s of a quantized cache."""
+    """One layer's attention cache: raw (B, S_max, Hkv, hd) tensors,
+    ``KVPage``s of a quantized cache, or ``PagedKV`` pools."""
     k: object
     v: object
 
@@ -121,7 +122,8 @@ def attention(p, x, *, num_heads: int, num_kv_heads: int, head_dim: int,
     * decode (``cache`` given, x is (B, s, D)): K/V are written into the
       cache IN PLACE at ``cache_pos`` (scalar or (B,) per slot), then a raw
       cache is attended with ``valid_bias`` and a quantized cache
-      (``KVPage``, quantize-on-write) through the decode attention kernel;
+      (``KVPage``, quantize-on-write, or a ``PagedKV`` pool written through
+      its page table) through the decode attention kernel;
       s > 1 is a verify window with per-query causal offsets.
     * read-only decode (fused draft propose): ``cache`` and
       ``fresh_kv=(fresh_k, fresh_v, count)`` given. The new K/V go into row

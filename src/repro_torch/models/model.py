@@ -96,13 +96,24 @@ class Model:
         return cache._replace(pos=torch.zeros((num_slots,), dtype=torch.int32,
                                               device=device))
 
-    def insert_cache_slot(self, cache, one, slot: int):
+    def insert_cache_slot(self, cache, one, slot: int, page_rows=None):
         """Write a batch=1 cache (scalar or (1,) pos) into slot ``slot`` of
         a slotted cache, in place. Quantized fields quantize the prompt's
-        K/V here, at admission (quantize-on-insert)."""
+        K/V here, at admission (quantize-on-insert). Paged-pool fields also
+        need ``page_rows=(row, wrow)``, the slot's page-table rows from the
+        host allocator (``serving/pool.py``): ``row`` maps logical pages to
+        physical ones, ``wrow`` redirects shared read-only prefix pages to
+        the dump page so this insert cannot overwrite them."""
         for dst, src, axis in zip(cache, one, self.cache_batch_axes):
             if KV.is_kv_page(dst):
-                KV.insert_slot(dst, src, slot)
+                first = dst[0] if isinstance(dst, tuple) else dst
+                if isinstance(first, KV.PagedKV):
+                    from repro_torch.quant import paged
+                    assert page_rows is not None, \
+                        "inserting into a paged cache needs page_rows"
+                    paged.insert_slot_paged(dst, src, slot, *page_rows)
+                else:
+                    KV.insert_slot(dst, src, slot)
                 continue
             src = src.reshape(1) if src.ndim < dst.ndim else src
             index = [slice(None)] * dst.ndim

@@ -25,6 +25,11 @@ in the stacked page.
 Mixed per-layer plans cut the cache into a tuple of pages whose boundaries
 are the parameter-stack segment boundaries (``cuts``), so page i lines up
 with segment i of ``quant.apply.segment_slices``.
+
+A ``PagedKV`` field keeps the same rows in a shared pool of fixed-size
+physical pages reached through a per-slot page table (``quant/paged.py``
+holds its writes and reads); every helper below that slices a field along
+the layer axis slices its data, scales and table together.
 """
 
 from __future__ import annotations
@@ -95,12 +100,57 @@ class KVPage:
             scale=None if self.scale is None else self.scale[i])
 
 
+@dataclasses.dataclass
+class PagedKV:
+    """Pool-backed paged layout of one run of cache layers:
+
+      data  : (L?, N, P, Hkv, hd)  int8 | raw float   pool payload
+              (L?, N, P, F // 2)   int8               ("int4", packed flat)
+      scale : (L?, N, P, F//group) bf16, or None      per-group scales
+      table : (L?, B, n_log)       int32              slot -> physical page
+
+    N = pool pages + 1: physical page 0 is the dump page. It is never
+    allocated; every released or unallocated table entry points at it, so
+    writes from inactive slots land on garbage that no read sees (decode
+    attention masks rows at or past valid_len). "bf16" pools store the raw
+    cache dtype as it is, so a paged bf16 engine reads the values of the
+    dense raw path."""
+    data: torch.Tensor
+    scale: Optional[torch.Tensor]
+    table: torch.Tensor
+    precision: str
+    head_dim: int                   # logical hd (int4 stores F // 2 bytes)
+    group: int                      # divides Hkv * hd
+    page_size: int                  # tokens per physical page
+
+    @property
+    def num_kv_heads(self) -> int:
+        if self.precision == "int4":
+            return 2 * self.data.shape[-1] // self.head_dim
+        return self.data.shape[-2]
+
+    @property
+    def seq_len(self) -> int:
+        """Logical rows a slot's page table addresses: n_log * page_size."""
+        return self.table.shape[-1] * self.page_size
+
+    @property
+    def num_pages(self) -> int:
+        """Physical pool pages, the dump page included."""
+        return self.data.shape[-3 if self.precision == "int4" else -4]
+
+    def layer(self, i: int) -> "PagedKV":
+        """View of layer ``i`` of a layer-stacked pool (writes land in the
+        stack)."""
+        return _slice_layers(self, i, None)
+
+
 def is_kv_page(x: Any) -> bool:
-    """True for a KVPage or a non-empty tuple of them."""
-    if isinstance(x, KVPage):
+    """True for a KVPage/PagedKV or a non-empty tuple of them."""
+    if isinstance(x, (KVPage, PagedKV)):
         return True
     return (isinstance(x, tuple) and len(x) > 0
-            and all(isinstance(p, KVPage) for p in x))
+            and all(isinstance(p, (KVPage, PagedKV)) for p in x))
 
 
 # ---------------------------------------------------------------------------
@@ -181,9 +231,13 @@ def write_rows(dst: torch.Tensor, src: torch.Tensor,
     dst[torch.arange(b, device=dst.device)[:, None], rows] = src.to(dst.dtype)
 
 
-def update_page(page: KVPage, new: torch.Tensor, pos) -> KVPage:
+def update_page(page, new: torch.Tensor, pos):
     """Decode-step write: quantize ``new`` (B, s, Hkv, hd) and store it in
-    place at sequence position ``pos`` (scalar or (B,) per-slot)."""
+    place at sequence position ``pos`` (scalar or (B,) per-slot). A
+    ``PagedKV`` writes through its page table (``paged.update_pages``)."""
+    if isinstance(page, PagedKV):
+        from repro_torch.quant import paged
+        return paged.update_pages(page, new, pos)
     data_n, scale_n = quantize_kv(new, page.precision, page.group)
     write_rows(page.data, data_n, pos)
     if scale_n is not None:
@@ -244,18 +298,26 @@ def kv_segment(field, si: int, lo: int, hi: int):
             (f"KV page {si} holds {page.data.shape[0]} layers; segment "
              f"[{lo},{hi}) expects {hi - lo}")
         return page
-    if isinstance(field, KVPage):
+    if isinstance(field, (KVPage, PagedKV)):
         assert si == 0, "single-page cache with a multi-segment stack"
         return field
     return field[lo:hi]
 
 
-def _slice_layers(field, lo: int, hi: int):
+def _slice_layers(field, lo: int, hi: Optional[int]):
+    """Layers [lo, hi) of a field (``hi=None``: layer ``lo`` alone, the
+    axis dropped). Views: writes land in the stack."""
+    idx = lo if hi is None else slice(lo, hi)
     if isinstance(field, KVPage):
         return dataclasses.replace(
-            field, data=field.data[lo:hi],
-            scale=None if field.scale is None else field.scale[lo:hi])
-    return field[lo:hi]
+            field, data=field.data[idx],
+            scale=None if field.scale is None else field.scale[idx])
+    if isinstance(field, PagedKV):
+        return dataclasses.replace(
+            field, data=field.data[idx],
+            scale=None if field.scale is None else field.scale[idx],
+            table=field.table[idx])
+    return field[idx]
 
 
 def kv_take_layers(field, lo: int, hi: int):
@@ -279,8 +341,8 @@ def kv_take_layers(field, lo: int, hi: int):
 
 def clone_cache(cache):
     """Deep copy of a family cache NamedTuple whose fields may be raw
-    tensors, KVPages or tuples of KVPages (page writes are in place, so a
-    scratch decode runs on a clone)."""
+    tensors, KVPages, PagedKV pools or tuples of them (page writes are in
+    place, so a scratch decode runs on a clone)."""
     def one(x):
         if isinstance(x, tuple):
             return tuple(one(p) for p in x)
@@ -288,23 +350,33 @@ def clone_cache(cache):
             return dataclasses.replace(
                 x, data=x.data.clone(),
                 scale=None if x.scale is None else x.scale.clone())
+        if isinstance(x, PagedKV):
+            return dataclasses.replace(
+                x, data=x.data.clone(),
+                scale=None if x.scale is None else x.scale.clone(),
+                table=x.table.clone())
         return x.clone()
     return type(cache)(*(one(f) for f in cache))
 
 
 def kv_layer(seg_field, i: int):
     """Layer ``i`` of a segment's cache field (a view)."""
-    if isinstance(seg_field, KVPage):
-        return seg_field.layer(i)
-    return seg_field[i]
+    return _slice_layers(seg_field, i, None)
 
 
 def kv_field_nbytes(field) -> float:
-    """Physical bytes of a cache field (pages count data + scales)."""
+    """Physical bytes of a cache field (pages count data + scales, pools
+    their tables too)."""
     pages = field if isinstance(field, tuple) else (field,)
     total = 0.0
     for p in pages:
-        for t in ((p.data, p.scale) if isinstance(p, KVPage) else (p,)):
+        if isinstance(p, PagedKV):
+            leaves = (p.data, p.scale, p.table)
+        elif isinstance(p, KVPage):
+            leaves = (p.data, p.scale)
+        else:
+            leaves = (p,)
+        for t in leaves:
             if t is not None:
                 total += float(t.numel() * t.element_size())
     return total

@@ -7,8 +7,9 @@ the device, and the helpers below update it in place:
 * ``tokens`` / ``logprobs`` are (B, S_max) buffers written at
   ``lengths[slot]`` (done and empty slots never advance);
 * ``cache`` is the family's KV cache in the slotted layout (``pos`` is a
-  (B,) vector); with a quantized KV plan its K/V fields are KVPages and
-  admission quantizes the prefilled K/V on insert;
+  (B,) vector); with a quantized KV plan its K/V fields are KVPages (or
+  PagedKV pools on a paged engine) and admission quantizes the prefilled
+  K/V on insert;
 * ``insert_request`` overwrites one slot with a prefilled request;
   ``commit_tokens`` appends a speculative round's tokens;
   ``release_slot`` drops the slot's active flag.
@@ -90,14 +91,17 @@ def insert_request(model, state: DecodeState, slot: int,
                    prompt: torch.Tensor, prompt_cache: Any,
                    last_logits: torch.Tensor, max_new: int,
                    temperature: float = 0.0, top_k: int = 0,
-                   top_p: float = 1.0) -> DecodeState:
+                   top_p: float = 1.0, page_rows=None) -> DecodeState:
     """Admit one prefilled request into ``slot``, in place. ``prompt``:
     (P,) int32; ``prompt_cache``/``last_logits`` come from a batch=1
-    prefill (cache pos == P). The whole slot row is reset."""
+    prefill (cache pos == P). The whole slot row is reset. ``page_rows``:
+    (row, wrow) page-table rows from the pool allocator, needed when the
+    cache holds paged fields."""
     p = prompt.shape[0]
     state.tokens[slot] = 0
     state.tokens[slot, :p] = prompt.to(torch.int32)
-    model.insert_cache_slot(state.cache, prompt_cache, slot)
+    model.insert_cache_slot(state.cache, prompt_cache, slot,
+                            page_rows=page_rows)
     state.last_logits[slot] = last_logits.reshape(-1).float()
     state.lengths[slot] = p
     state.max_len[slot] = p + max_new

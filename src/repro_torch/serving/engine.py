@@ -22,6 +22,19 @@ Structure:
     entropy order and shares the target's tensors where the plan already
     chose int4 or lower. Greedy output is token-identical to the non-spec
     engine.
+  * With ``paged=PagedConfig(...)`` (or ``True``) the K/V live in a pool
+    of fixed-size pages reached through per-slot page tables
+    (``quant/paged.py``) instead of a ``num_slots x max_seq`` reservation.
+    ``init_decode_state`` builds the pool and its host allocator
+    (``serving/pool.py``), by default at the dense reservation's size;
+    ``insert`` allocates a request's pages and raises ``OutOfPages``
+    leak-free when the pool cannot supply them; ``release`` returns them.
+    With prefix sharing, a prompt's full pages that match an earlier
+    prompt are mapped read-only (copy-on-write at the boundary page), and
+    ``prefill_request`` runs only the suffix, as single-token decode steps
+    over the shared rows. ``serve`` holds a request back (requeues it)
+    while the pool cannot cover its worst case. Greedy output is
+    token-identical to the dense engine's.
 
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"`` (the
 tests do, and then every kernel's plain version runs). With no GPU and no
@@ -38,29 +51,23 @@ import numpy as np
 import torch
 
 from repro_torch.core.policy import QuantPlan
+from repro_torch.device import resolve_device
+from repro_torch.quant import paged as PG
 from repro_torch.quant.apply import (SegmentedParams, segment_slices,
                                      tree_nbytes)
 from repro_torch.quant.compiler import compile_draft_plan, compile_kv_plan
 from repro_torch.quant.kvcache import (DEFAULT_KV_GROUP, KVPlan,
-                                       kv_field_nbytes, quantize_model_cache)
+                                       dequantize_kv, kv_field_nbytes,
+                                       quantize_model_cache)
 from repro_torch.serving import batch as B
 from repro_torch.serving import sampling as S
+from repro_torch.serving.pool import (OutOfPages, PagedConfig, PoolSession,
+                                      PrefixMatch)
 from repro_torch.serving.quantized import apply_plan_to_params
 from repro_torch.serving.scheduler import Request, RequestOutput, Scheduler
 from repro_torch.serving.spec import SpecConfig, SpecMetrics, make_spec_round
 
 DEFAULT_CHUNK = 8
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the GPU. Raises when no GPU is present (pass
-    ``device="cpu"`` to run the plain versions on the CPU)."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "repro_torch serves on a CUDA GPU and none is available; pass "
-            "device='cpu' to run the plain PyTorch versions on the CPU")
-    return dev
 
 
 @dataclasses.dataclass
@@ -76,6 +83,7 @@ class Prefill:
     prompt: np.ndarray           # (P,) int32 host tokens
     cache: object                # batch=1 raw family cache, pos == P
     last_logits: torch.Tensor    # (1, V_pad) logits after the last token
+    match: Optional[PrefixMatch] = None  # pinned prefix-cache match (paged)
 
 
 @dataclasses.dataclass
@@ -98,6 +106,16 @@ class ServeStats:
     draft_accepted: int = 0    # draft tokens verified AND committed
     acceptance_rate: float = 0.0   # accepted / proposed
     tokens_per_round: float = 0.0  # committed tokens per round
+    # paged KV pool (paged=... engines only)
+    pool_pages_total: int = 0      # allocatable physical pages in the pool
+    pool_pages_peak: int = 0       # high-water mark of pages in use
+    pool_page_size: int = 0        # tokens per page
+    prefix_hits: int = 0           # admissions that reused shared pages
+    prefix_hit_tokens: int = 0     # prompt tokens served from shared pages
+    prefix_hit_rate: float = 0.0   # hit tokens / all prompt tokens
+    cow_copies: int = 0            # COW boundary pages written privately
+    kv_bytes_peak: float = 0.0     # peak pool bytes referenced
+    requeues: int = 0              # admissions the pool held back
 
 
 class ServeEngine:
@@ -108,7 +126,7 @@ class ServeEngine:
                  plan: Optional[QuantPlan] = None, group: int = 128,
                  eos_id: Optional[int] = None, pad_id: int = 0,
                  kv_precision="bf16", kv_group: Optional[int] = None,
-                 spec: Optional[SpecConfig] = None, device=None):
+                 spec: Optional[SpecConfig] = None, paged=None, device=None):
         self.device = resolve_device(device)
         self.model = model
         self.cfg = model.cfg
@@ -118,6 +136,13 @@ class ServeEngine:
         self.pad_id = pad_id
         self.spec = spec
         self._draft = None            # compiled at first use
+        # paged KV pool: True -> defaults, or a PagedConfig
+        self.paged = (PagedConfig() if paged is True else paged) or None
+        self._paged_fields = (tuple(f for f in model.kv_cache_fields
+                                    if f in ("k", "v"))
+                              if self.paged is not None else ())
+        self.pool: Optional[PoolSession] = None  # built by init_decode_state
+        self._page_bytes = 0.0
         if plan is not None:
             params = apply_plan_to_params(model, params, plan, group)
         self.params = params
@@ -162,17 +187,98 @@ class ServeEngine:
         v[:, :, :s] = cache.v
         return cache._replace(k=k, v=v), logits[:, 0]
 
-    def prefill_request(self, prompt) -> Prefill:
-        """Prefill ONE request (1-D prompt)."""
+    def prefill_request(self, prompt, state: Optional[B.DecodeState] = None
+                        ) -> Prefill:
+        """Prefill ONE request (1-D prompt). A paged engine with prefix
+        sharing first matches the prompt against the pool's prefix cache,
+        pinning the matched pages; on a hit, and given ``state`` (which
+        holds the pool), it reads the shared K/V back from the pool and
+        runs the model over the suffix only."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
+        match = None
+        if self.pool is not None and self.pool.prefix is not None:
+            match = self.pool.match(prompt)
+            if match.hit > 0 and state is not None:
+                cache, logits = self._seed_prefill(prompt, match, state)
+                return Prefill(prompt=prompt, cache=cache,
+                               last_logits=logits, match=match)
         cache, logits = self.prefill(prompt[None])
-        return Prefill(prompt=prompt, cache=cache, last_logits=logits)
+        return Prefill(prompt=prompt, cache=cache, last_logits=logits,
+                       match=match)
+
+    @torch.no_grad()
+    def _seed_prefill(self, prompt: np.ndarray, m: PrefixMatch,
+                      state: B.DecodeState):
+        """Prefix-hit prefill: gather the matched rows (shared pages, then
+        the COW donor's page) from the pool, dequantize them into a raw
+        batch=1 cache at ``pos = hit``, and run single-token decode steps
+        over the suffix. Returns (cache, last logits (1, V_pad))."""
+        row = np.zeros(self.pool.n_log, np.int32)
+        row[:len(m.full_ids)] = m.full_ids
+        if m.donor is not None:
+            row[len(m.full_ids)] = m.donor
+        proto = self.model.init_cache(1, self.max_seq, "meta")
+        reps = {}
+        for name in self._paged_fields:
+            field = getattr(state.cache, name)
+            dtype = getattr(proto, name).dtype
+            parts = [dequantize_kv(PG.gather_rows(pg, row), dtype)
+                     for pg in (field if isinstance(field, tuple)
+                                else (field,))]
+            reps[name] = torch.cat(parts, 0)[:, :, :self.max_seq].contiguous()
+        cache = proto._replace(pos=torch.tensor(m.hit, dtype=torch.int32,
+                                                device=self.device), **reps)
+        for tok in prompt[m.hit:]:
+            logits, cache = self.model.decode_step(
+                self.params, cache, self._tokens([[tok]]))
+        return cache, logits[:, 0]
 
     # -- slotted decode ----------------------------------------------------------
+    def _pool_runs(self, raw) -> list:
+        """Per-precision layer runs of a pool, aligned with the KV plan's
+        page cuts; a bf16 cache still splits at the weight stack's segment
+        cuts, so each segment reads a pool of its own layers."""
+        l_total = raw.shape[0]
+        if self.kv_plan is None:
+            cuts = (0,) + tuple(c for c in self._kv_cuts()
+                                if 0 < c < l_total) + (l_total,)
+            return [("bf16", lo, hi) for lo, hi in zip(cuts[:-1], cuts[1:])]
+        runs = self.kv_plan.pages(self._kv_cuts())
+        assert runs[-1][2] == l_total, (runs, l_total)
+        return runs
+
+    def _paged_cache(self, num_slots: int, pool_pages: int):
+        """Slotted family cache with the paged fields as empty pools (the
+        dense fields are shaped on the meta device, never allocated)."""
+        proto = self.model.slotted_cache(num_slots, self.max_seq, "meta")
+        group = (self.kv_plan.group if self.kv_plan is not None
+                 else DEFAULT_KV_GROUP)
+        reps = {}
+        for name in self._paged_fields:
+            raw = getattr(proto, name)
+            reps[name] = PG.init_pool_field(
+                raw, self._pool_runs(raw), num_pages=pool_pages,
+                page_size=self.paged.page_size, num_slots=num_slots,
+                group=group, device=self.device)
+        return proto._replace(pos=torch.zeros((num_slots,), dtype=torch.int32,
+                                              device=self.device), **reps)
+
     def init_decode_state(self, num_slots: int, seed: int = 0
                           ) -> B.DecodeState:
-        cache = self._wrap_cache(self.model.slotted_cache(
-            num_slots, self.max_seq, self.device))
+        """Empty slotted decode state. A paged engine also (re)builds its
+        page pool and host allocator here, sized by default to the dense
+        reservation: ``num_slots * ceil(max_seq / page_size)`` pages."""
+        if self._paged_fields:
+            n_log = PG.logical_pages(self.max_seq, self.paged.page_size)
+            pool_pages = self.paged.pool_pages or num_slots * n_log
+            self.pool = PoolSession(pool_pages, self.paged.page_size, n_log,
+                                    prefix_sharing=self.paged.prefix_sharing)
+            cache = self._paged_cache(num_slots, pool_pages)
+            self._page_bytes = sum(PG.page_nbytes(getattr(cache, name))
+                                   for name in self._paged_fields)
+        else:
+            cache = self._wrap_cache(self.model.slotted_cache(
+                num_slots, self.max_seq, self.device))
         return B.init_state(self.model, num_slots, self.max_seq, self.device,
                             cache=cache, seed=seed)
 
@@ -180,13 +286,34 @@ class ServeEngine:
     def insert(self, state: B.DecodeState, slot: int, pf: Prefill,
                max_new: int, *, temperature: float = 0.0, top_k: int = 0,
                top_p: float = 1.0) -> B.DecodeState:
-        """Admit a prefilled request into ``slot`` (quantize-on-insert)."""
-        return B.insert_request(
+        """Admit a prefilled request into ``slot`` (quantize-on-insert). A
+        paged engine allocates the slot's pages here (shared prefix pages
+        are mapped, not copied; the COW boundary page is written by the
+        insert) and raises ``OutOfPages``, with the match's pins released
+        and nothing leaked, when the pool cannot serve the request."""
+        page_rows = None
+        p = int(pf.prompt.size)
+        if self.pool is not None:
+            need = self.pool.pages_for(self._slot_seq_budget(p, max_new))
+            page_rows = self.pool.admit(slot, pf.prompt, need, pf.match)
+        B.insert_request(
             self.model, state, slot, self._tokens(pf.prompt), pf.cache,
-            pf.last_logits, max_new, temperature, top_k, top_p)
+            pf.last_logits, max_new, temperature, top_k, top_p,
+            page_rows=page_rows)
+        if self.pool is not None:
+            self.pool.register(slot, pf.prompt, p)
+        return state
 
     def release(self, state: B.DecodeState, slot: int) -> B.DecodeState:
-        return B.release_slot(state, slot)
+        """Evict a finished request; a paged engine points the slot's
+        tables at the dump page and returns its pages (shared pages
+        survive while the prefix cache or other slots hold them)."""
+        B.release_slot(state, slot)
+        if self.pool is not None:
+            for name in self._paged_fields:
+                PG.release_slot_pages(getattr(state.cache, name), slot)
+            self.pool.release(slot)
+        return state
 
     @torch.no_grad()
     def _step(self, st: B.DecodeState) -> None:
@@ -297,11 +424,13 @@ class ServeEngine:
         else:
             assert total <= self.max_seq, (total, self.max_seq)
         state = self.init_decode_state(b, seed)
-        cache, last = self.prefill(toks.cpu().numpy())
+        prompts_np = toks.cpu().numpy().astype(np.int32)
+        cache, last = self.prefill(prompts_np)
         for i in range(b):
             one = cache._replace(k=cache.k[:, i:i + 1], v=cache.v[:, i:i + 1])
-            B.insert_request(self.model, state, i, toks[i], one,
-                             last[i:i + 1], max_new_tokens, temperature)
+            self.insert(state, i, Prefill(prompt=prompts_np[i], cache=one,
+                                          last_logits=last[i:i + 1]),
+                        max_new_tokens, temperature=temperature)
         chunk = max_new_tokens if chunk is None else min(chunk,
                                                          max_new_tokens)
         steps = 0
@@ -326,7 +455,10 @@ class ServeEngine:
         decode chunk, harvest finished slots; repeat. Outputs come back
         ordered by request id. On a spec engine a chunk is ``chunk``
         propose/verify rounds (1 to k+1 tokens per live slot each) and the
-        stats carry the acceptance counters."""
+        stats carry the acceptance counters. On a paged engine a request
+        whose worst case (no prefix hit) the pool's free and evictable
+        pages cannot cover is requeued until a slot drains; with no slot
+        active that is a deadlock, and ``OutOfPages`` is raised."""
         if chunk < 1 or num_slots < 1:
             raise ValueError("chunk and num_slots must be >= 1")
         t_start = time.perf_counter()
@@ -339,24 +471,49 @@ class ServeEngine:
             sched.submit(r)
         spec_m = SpecMetrics.zeros(self.device)
         state = self.init_decode_state(num_slots, seed)
-        clock, admissions, generated = 0, 0, 0
+        clock, admissions, generated, requeues = 0, 0, 0, 0
         occupancy: list[float] = []
         gaps: list[float] = []
         while not sched.all_done():
             sched.poll(clock)
+            stalled = False
             for slot in sched.free_slots():
                 req = sched.next_ready(clock)
                 if req is None:
                     break
+                if self.pool is not None and not self.pool.can_admit(
+                        self.pool.pages_for(self._slot_seq_budget(
+                            len(req.prompt), req.max_new_tokens))):
+                    # backpressure: the pool's free and evictable pages do
+                    # not cover the worst case; retry after a slot drains
+                    sched.requeue(req)
+                    requeues += 1
+                    stalled = True
+                    break
                 sched.assign(slot, req, clock, wall=time.perf_counter())
-                if occupancy and sched.num_active > 1:
-                    admissions += 1    # joined a batch already mid-decode
                 temp = (req.temperature if req.temperature is not None
                         else temperature)
-                self.insert(state, slot, self.prefill_request(req.prompt),
-                            req.max_new_tokens, temperature=temp,
-                            top_k=req.top_k, top_p=req.top_p)
+                try:
+                    self.insert(state, slot,
+                                self.prefill_request(req.prompt, state),
+                                req.max_new_tokens, temperature=temp,
+                                top_k=req.top_k, top_p=req.top_p)
+                except OutOfPages:
+                    # insert unpinned the match and leaked nothing
+                    sched.unassign(slot)
+                    requeues += 1
+                    stalled = True
+                    break
+                if occupancy and sched.num_active > 1:
+                    admissions += 1    # joined a batch already mid-decode
             if sched.num_active == 0:
+                if stalled:
+                    raise OutOfPages(
+                        "admission deadlock: no active slots and the pool "
+                        "cannot supply the next request's pages "
+                        f"({self.pool.num_pages} pages of "
+                        f"{self.pool.page_size} tokens); size pool_pages "
+                        "for the longest request")
                 nxt = sched.next_arrival()
                 if nxt is not None:
                     clock = max(clock + 1, nxt)    # idle: fast-forward
@@ -393,6 +550,20 @@ class ServeEngine:
         ttfts = [o.ttft_s for o in outputs if o.ttft_s is not None]
         tpots = [o.tpot_s for o in outputs if o.tpot_s is not None]
         proposed, accepted, committed, rounds = (int(v) for v in spec_m)
+        pool_kw = {}
+        if self.pool is not None:
+            pool = self.pool
+            pool.check_invariants()    # nothing leaked
+            pool_kw = dict(
+                pool_pages_total=pool.num_pages,
+                pool_pages_peak=pool.peak_pages,
+                pool_page_size=pool.page_size,
+                prefix_hits=pool.prefix_hits,
+                prefix_hit_tokens=pool.prefix_hit_tokens,
+                prefix_hit_rate=(pool.prefix_hit_tokens / pool.prompt_tokens
+                                 if pool.prompt_tokens else 0.0),
+                cow_copies=pool.cow_copies,
+                kv_bytes_peak=pool.peak_pages * self._page_bytes)
         stats = ServeStats(
             decode_steps=len(occupancy) * chunk, generated_tokens=generated,
             occupancy=float(np.mean(occupancy)) if occupancy else 0.0,
@@ -405,7 +576,8 @@ class ServeEngine:
             spec_rounds=rounds, draft_proposed=proposed,
             draft_accepted=accepted,
             acceptance_rate=accepted / proposed if proposed else 0.0,
-            tokens_per_round=committed / rounds if rounds else 0.0)
+            tokens_per_round=committed / rounds if rounds else 0.0,
+            requeues=requeues, **pool_kw)
         return outputs, stats
 
     # -- accounting ----------------------------------------------------------------
@@ -417,6 +589,15 @@ class ServeEngine:
                                                           "meta"))
         return float(sum(kv_field_nbytes(getattr(cache, name))
                          for name in self.model.kv_cache_fields))
+
+    def kv_bytes_allocated(self, num_slots: int = 1) -> float:
+        """Attention-cache bytes held right now. A dense engine reserves
+        every slot at full depth up front (``num_slots`` times
+        ``kv_bytes_per_slot()``); a paged engine charges only the pool
+        pages referenced now, a shared prefix page once."""
+        if self.pool is None:
+            return num_slots * self.kv_bytes_per_slot()
+        return self.pool.pages_in_use * self._page_bytes
 
     @staticmethod
     def _weight_bytes(params) -> float:

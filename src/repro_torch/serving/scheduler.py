@@ -72,15 +72,24 @@ class Scheduler:
     def poll(self, clock: int) -> None:
         """Move requests whose arrival step has come into the ready queue."""
         while self._arrivals and self._arrivals[0][0] <= clock:
-            _, _, req = heapq.heappop(self._arrivals)
-            self._seq += 1
-            heapq.heappush(self._ready,
-                           (req.priority, req.arrival_step, self._seq, req))
+            self._push_ready(heapq.heappop(self._arrivals)[2])
+
+    def _push_ready(self, req: Request) -> None:
+        self._seq += 1
+        heapq.heappush(self._ready,
+                       (req.priority, req.arrival_step, self._seq, req))
 
     def next_ready(self, clock: int) -> Optional[Request]:
         """Pop the highest-priority ready request (FIFO within a class)."""
         self.poll(clock)
         return heapq.heappop(self._ready)[3] if self._ready else None
+
+    def requeue(self, req: Request) -> None:
+        """Push a dequeued request back (admission backpressure: the paged
+        pool cannot supply its pages until a slot drains). It keeps its
+        priority and arrival step and goes behind the ready requests of
+        both."""
+        self._push_ready(req)
 
     def next_arrival(self) -> Optional[int]:
         """Earliest pending arrival step (ready requests count as arrived)."""
@@ -97,6 +106,18 @@ class Scheduler:
         self._admitted_step[req.rid] = clock
         self._admitted_wall[req.rid] = (time.perf_counter() if wall is None
                                         else wall)
+
+    def unassign(self, slot: int) -> Request:
+        """Undo ``assign`` (the pool could not supply the request's pages
+        at insert): the request goes back to the ready queue and nothing
+        is recorded."""
+        req = self._slots[slot]
+        assert req is not None, f"slot {slot} is free"
+        self._slots[slot] = None
+        self._admitted_step.pop(req.rid, None)
+        self._admitted_wall.pop(req.rid, None)
+        self._push_ready(req)
+        return req
 
     def mark_first_token(self, slot: int, t: float) -> None:
         req = self._slots[slot]

@@ -5,7 +5,9 @@ against the Pallas kernel in interpret mode on every slot, including
 valid_len 0 (where the reference's jnp backends average V and the TPU
 kernel, like the port, gives 0). The single-query step, the multi-query
 verify window (causal and not) and the fresh-row form of the fused draft
-propose. f32, 1e-5."""
+propose. f32, 1e-5. The paged forms are in tests/test_torch_paged.py."""
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -19,7 +21,7 @@ from repro.kernels.decode_attn.ops import decode_attention as jdecode
 from repro.quant import kvcache as JKV
 from repro_torch.bridge import from_jax
 from repro_torch.kernels.decode_attn import ops as TDA
-from repro_torch.quant.kvcache import make_page
+from repro_torch.quant.kvcache import PagedKV, make_page
 
 torch.set_num_threads(2)
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -39,7 +41,8 @@ def test_decode_attention_plain_matches_reference(precision, s, valid):
     b, hkv, rep, hd, group = 3, 2, 3, 32, 32
     q, k, v = _inputs(s, b, s, hkv, rep, hd)
     jk, jv = (JKV.make_page(jnp.asarray(a), precision, group) for a in (k, v))
-    tk, tv = (from_jax(jax.tree.map(np.asarray, p)) for p in (jk, jv))
+    tk, tv = (from_jax(jax.tree.map(np.asarray, p), device="cpu")
+              for p in (jk, jv))
     valid = np.asarray(valid, np.int32)
     got = TDA.decode_attention(torch.from_numpy(q), tk, tv,
                                valid_len=torch.from_numpy(valid)).numpy()
@@ -88,8 +91,8 @@ def _window_inputs(seed, b, t, s, hkv, rep, hd):
 
 def _pages(k, v, precision, group):
     jk, jv = (JKV.make_page(jnp.asarray(a), precision, group) for a in (k, v))
-    return jk, jv, from_jax(jax.tree.map(np.asarray, jk)), \
-        from_jax(jax.tree.map(np.asarray, jv))
+    return jk, jv, from_jax(jax.tree.map(np.asarray, jk), device="cpu"), \
+        from_jax(jax.tree.map(np.asarray, jv), device="cpu")
 
 
 def _limits(valid, s, causal):
@@ -159,11 +162,13 @@ def test_fresh_rows_plain_match_reference(precision):
         np.testing.assert_allclose(got, want, **TOL)
 
 
-def test_kernel_wrapper_takes_only_single_query():
+def test_kernel_wrapper_refuses_what_the_kernel_does_not_take():
     """The kernel wrapper refuses what the kernel does not take, with no
     fallback to the plain version: CPU tensors, K/V pages of mixed
     precision, fresh rows at another precision than the cache, more fresh
-    rows than its epilogue tile."""
+    rows than its epilogue tile; for a paged pool, a page table on the CPU
+    or of the wrong shape or dtype, a V pool at another precision than
+    K's, a dense page beside a pool."""
     q = torch.zeros(1, 2, 4, 16)
     kp = make_page(torch.zeros(1, 8, 2, 16), "int8", 16)
     vp = make_page(torch.zeros(1, 8, 2, 16), "int4", 16)
@@ -178,3 +183,21 @@ def test_kernel_wrapper_takes_only_single_query():
     many = (make_page(torch.zeros(1, 33, 2, 16), "int8", 16),) * 2 + (valid,)
     with pytest.raises(ValueError, match="1 to 32 fresh rows"):
         TDA.decode_attn_cuda(q, kp, kp, valid, fresh=many)
+    pool = PagedKV(data=torch.zeros(3, 4, 2, 16, dtype=torch.int8),
+                   scale=torch.zeros(3, 4, 2, dtype=torch.bfloat16),
+                   table=torch.zeros(1, 2, dtype=torch.int32),
+                   precision="int8", head_dim=16, group=16, page_size=4)
+    for table in (torch.zeros(1, 2, dtype=torch.int32),      # on the CPU
+                  torch.zeros(2, 2, dtype=torch.int32),      # wrong shape
+                  torch.zeros(1, 2, dtype=torch.int64)):     # wrong dtype
+        bad = dataclasses.replace(pool, table=table)
+        with pytest.raises(ValueError, match="page table"):
+            TDA.decode_attn_cuda(q, bad, bad, valid)
+    v4 = PagedKV(data=torch.zeros(3, 4, 16, dtype=torch.int8),
+                 scale=torch.zeros(3, 4, 2, dtype=torch.bfloat16),
+                 table=pool.table, precision="int4", head_dim=16, group=16,
+                 page_size=4)
+    with pytest.raises(ValueError, match="share precision"):
+        TDA.decode_attn_cuda(q, pool, v4, valid)
+    with pytest.raises(ValueError, match="both be pools"):
+        TDA.decode_attn_cuda(q, pool, kp, valid)

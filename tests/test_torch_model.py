@@ -60,7 +60,8 @@ def models():
         jcfg, tcfg = _cfgs(explicit)
         jmodel = jbuild(jcfg)
         jparams = jmodel.init(jax.random.PRNGKey(1))
-        tparams = from_jax(jax.tree.map(np.asarray, jparams))
+        tparams = from_jax(jax.tree.map(np.asarray, jparams),
+                           device="cpu")
         step = jax.jit(lambda p, c, t, cfg=jcfg: JT.decode_step(p, c, t, cfg))
         out[explicit] = (jcfg, tcfg, jmodel, jparams, tparams, step)
     return out

@@ -58,7 +58,7 @@ def family_blocks():
         model = jbuild(cfg)
         params = model.init(jax.random.PRNGKey(3))
         blocks = jax.tree.map(np.asarray, model.block_params(params))
-        out[family] = (arch, blocks, from_jax(blocks))
+        out[family] = (arch, blocks, from_jax(blocks, device="cpu"))
     return out
 
 

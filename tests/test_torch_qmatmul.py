@@ -47,7 +47,7 @@ def _weight(seed, n, k, precision, exact):
 def _pair(seed, n, k, precision, exact=False):
     jq = jquantize(jnp.asarray(_weight(seed, n, k, precision, exact)),
                    precision, GROUP)
-    return jq, from_jax(jax.tree.map(np.asarray, jq))
+    return jq, from_jax(jax.tree.map(np.asarray, jq), device="cpu")
 
 
 def _x(seed, m, k, dtype):

@@ -132,7 +132,7 @@ def test_segments_and_stacked_plan_match_reference(precisions, cuts):
     tseg = TA.apply_plan_stacked({k: torch.from_numpy(v)
                                   for k, v in stacked.items()}, tplan,
                                  group=64, cuts=cuts)
-    bridged = from_jax(jax.tree.map(np.asarray, jseg))
+    bridged = from_jax(jax.tree.map(np.asarray, jseg), device="cpu")
     assert len(tseg.segments) == len(bridged.segments)
     for ts, bs in zip(tseg.segments, bridged.segments):
         assert (ts.precision, ts.start, ts.stop) == (bs.precision, bs.start,
@@ -152,5 +152,5 @@ def test_segments_and_stacked_plan_match_reference(precisions, cuts):
 
 def test_bridge_carries_bf16_bit_exact():
     w = jnp.asarray(_weights(1, (8, 16))).astype(jnp.bfloat16)
-    t = to_torch(np.asarray(w))
+    t = to_torch(np.asarray(w), device="cpu")
     assert t.dtype == torch.bfloat16 and _bits(t) == _bits(w)

@@ -23,6 +23,7 @@ from repro.quant.compiler import compile_draft_plan as jcompile_draft_plan
 from repro.quant.compiler import compile_plan as jcompile_plan
 from repro.serving import batch as JB
 from repro.serving.engine import ServeEngine as JServeEngine
+from repro.serving.pool import PagedConfig as JPagedConfig
 from repro.serving.quantized import explicit_plan as jexplicit_plan
 from repro.serving.scheduler import synthetic_stream as jstream
 from repro.serving.spec import SpecConfig as JSpecConfig
@@ -38,6 +39,7 @@ from repro_torch.quant.kvcache import KVPage
 from repro_torch.quant.qtypes import QTensor
 from repro_torch.serving import batch as TB
 from repro_torch.serving.engine import ServeEngine
+from repro_torch.serving.pool import PagedConfig
 from repro_torch.serving.quantized import explicit_plan
 from repro_torch.serving.scheduler import Request
 from repro_torch.serving.spec import SpecConfig
@@ -60,7 +62,8 @@ def trained_dense():
     res = train(cfg, run, batch=8, seq=16)
     tcfg = dataclasses.replace(get_config("llama3.2-3b", smoke=True),
                                dtype="float32")
-    tparams = from_jax(jax.tree.map(np.asarray, res["params"]))
+    tparams = from_jax(jax.tree.map(np.asarray, res["params"]),
+                       device="cpu")
     return cfg, res["model"], res["params"], tcfg, tparams
 
 
@@ -116,7 +119,7 @@ def test_draft_plan_matches_reference(trained_dense, layers, draft_layers):
                             draft_layers=draft_layers)
     assert td.to_manifest() == jd.to_manifest()
     assert td.overhead_bytes == jd.overhead_bytes
-    _assert_same_tree(td.params, from_jax(_np(jd.params)))
+    _assert_same_tree(td.params, from_jax(_np(jd.params), device="cpu"))
     if layers is not None:
         for seg in td.params["layers"].segments:
             tseg = next(s for s in ttarget["layers"].segments
@@ -144,7 +147,7 @@ def _jax_state(jcfg, jmodel, jparams, kv, rounds):
 
 
 def _port_cache(jcache):
-    return DecodeCache(*from_jax(_np(jcache)))
+    return DecodeCache(*from_jax(_np(jcache), device="cpu"))
 
 
 def _cache_tensors(cache):
@@ -163,7 +166,7 @@ def test_draft_propose_step_matches_reference(trained_dense, kv):
     jcfg, jmodel, jparams, tcfg, _ = trained_dense
     tmodel = build(tcfg)
     eng, state = _jax_state(jcfg, jmodel, jparams, kv, rounds=1)
-    dparams = from_jax(_np(eng.draft_params))
+    dparams = from_jax(_np(eng.draft_params), device="cpu")
     cache = _port_cache(state.cache)
     before = [t.clone() for t in _cache_tensors(cache)]
     shape = (tcfg.num_layers, 2, 3, tcfg.num_kv_heads, tcfg.head_dim)
@@ -191,7 +194,7 @@ def test_spec_verify_and_commit_match_reference(trained_dense, kv):
     jcfg, jmodel, jparams, tcfg, tparams = trained_dense
     tmodel = build(tcfg)
     eng, state = _jax_state(jcfg, jmodel, jparams, kv, rounds=1)
-    tparams_c = from_jax(_np(eng.params))
+    tparams_c = from_jax(_np(eng.params), device="cpu")
     cache = _port_cache(state.cache)
     window = np.array([[1, 2, 3, 4], [7, 8, 9, 10]], np.int32)
     jl, jsnap = jmodel.spec_verify(eng.params, state.cache,
@@ -409,3 +412,37 @@ def test_rejection_sampling_commits_the_target_distribution():
 
     assert chi2(first) < 20.52
     assert chi2(x[:, 0]) > 20.52
+
+
+@pytest.mark.parametrize("draft,kv", [("fused", "int8"), ("two-pass", "int4"),
+                                      ("ngram", "int8")])
+def test_paged_spec_serve_matches_dense_and_reference(trained_dense, draft,
+                                                      kv):
+    """Spec serve over a paged pool (pages of 4): the verify writes K+1
+    rows through the tables and rolls back by position, the fused propose
+    reads the pool with fresh rows, the two-pass propose runs on a clone
+    of the pool. Greedy tokens equal the port's dense spec serve (logprobs
+    to the bit) and the JAX paged spec engine's, and no page leaks."""
+    jcfg, jmodel, jparams, tcfg, tparams = trained_dense
+    jeng = JServeEngine(jmodel, jparams, max_seq=MAX_SEQ,
+                        plan=jexplicit_plan(jcfg, LAYERS), kv_precision=kv,
+                        eos_id=7, spec=JSpecConfig(**SPECS[draft]),
+                        paged=JPagedConfig(page_size=4), autotune=False)
+    engines = [ServeEngine(build(tcfg), tparams, max_seq=MAX_SEQ,
+                           plan=explicit_plan(tcfg, LAYERS), kv_precision=kv,
+                           eos_id=7, spec=SpecConfig(**SPECS[draft]),
+                           device="cpu", paged=paged)
+               for paged in (PagedConfig(page_size=4), None)]
+    jreqs, treqs = _requests(jcfg)
+    jouts, _ = jeng.serve(jreqs, num_slots=3, chunk=2)
+    (touts, stats), (douts, dstats) = (e.serve(treqs, num_slots=3, chunk=2)
+                                       for e in engines)
+    for t, d, j in zip(touts, douts, jouts):
+        np.testing.assert_array_equal(t.tokens, d.tokens)
+        np.testing.assert_array_equal(t.logprobs, d.logprobs)
+        np.testing.assert_array_equal(t.tokens, np.asarray(j.tokens))
+    assert stats.draft_accepted == dstats.draft_accepted
+    assert stats.pool_pages_peak > 0
+    pool = engines[0].pool
+    pool.check_invariants()
+    assert pool.pages_in_use == pool.prefix.evictable(pool._ref)
