@@ -7,26 +7,30 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 1. device: the card's name and power limit; TF32 off for f32 matmuls.
 2. build: nvcc builds every kernel under src/repro_torch/csrc for sm_90a.
 3. kernels: each hand-written kernel against its plain PyTorch version at
-   the full-width llama3.2-3b shapes (rtol = atol = 2e-2 on bf16 inputs),
-   timed with CUDA events (median of 20 after warm-up, L2 flushed before
-   each call): the kernel, its plain version, and a PyTorch yardstick that
-   the port itself never calls. Decode attention in its three forms: one
-   query per slot, the speculative verify window (qs = K+1 queries, causal
-   and not), and the fresh rows of the fused draft propose; each again
-   over a paged pool (pages of 64 rows, a permuted table with a page
-   mapped by two slots and dump entries past each allocation), where it
-   must also equal the dense kernel on the gathered rows to the bit. The
-   bound of each TPU kernel still to port, from its shapes
-   (``unported_bounds``).
+   the full-width shapes of the main paths (rtol = atol = 2e-2 on bf16
+   inputs), timed with CUDA events (median of 20 after warm-up, L2 flushed
+   before each call): the kernel, its plain version, and a PyTorch
+   yardstick that the port itself never calls. The matmul kernels at
+   llama3.2-3b's shapes; decode attention in its forms: one query per
+   slot, the speculative verify window (qs = K+1 queries, causal and not),
+   and the fresh rows of the fused draft propose, each again over a paged
+   pool (pages of 64 rows, a permuted table with a page mapped by two
+   slots and dump entries past each allocation), where it must also equal
+   the dense kernel on the gathered rows to the bit. Whisper-medium's
+   shapes: the gelu form of the fused MLP (M = 1, 4 and the encoder's
+   1500) and cross-attention (causal=False over 1500 rows, hd 64). The
+   entropy kernel (within 1e-3 * max(1, |H|) and 1e-5 absolute, at the
+   weight scale and the reference test's, with a weighted ragged tail) and
+   the int8 quantize kernel (payload and scales equal to the bit).
 4. serve: llama3.2-3b FULL (28 layers, d_model 3072) from seeded random
    weights, EWQ-planned on the card and served with int8 KV, then an
-   explicit raw/int8/int4/ternary plan served with int4 KV; every kernel's
-   launch count must rise during the serve runs. One decode step through
-   the kernels is then held against the plain versions (relative L2 of the
-   logits), beside the readings that place that limit: the plain versions
-   without their bf16 roundings, the plain versions with only the order of
-   their f32 sums changed, and the kernels on params with one int4 layer's
-   nibbles swapped (a planted fault the limit must catch).
+   explicit raw/int8/int4/ternary plan served with int4 KV. One decode
+   step through the kernels is then held against the plain versions
+   (relative L2 of the logits), beside the readings that place that
+   limit: the plain versions without their bf16 roundings, the plain
+   versions with only the order of their f32 sums changed, and the kernels
+   on params with one int4 layer's nibbles swapped (a planted fault the
+   limit must catch).
 4b. speculative serve: the EWQ plan with int8 KV and SpecConfig(k=4),
    once with the int4 self-draft (fused propose) and once with the ngram
    draft, on the same requests. Then, at the same limit: a 5-token verify
@@ -41,7 +45,22 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    pool, which must hit the prefix 7 times, requeue at least once and
    leak nothing, beside the same stream without sharing and dense; phase
    4b's model-draft speculative serve over the pool (tokens identical).
-5. a JSON line naming each kernel, then the device line last.
+5. analysis: ``analyze_blocks`` over every matrix of llama3.2-3b FULL (197
+   matrices) and of whisper-medium FULL through the entropy kernel
+   (mode="kernel") and in plain tensor ops (mode="stream"), both timed;
+   entropies within 1e-3 * max(1, |H|) and 1e-5, plan decisions equal
+   wherever a block is farther from the thresholds than the measured
+   difference.
+4d. whisper serve: whisper-medium FULL (24 + 24 layers, d_model 1024)
+   from seeded random weights, planned 4bit/8bit from phase 5's
+   kernel-mode entropies, serves 8 requests with seeded frames at 4
+   slots, int8 self and cross KV; one decode step held to the plain
+   versions at the same limit, each decoder layer's cross-attention output
+   too (with the slots' cross caches rotated, a planted fault that limit
+   must catch), and timed eager and from a CUDA graph.
+6. a JSON line naming each kernel, then the device line last. Every
+   kernel's launch count must have risen on the serve and analysis paths,
+   except the int8 quantize kernel, which no path runs.
 
 ``--quick`` skips the timings and the lm_head shape (a short first call
 after a kernel change); it checks the same M values as the full run.
@@ -141,32 +160,6 @@ def bound_ms(nbytes: float, flops: float,
              rate: float = BF16_FLOPS) -> tuple[float, str]:
     tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
-
-
-def unported_bounds() -> list:
-    """The bound of each TPU kernel still to port, from its shapes alone
-    (each input read once, each output written once): ``entropy_pallas``
-    over one 3072x8192 bf16 matrix (one f32 out; about 6 f32 operations an
-    element, off the tensor cores); the gelu ``qmlp_pallas`` at
-    whisper-medium width (d_model 1024, d_ff 4096) with int8 weights in
-    groups of 128 and bf16 scales, M = 4; ``quantize_int8_pallas`` on a
-    3072x8192 bf16 weight (int8 payload, one f32 scale per 128, about 5
-    f32 operations an element). Arithmetic only: needs no card."""
-    n, k = 3072, 8192
-    m, d, ff = 4, 1024, 4096
-    rows = [("entropy_pallas", "3072x8192 bf16", n * k * 2 + 4,
-             6.0 * n * k, F32_FLOPS),
-            ("qmlp_pallas gelu", "whisper-medium 1024->4096->1024 int8 M4",
-             m * d * 2 + 2 * ff * d + 2 * (ff * d // 128) * 2 + m * d * 4,
-             2.0 * m * 2 * ff * d, BF16_FLOPS),
-            ("quantize_int8_pallas", "3072x8192 bf16, group 128",
-             n * k * 2 + n * k + n * (k // 128) * 4, 5.0 * n * k, F32_FLOPS)]
-    out = []
-    for name, shape, nbytes, flops, rate in rows:
-        ms, by = bound_ms(nbytes, flops, rate)
-        out.append(dict(kernel=name, shape=shape, bytes=nbytes, flops=flops,
-                        bound_ms=ms, bound_by=by))
-    return out
 
 
 def qbytes(w) -> int:
@@ -540,7 +533,176 @@ def check_kernels(torch, timer, rows: list) -> dict:
                           base + count + 1, fresh=(fk, fv, base),
                           count=count))
         del kp, vp
+    check_whisper_kernels(torch, timer, gen, rows, worst, compare, add)
+    check_entropy_quantize(torch, timer, gen, rows, worst, add)
     return worst
+
+
+def check_whisper_kernels(torch, timer, gen, rows, worst, compare,
+                          add) -> None:
+    """The whisper-medium path's kernel shapes: the gelu form of the fused
+    MLP (1024 -> 4096 -> 1024) at every M it runs (1: the batch-1 prefill
+    steps; SLOTS: a decode step; 1500: the encoder, one request's frames)
+    in every precision; cross-attention (decode_attn, causal=False) over
+    a 1500-row encoder cache, 16 KV heads, hd 64, rep 1, int8 and int4."""
+    from repro_torch.kernels.qmatmul import ops as QM
+    from repro_torch.quant.kvcache import make_page
+    from repro_torch.quant.quantize import quantize
+    d, ff, s_enc = 1024, 4096, 1500
+    for prec in ("int8", "int4", "ternary"):
+        wu = quantize((torch.randn((ff, d), generator=gen, device="cuda")
+                       / d ** 0.5).to(torch.bfloat16), prec)
+        wdn = quantize((torch.randn((d, ff), generator=gen, device="cuda")
+                        / ff ** 0.5).to(torch.bfloat16), prec)
+        for m in (1, SLOTS, s_enc):
+            x = (torch.randn((m, d), generator=gen, device="cuda") * 0.5
+                 ).to(torch.bfloat16)
+            got = QM.qmlp_cuda(x, None, wu, wdn)
+            want = QM.fused_mlp_plain(x, None, wu, wdn, act="gelu").float()
+            compare("qmlp_gelu", [got], [want])
+            row = dict(kernel="qmlp_gelu", shape="gelu 1024->4096->1024",
+                       precision=prec, m=m,
+                       err=float((got - want).abs().max()))
+            if not QUICK:
+                row["ms"] = timer.ms(lambda: QM.qmlp_cuda(x, None, wu, wdn))
+                row["plain_ms"] = timer.ms(
+                    lambda: QM.fused_mlp_plain(x, None, wu, wdn, act="gelu"))
+                row["library_ms"] = None
+                row["bound_ms"], row["bound_by"] = bound_ms(
+                    m * d * 2 + qbytes(wu) + qbytes(wdn) + m * d * 4,
+                    2.0 * m * 2 * ff * d)
+            add(row)
+        del wu, wdn
+    hkv, hd = 16, 64
+    q = torch.randn((SLOTS, 1, hkv, hd), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    kraw, vraw = (torch.randn((SLOTS, s_enc, hkv, hd), generator=gen,
+                              device="cuda") for _ in range(2))
+    valid = torch.full((SLOTS,), s_enc, dtype=torch.int32, device="cuda")
+    for prec in ("int8", "int4"):
+        kp, vp = make_page(kraw, prec, 64), make_page(vraw, prec, 64)
+        add(attn_case(torch, timer, compare, "decode_attn_cross",
+                      f"B{SLOTS} S{s_enc} Hkv{hkv} rep1 hd{hd} cross", q, kp,
+                      vp, valid, causal=False))
+        del kp, vp
+
+
+# entropy: the largest error the reference's own test allows, relative to
+# max(1, |H|) (tests/test_kernels.py:32)
+ENTROPY_TOL = 1e-3
+# entropy: the largest absolute error of H, kernel against its plain version
+# (and kernel mode against stream mode). At the weight scale (std
+# 1/sqrt(K)) the softmax is nearly uniform and the part of H that depends on
+# the weights, log(n) - H, is about var(w) / 2: 6e-5 for 3072x8192, far under
+# ENTROPY_TOL * |H| (1.7e-2). Correct kernels read 0 to 1.9e-6 apart on the
+# card (one f32 ulp of H near 17.8 is 1.9e-6); a kernel that drops the S/Z
+# term is 1.2e-4 off, one that loses one of 1024 partials 1e-3.
+ENTROPY_ABS = 1e-5
+# the ragged tail of an odd f32 case (the elements past the last 16-byte
+# load) is set to this value, so that a kernel that skips it is far off
+ENTROPY_TAIL = 8.0
+# (label, shape, dtype, scale: None = 1/sqrt(last dim), the weight scale;
+# 0.7 = the reference test's scale (tests/test_kernels.py:28))
+ENTROPY_CASES = (("3072x8192 bf16", (3072, 8192), "bfloat16", None),
+                 ("51968x1024 bf16", (51968, 1024), "bfloat16", None),
+                 ("1000003 f32 tail", (1000003,), "float32", None),
+                 ("3072x8192 bf16 x0.7", (3072, 8192), "bfloat16", 0.7),
+                 ("1000003 f32 tail x0.7", (1000003,), "float32", 0.7))
+
+
+def entropy_inputs(torch, gen, device: str = "cuda"):
+    """Yields (label, w) for ENTROPY_CASES; an odd f32 case has its last
+    n % 4 elements set to ENTROPY_TAIL."""
+    for label, dims, dtype, scale in ENTROPY_CASES:
+        w = torch.randn(dims, generator=gen, device=device)
+        w = (w * (dims[-1] ** -0.5 if scale is None else scale)).to(
+            getattr(torch, dtype))
+        tail = w.numel() % 4 if w.dtype == torch.float32 else 0
+        if tail:
+            w.view(-1)[-tail:] = ENTROPY_TAIL
+        yield label, w
+
+
+def entropy_fault(got: float, want: float):
+    """None when the kernel's H ``got`` passes both entropy gates against
+    the plain version's ``want``; else what it failed."""
+    err = abs(got - want)
+    if not err <= ENTROPY_TOL * max(1.0, abs(want)):
+        return f"error {err} > ENTROPY_TOL * max(1, |H|)"
+    if not err <= ENTROPY_ABS:
+        return f"error {err} > ENTROPY_ABS {ENTROPY_ABS}"
+    return None
+
+
+def check_entropy_quantize(torch, timer, gen, rows, worst, add) -> None:
+    """The entropy kernel (ENTROPY_CASES: llama3.2-3b's 3072x8192 MLP
+    weight and whisper-medium's padded 51968x1024 embedding in bf16, as the
+    analysis reads them, and an odd-sized f32 vector whose ragged tail
+    carries weight; at the weight scale and at the reference test's)
+    within ENTROPY_TOL * max(1, |H|) and ENTROPY_ABS of its plain version,
+    with the gap log(n) - H of both reported; the int8 quantize kernel on a
+    3072x8192 bf16 and a 1024x4096 f32 weight, payload and f32 scales equal
+    to the plain version's to the bit. The yardsticks:
+    ``Categorical(logits=w).entropy()`` for the entropy (one PyTorch call,
+    the same function); none for quantize."""
+    import math
+    from repro_torch.kernels.entropy import ops as EN
+    from repro_torch.kernels.quantize import ops as QZ
+    for shape, w in entropy_inputs(torch, gen):
+        got = float(EN.entropy_cuda(w))
+        want = float(EN.matrix_entropy(w, plain=True))
+        err = abs(got - want)
+        worst["entropy"] = max(worst["entropy"], err)
+        fault = entropy_fault(got, want)
+        if fault:
+            raise AssertionError(f"entropy {shape}: kernel {got} against "
+                                 f"plain {want}: {fault}")
+        n = w.numel()
+        row = dict(kernel="entropy", shape=shape,
+                   precision=str(w.dtype).replace("torch.", ""), m=None,
+                   h=want, gap=math.log(n) - want,
+                   gap_kernel=math.log(n) - got, err=err,
+                   rel_err=err / max(1.0, abs(want)))
+        if not QUICK:
+            flat = w.reshape(-1)
+            cat = torch.distributions.Categorical
+            row["ms"] = timer.ms(lambda: EN.entropy_cuda(w))
+            row["plain_ms"] = timer.ms(
+                lambda: EN.matrix_entropy(w, plain=True))
+            row["library_ms"] = timer.ms(lambda: cat(
+                logits=flat.float(), validate_args=False).entropy())
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                n * w.element_size() + 4, 6.0 * n, F32_FLOPS)
+        add(row)
+        del w
+    for shape, (n, k), dtype in (("3072x8192 bf16 group128", (3072, 8192),
+                                  torch.bfloat16),
+                                 ("1024x4096 f32 group128", (1024, 4096),
+                                  torch.float32)):
+        w = (torch.randn((n, k), generator=gen, device="cuda") * 0.02
+             ).to(dtype)
+        w[0, :128] = 0                              # a zero group
+        q, sc = QZ.quantize_int8_cuda(w)
+        qp, sp = QZ.quantize_int8(w, plain=True)
+        torch.cuda.synchronize()
+        if not (torch.equal(q, qp) and torch.equal(sc, sp)):
+            raise AssertionError(
+                f"quantize_int8 {shape}: {int((q != qp).sum())} payload "
+                f"and {int((sc != sp).sum())} scale elements differ from "
+                "the plain version")
+        row = dict(kernel="quantize_int8", shape=shape,
+                   precision=str(dtype).replace("torch.", ""), m=None,
+                   err=0.0, bit_exact=True)
+        if not QUICK:
+            row["ms"] = timer.ms(lambda: QZ.quantize_int8_cuda(w))
+            row["plain_ms"] = timer.ms(
+                lambda: QZ.quantize_int8(w, plain=True))
+            row["library_ms"] = None
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                n * k * w.element_size() + n * k + n * (k // 128) * 4,
+                5.0 * n * k, F32_FLOPS)
+        add(row)
+        del w, q, sc, qp, sp
 
 
 # ---------------------------------------------------------------------------
@@ -554,12 +716,16 @@ KERNEL_SOURCES = {
             "src/repro/kernels/qmatmul/kernel.py:223"),
     "qmlp": ("src/repro_torch/csrc/qmlp.cu",
              "src/repro/kernels/qmatmul/kernel.py:143"),
+    "qmlp_gelu": ("src/repro_torch/csrc/qmlp.cu",
+                  "src/repro/kernels/qmatmul/kernel.py:143"),
     "decode_attn": ("src/repro_torch/csrc/decode_attn.cu",
                     "src/repro/kernels/decode_attn/kernel.py:162"),
     "decode_attn_window": ("src/repro_torch/csrc/decode_attn.cu",
                            "src/repro/kernels/decode_attn/kernel.py:94-99"),
     "decode_attn_fresh": ("src/repro_torch/csrc/decode_attn.cu",
                           "src/repro/kernels/decode_attn/kernel.py:129-151"),
+    "decode_attn_cross": ("src/repro_torch/csrc/decode_attn.cu",
+                          "src/repro/kernels/decode_attn/kernel.py:94-99"),
     "decode_attn_paged": ("src/repro_torch/csrc/decode_attn.cu",
                           "src/repro/kernels/decode_attn/kernel.py:203-260"),
     "decode_attn_paged_window": (
@@ -568,21 +734,43 @@ KERNEL_SOURCES = {
     "decode_attn_paged_fresh": (
         "src/repro_torch/csrc/decode_attn.cu",
         "src/repro/kernels/decode_attn/kernel.py:203-260"),
+    "entropy": ("src/repro_torch/csrc/entropy.cu",
+                "src/repro/kernels/entropy/kernel.py:55"),
+    "quantize_int8": ("src/repro_torch/csrc/quantize.cu",
+                      "src/repro/kernels/quantize/kernel.py:35"),
 }
+# kernels that no serve or analysis path runs: held to their plain version
+# only (nothing under src/ calls the reference's quantize_int8_pallas)
+OFF_PATH = ("quantize_int8",)
+# the kernels llama3.2-3b's paths (phases 4, 4b, 4c and its phase 5) run,
+# each of which must launch there
+LLAMA_PATH = ("qmatmul", "qkv", "qmlp", "decode_attn", "decode_attn_window",
+              "decode_attn_fresh", "decode_attn_paged",
+              "decode_attn_paged_window", "decode_attn_paged_fresh",
+              "entropy")
+# the kernels whisper-medium's serve (phase 4d) runs, each of which must
+# launch in every whisper run
+WHISPER_PATH = ("qmatmul", "qkv", "qmlp_gelu", "decode_attn",
+                "decode_attn_cross")
 # the row of each kernel reported on the kernels line: the serve phase's
 # decode shape (4 slots) for the matmul kernels
 HEADLINE = {"qmatmul": ("wq 3072x3072", "int8", SLOTS),
             "qkv": ("wq|wk|wv 5120x3072", "int8", SLOTS),
             "qmlp": ("swiglu 3072->8192->3072", "int8", SLOTS),
+            "qmlp_gelu": ("gelu 1024->4096->1024", "int8", SLOTS),
             "decode_attn": ("B8 S2048 Hkv8 rep3 hd128", "int8", 8),
             "decode_attn_window": ("B8 S2048 Hkv8 rep3 hd128 qs5", "int8", 8),
             "decode_attn_fresh": ("B4 S1024 Hkv8 rep3 hd128 Sf4 count3",
                                   "int8", SLOTS),
+            "decode_attn_cross": ("B4 S1500 Hkv16 rep1 hd64 cross", "int8",
+                                  SLOTS),
             "decode_attn_paged": ("B8 S2048 Hkv8 rep3 hd128 P64", "int8", 8),
             "decode_attn_paged_window": ("B8 S2048 Hkv8 rep3 hd128 P64 qs5",
                                          "int8", 8),
             "decode_attn_paged_fresh": (
-                "B4 S1024 Hkv8 rep3 hd128 P64 Sf4 count3", "int8", SLOTS)}
+                "B4 S1024 Hkv8 rep3 hd128 P64 Sf4 count3", "int8", SLOTS),
+            "entropy": ("3072x8192 bf16", "bfloat16", None),
+            "quantize_int8": ("3072x8192 bf16 group128", "bfloat16", None)}
 # Limit on the relative L2 distance of one decode step's logits, kernels
 # against plain versions. PERF.md gives the readings that place it: the
 # kernels against the plain versions, and against the plain versions
@@ -591,6 +779,15 @@ HEADLINE = {"qmatmul": ("wq 3072x3072", "int8", SLOTS),
 # swapped. The run repeats them all and fails if the planted fault falls
 # under the limit.
 LOGIT_REL_L2 = 5e-2
+# Limit on the relative L2 distance of each whisper decoder layer's
+# cross-attention output in one decode step, kernels against plain
+# versions. The logits cannot hold cross-attention to a limit: with random
+# weights the decoder's logits depend little on the frames (each slot
+# reading another request's cross cache moves them by about 0.045, under
+# LOGIT_REL_L2). The run reads the kernels against the plain versions and
+# the outputs over the slots' cross caches rotated by one, in every layer,
+# and fails if a rotated reading falls under the limit.
+CROSS_REL_L2 = 5e-2
 
 
 def rel_l2(a, b) -> float:
@@ -641,12 +838,13 @@ def patched_plain(torch, mode: str):
         QM.qmatmul_plain, MLP.fused_mlp = saved
 
 
-def swap_nibbles_one_layer(torch, params) -> dict:
-    """A planted fault: ``params`` with the first int4 layer's payload
-    bytes nibble-swapped (the other layers are shared, not copied)."""
+def swap_nibbles_one_layer(torch, params, key: str = "layers") -> dict:
+    """A planted fault: ``params`` with the first int4 layer of the stack
+    ``key`` nibble-swapped in its payload bytes (the other layers are
+    shared, not copied)."""
     from repro_torch.quant.qtypes import QTensor
     from repro_torch.tree import tree_map
-    layers = params["layers"]
+    layers = params[key]
     segs = list(layers.segments)
     i = next(j for j, seg in enumerate(segs) if seg.precision == "int4")
 
@@ -660,7 +858,7 @@ def swap_nibbles_one_layer(torch, params) -> dict:
 
     segs[i] = dataclasses.replace(segs[i],
                                   params=tree_map(swap, segs[i].params))
-    return {**params, "layers": dataclasses.replace(layers, segments=segs)}
+    return {**params, key: dataclasses.replace(layers, segments=segs)}
 
 
 def window_rel_l2(a, b) -> float:
@@ -828,10 +1026,13 @@ def serve_full_width(torch, build, report: dict, smoke: bool = False,
                                  prompts, base_outs, spec_outs, device)
     for k, v in paged_launches.items():
         launches[k] += v
-    for k, v in launches.items():
-        if v <= 0 and device == "cuda":
-            raise AssertionError(f"kernel {k} never launched on the serve "
-                                 "paths")
+    _, entropy_launches = analyze_model(torch, build, report, model, params,
+                                        device)
+    launches["entropy"] += entropy_launches
+    for k in LLAMA_PATH:
+        if launches[k] <= 0 and device == "cuda":
+            raise AssertionError(f"kernel {k} never launched on llama's "
+                                 "serve and analysis paths")
     return launches
 
 
@@ -1205,6 +1406,330 @@ def spec_readings(torch, model, eng, prompts, device: str) -> dict:
     return readings
 
 
+
+# ---------------------------------------------------------------------------
+# phase 5: the EWQ analysis through the entropy kernel
+# ---------------------------------------------------------------------------
+
+def analyze_model(torch, build, report: dict, model, params,
+                  device: str) -> tuple:
+    """Phase 5 for one model: ``analyze_blocks`` over every block in
+    mode="kernel" (the entropy kernel, one call per matrix) and in
+    mode="stream" (plain tensor ops), each timed; the per-matrix entropies
+    of the two within ENTROPY_TOL * max(1, |H|) and ENTROPY_ABS; the
+    4bit/8bit plans of both (the plan ``plan_model(variant="4bit/8bit",
+    mode=...)`` gives), equal on every block whose distance to the plan's
+    thresholds exceeds the largest difference measured between the two
+    (random blocks of one shape have nearly equal entropies, so a block on
+    a threshold may fall either way). Returns (the kernel-mode entropies, entropy launches)."""
+    from repro_torch.core import policy
+    from repro_torch.core.planner import analyze
+    cfg = model.cfg
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    blocks = model.block_params(params)
+    timed = {}
+    for mode in ("kernel", "stream", "kernel"):
+        sync()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        ents = analyze(blocks, mode=mode)
+        sync()
+        timed.setdefault(mode, []).append((time.perf_counter() - t0, ents))
+        if mode == "kernel":
+            launches = build.LAUNCHES["entropy"]
+    ek, es = timed["kernel"][-1][1], timed["stream"][0][1]
+    n_mats = sum(len(b.per_matrix) for b in ek)
+    nbytes = sum(t.numel() * t.element_size()
+                 for blk in blocks for t in _matrices(blk))
+    mat_err = 0.0
+    for bk, bs in zip(ek, es):
+        for name, (hk, _) in bk.per_matrix.items():
+            hs = bs.per_matrix[name][0]
+            mat_err = max(mat_err, abs(hk - hs))
+            fault = entropy_fault(hk, hs)
+            if fault:
+                raise AssertionError(f"{cfg.name} {name} of block "
+                                     f"{bk.block_index}: kernel {hk} "
+                                     f"against stream {hs}: {fault}")
+    blk_err = max(abs(a.entropy - b.entropy) for a, b in zip(ek, es))
+    pk = policy.decide(ek, aggressive="int4")
+    ps = policy.decide(es, aggressive="int4")
+    slack = blk_err + abs(pk.threshold - ps.threshold) + abs(pk.mu - ps.mu)
+    decided, differ = 0, []
+    for dk, ds in zip(pk.decisions, ps.decisions):
+        margin = min(abs(dk.entropy - pk.threshold), abs(dk.entropy - pk.mu))
+        if margin > slack:
+            decided += 1
+            if dk.precision != ds.precision:
+                raise AssertionError(
+                    f"{cfg.name} block {dk.block_index}: kernel-mode plan "
+                    f"{dk.precision}, stream-mode plan {ds.precision}, "
+                    f"margin {margin} > {slack}")
+        elif dk.precision != ds.precision:
+            differ.append(dk.block_index)
+    out = dict(model=cfg.name, blocks=len(ek), matrices=n_mats,
+               bytes=nbytes, entropy_launches=launches,
+               kernel_s=[t for t, _ in timed["kernel"]],
+               stream_s=timed["stream"][0][0],
+               max_matrix_abs_diff=mat_err, max_block_abs_diff=blk_err,
+               threshold=pk.threshold, mu=pk.mu, sigma=pk.sigma,
+               plan_kernel=pk.counts(), plan_stream=ps.counts(),
+               blocks_held_equal=decided,
+               blocks_within_slack_that_differ=differ)
+    log("analysis: " + json.dumps(out))
+    report.setdefault("analysis", []).append(out)
+    return ek, launches
+
+
+def _matrices(tree) -> list:
+    """The >= 2-D tensors of a block (the matrices the analysis reads)."""
+    from repro_torch.tree import tree_leaves
+    return [t for t in tree_leaves(tree) if t.ndim >= 2]
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: whisper-medium (enc-dec) serve at full width
+# ---------------------------------------------------------------------------
+
+WHISPER_MAX_SEQ = 448   # whisper's published decoder context (n_text_ctx)
+
+
+def whisper_requests(cfg) -> list:
+    """8 requests: decoder prompts of 4-32 tokens (numpy seed 0) and one
+    (encoder_seq, d_model) frame block each, standard normal (numpy seed
+    2, the encoder input's scale in the reference's synthetic data)."""
+    import numpy as np
+    from repro_torch.serving.scheduler import Request
+    rng = np.random.RandomState(0)
+    lens = rng.randint(4, 33, size=8)
+    prompts = [rng.randint(0, cfg.vocab_size, size=(n,)).astype(np.int32)
+               for n in lens]
+    frng = np.random.RandomState(2)
+    return [Request(rid=i, prompt=p, max_new_tokens=32,
+                    frames=frng.standard_normal(
+                        (cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+            for i, p in enumerate(prompts)]
+
+
+def serve_whisper(torch, build, report: dict, smoke: bool = False,
+                  device: str = "cuda") -> dict:
+    """Phases 5 and 4d for whisper-medium FULL (24 + 24 layers, d_model
+    1024, 16 heads of 64, d_ff 4096, vocab 51865) from seeded random
+    weights: the analysis through the entropy kernel (phase 5), whose
+    4bit/8bit plan then serves 8 requests with frames at 4 slots, chunk 8,
+    max_seq 448, int8 self and cross KV (phase 4d); then an explicit plan
+    (each stack cycling raw, int8, int4, ternary; int8 embedding) with int4
+    KV, so every precision path runs, the encoder's quantized MLP among
+    them. On each engine one decode step through the kernels is held to
+    the plain versions (LOGIT_REL_L2 on the logits, CROSS_REL_L2 on each
+    decoder layer's cross-attention output, which the slots' cross caches
+    rotated must fail); on the explicit plan's engine also a planted fault
+    that the logit limit must catch (one int4 decoder layer's nibbles
+    swapped). Returns the launches of the analysis (entropy) and of the
+    serves."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import policy
+    from repro_torch.models.model import build as build_model
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.quantized import explicit_plan
+
+    cfg = get_config("whisper-medium", smoke=smoke)
+    model = build_model(cfg)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=device).manual_seed(0), device)
+    sync()
+    log(f"whisper: {cfg.name} {cfg.num_encoder_layers}+{cfg.num_layers}L "
+        f"d_model {cfg.d_model} {cfg.num_heads}H/{cfg.num_kv_heads}KV hd "
+        f"{cfg.head_dim} d_ff {cfg.d_ff} {cfg.mlp_act} vocab "
+        f"{cfg.vocab_size} encoder_seq {cfg.encoder_seq} {cfg.dtype}; "
+        f"random init {time.perf_counter() - t0:.1f} s")
+    launches = {k: 0 for k in build.LAUNCHES}
+    ents, launches["entropy"] = analyze_model(torch, build, report, model,
+                                              params, device)
+    ewq = policy.decide(ents, aggressive="int4")    # the 4bit/8bit variant
+    log(f"whisper: EWQ 4bit/8bit plan from the kernel-mode entropies: "
+        f"{ewq.counts()} precisions {ewq.precisions()}")
+    tiers = ["raw", "int8", "int4", "ternary"]
+    stack = [tiers[i * len(tiers) // cfg.num_layers]
+             for i in range(cfg.num_layers)]
+    explicit = explicit_plan(cfg, stack * 2, embed_precision="int8")
+    runs = []
+    for label, plan, kv in (("whisper-ewq-4bit/8bit", ewq, "int8"),
+                            ("whisper-explicit-all-precisions", explicit,
+                             "int4")):
+        engine = None                          # free the previous engine
+        if device == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        engine = ServeEngine(model, params, max_seq=WHISPER_MAX_SEQ,
+                             plan=plan, kv_precision=kv, device=device)
+        run, counts = whisper_run(torch, build, model, engine, label, kv,
+                                  plan, device)
+        for k, v in counts.items():
+            launches[k] += v
+        runs.append(run)
+    report["whisper_runs"] = runs
+    return launches
+
+
+def whisper_run(torch, build, model, engine, label: str, kv: str, plan,
+                device: str) -> tuple:
+    """One whisper serve of ``whisper_requests`` and its readings: the
+    kernel launches of the encoder for one request and of one decode step;
+    that decode step through the kernels against the plain versions, its
+    logits (LOGIT_REL_L2) and every decoder layer's cross-attention output
+    (CROSS_REL_L2); the cross-attention outputs of the same step with the
+    cross caches of the slots rotated (each slot attends over another
+    request's encoder output), a planted fault CROSS_REL_L2 must catch in
+    every layer; with an int4 decoder layer, the step with that layer's
+    nibbles swapped, a planted fault LOGIT_REL_L2 must catch; the step's
+    time eager and from a CUDA graph. Returns (the run's record, the
+    serve's launches)."""
+    import numpy as np
+    from repro_torch.models import encdec
+    from repro_torch.quant.kvcache import clone_cache
+    cfg = model.cfg
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    reqs = whisper_requests(cfg)
+    build.reset_launches()                     # main path: counts from 0
+    outs, stats = engine.serve(reqs, num_slots=SLOTS, chunk=8)
+    sync()
+    counts = dict(build.LAUNCHES)
+    for o in outs:
+        if (len(o.generated) != 32 or o.generated.min() < 0
+                or o.generated.max() >= cfg.vocab_size
+                or not np.all(np.isfinite(o.logprobs))):
+            raise AssertionError(f"{label}: bad output for request {o.rid}: "
+                                 f"{o.generated}")
+    by_field = engine.kv_bytes_by_field()
+    run = dict(run=label, kv=kv, requests=len(outs),
+               generated=stats.generated_tokens,
+               tokens_per_s=stats.tokens_per_s,
+               ttft_mean_s=stats.ttft_mean_s, tpot_p50_s=stats.tpot_p50_s,
+               decode_chunk_p50_s=stats.decode_gap_p50_s,
+               wall_s=stats.wall_s, weight_bytes=engine.weight_bytes(),
+               kv_bytes_per_slot=engine.kv_bytes_per_slot(),
+               kv_bytes_per_slot_self=by_field["k"] + by_field["v"],
+               kv_bytes_per_slot_cross=(by_field["cross_k"]
+                                        + by_field["cross_v"]),
+               max_memory_allocated=(torch.cuda.max_memory_allocated()
+                                     if device == "cuda" else None),
+               plan=plan.counts(), launches=counts)
+    frames = torch.as_tensor(reqs[0].frames, device=device)[None]
+    build.reset_launches()
+    encdec.encode(engine.params, frames, cfg)
+    run["encoder_launches_per_request"] = {
+        k: v for k, v in build.LAUNCHES.items() if v}
+    state = engine.init_decode_state(SLOTS)
+    for slot in range(SLOTS):
+        engine.insert(state, slot, engine.prefill_request(
+            reqs[slot].prompt, frames=reqs[slot].frames), 32)
+    toks = torch.argmax(state.last_logits[:, :cfg.vocab_size], -1)[:, None]
+
+    def step_logits(cache, plain=False, params=None):
+        logits, _ = model.decode_step(
+            engine.params if params is None else params, clone_cache(cache),
+            toks, plain=plain)
+        return logits.float()
+
+    build.reset_launches()
+    with cross_outputs() as k_cross:
+        k_logits = step_logits(state.cache)
+    run["launches_per_decode_step"] = {
+        k: v for k, v in build.LAUNCHES.items() if v}
+    with cross_outputs() as p_cross:
+        p_logits = step_logits(state.cache, plain=True)
+    with cross_outputs() as r_cross:
+        step_logits(rotate_cross(torch, state.cache))
+    if not bool(torch.isfinite(k_logits).all()):
+        raise AssertionError(f"{label}: non-finite logits through the "
+                             "kernels")
+    rel = rel_l2(k_logits, p_logits)
+    cross = [rel_l2(a, b) for a, b in zip(k_cross, p_cross)]
+    rotated = [rel_l2(a, b) for a, b in zip(r_cross, p_cross)]
+    if not len(cross) == len(rotated) == cfg.num_layers:
+        raise AssertionError(f"{label}: {len(cross)} cross-attention "
+                             f"outputs recorded, {cfg.num_layers} layers")
+    fault = None
+    if any(sg.precision == "int4"
+           for sg in engine.params["dec_layers"].segments):
+        fault = rel_l2(step_logits(state.cache, params=swap_nibbles_one_layer(
+            torch, engine.params, "dec_layers")), p_logits)
+    agree = float((k_logits.argmax(-1) == p_logits.argmax(-1)).float().mean())
+    run.update(logit_rel_l2=rel, logit_rel_l2_planted_fault=fault,
+               cross_attn_rel_l2_max=max(cross),
+               cross_attn_rel_l2_rotated_min=min(rotated),
+               cross_attn_rel_l2=cross, cross_attn_rel_l2_rotated=rotated,
+               greedy_agreement=agree)
+    if device == "cuda":
+        eager_ms, device_ms = step_ms(torch, model, engine.params, state,
+                                      toks)
+        run["decode_step"] = dict(eager_ms=eager_ms, device_ms=device_ms)
+    log("whisper serve: " + json.dumps(run))
+    log(f"whisper: {label}: one decode step, kernels vs plain versions: "
+        f"relative L2 {rel:.4g} (limit {LOGIT_REL_L2}), greedy agreement "
+        f"{agree:.2f}; planted fault (one int4 decoder layer's nibbles "
+        f"swapped) {fault if fault is None else format(fault, '.4g')}; "
+        f"cross-attention outputs of the {len(cross)} decoder layers, "
+        f"kernels vs plain versions: largest relative L2 {max(cross):.4g} "
+        f"(limit {CROSS_REL_L2}); each slot reading another request's "
+        f"cross cache: smallest {min(rotated):.4g}")
+    if rel > LOGIT_REL_L2:
+        raise AssertionError(f"{label}: decode logits differ: relative L2 "
+                             f"{rel}")
+    if fault is not None and fault <= LOGIT_REL_L2:
+        raise AssertionError(f"{label}: the logit limit misses the planted "
+                             f"fault (relative L2 {fault})")
+    if max(cross) > CROSS_REL_L2:
+        raise AssertionError(f"{label}: cross-attention outputs differ: "
+                             f"relative L2 {cross}")
+    if min(rotated) <= CROSS_REL_L2:
+        raise AssertionError(f"{label}: the cross-attention limit misses "
+                             f"the rotated cross caches (relative L2 "
+                             f"{rotated})")
+    for k in WHISPER_PATH:
+        if counts[k] <= 0 and device == "cuda":
+            raise AssertionError(f"{label}: kernel {k} never launched")
+    return run, counts
+
+
+@contextlib.contextmanager
+def cross_outputs():
+    """Records, in a list it yields, the output of every cross-attention
+    call (the decoder's attention over a cached encoder K/V) made inside
+    the block, as f32."""
+    from repro_torch.models import attention as A
+    inner, outs = A.attention, []
+
+    def recording(p, x, **kw):
+        out = inner(p, x, **kw)
+        if kw.get("cached_kv") is not None:
+            outs.append(out[0].float())
+        return out
+
+    A.attention = recording
+    try:
+        yield outs
+    finally:
+        A.attention = inner
+
+
+def rotate_cross(torch, cache):
+    """A planted fault: ``cache`` with its cross K/V slots rotated by one,
+    so each slot attends over another request's encoder output."""
+    def roll(field):
+        if isinstance(field, tuple):
+            return tuple(roll(p) for p in field)
+        if isinstance(field, torch.Tensor):
+            return field.roll(1, dims=1)
+        return dataclasses.replace(
+            field, data=field.data.roll(1, dims=1),
+            scale=None if field.scale is None else field.scale.roll(1, dims=1))
+    return cache._replace(cross_k=roll(cache.cross_k),
+                          cross_v=roll(cache.cross_v))
+
+
 # ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
@@ -1239,20 +1764,27 @@ def main() -> int:
     log(f"kernels: all within rtol=atol=2e-2 of their plain versions; "
         f"max abs err {worst}")
     report: dict = {"device": name, "nvidia_smi": smi, "rows": rows,
-                    "build": dict(build.BUILD_INFO),
-                    "unported_bounds": unported_bounds()}
-    for row in report["unported_bounds"]:
-        log("still to port: " + json.dumps(row))
+                    "build": dict(build.BUILD_INFO)}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     out_file = out_dir / "chip_smoke.json"
 
-    # -- phase 4: full-width serve -----------------------------------------
+    # -- phases 4, 4b, 4c and 5: llama3.2-3b at full width --------------------
     torch.cuda.empty_cache()
     launches = serve_full_width(torch, build, report)
     out_file.write_text(json.dumps(report, indent=1))
 
-    # -- phase 5: the kernels line, then the device line last ---------------
+    # -- phases 5 and 4d: whisper-medium at full width -------------------------
+    torch.cuda.empty_cache()
+    for k, v in serve_whisper(torch, build, report).items():
+        launches[k] += v
+    out_file.write_text(json.dumps(report, indent=1))
+    for k, v in launches.items():
+        if v <= 0 and k not in OFF_PATH:
+            raise AssertionError(f"kernel {k} never launched on the serve "
+                                 "and analysis paths")
+
+    # -- phase 6: the kernels line, then the device line last ---------------
     kernels = []
     for kname, (src, replaces) in KERNEL_SOURCES.items():
         shape, prec, m = HEADLINE[kname]

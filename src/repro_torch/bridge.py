@@ -12,7 +12,13 @@ module imports nothing of the JAX package:
 * ``(data, scale, precision, head_dim, group)``
   with ``(table, page_size)``                     -> ``PagedKV``
 * the same fields without them                    -> ``KVPage``
-* dicts, lists, tuples and NamedTuples keep their structure.
+* a NamedTuple with the fields of a family cache  -> the port's cache
+  (``(k, v, pos)``: ``DecodeCache``; ``(k, v, cross_k, cross_v, pos)``:
+  ``EncDecCache``);
+* dicts, lists, tuples and other NamedTuples keep their structure.
+
+So an enc-dec model's params (two segmented stacks, ``enc_layers`` and
+``dec_layers``) and its cache, raw or quantized, carry over as they are.
 
 bf16 leaves arrive as ``ml_dtypes.bfloat16`` arrays and are carried over
 bit for bit through a uint16 view; int8 payloads keep their bytes.
@@ -29,6 +35,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models.encdec import EncDecCache
+from repro_torch.models.transformer import DecodeCache
 from repro_torch.quant.apply import Segment, SegmentedParams
 from repro_torch.quant.kvcache import KVPage, PagedKV
 from repro_torch.quant.qtypes import QTensor
@@ -51,6 +59,9 @@ def to_torch(a, device=None) -> torch.Tensor:
     if a.dtype not in _DTYPES:
         raise TypeError(f"cannot carry dtype {a.dtype} over")
     return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+_CACHES = {cls._fields: cls for cls in (DecodeCache, EncDecCache)}
 
 
 def _has(x, *names) -> bool:
@@ -92,7 +103,8 @@ def from_jax(tree: Any, device=None) -> Any:
         return Segment(precision=tree.precision, start=tree.start,
                        stop=tree.stop, params=from_jax(tree.params, device))
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(from_jax(v, device) for v in tree))
+        cls = _CACHES.get(tuple(tree._fields), type(tree))
+        return cls(*(from_jax(v, device) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(from_jax(v, device) for v in tree)
     if hasattr(tree, "__array__"):

@@ -13,7 +13,10 @@ and for a block containing matrices {W_i}:
   the log.
 * ``mode="stream"`` - the closed form H = lse(w) - E_p[w] with an online
   (chunked) logsumexp and weighted sum; eps = 0.
-* ``mode="kernel"`` - the entropy kernel, still to be ported (ROADMAP.md).
+* ``mode="kernel"`` - the closed form through the entropy kernel
+  (``kernels/entropy``): on the GPU the kernel reads the matrix once, in
+  place; a CPU tensor takes its plain version (``entropy_ref``'s
+  arithmetic). eps = 0.
 
 Matrices are analyzed on whatever device they live on, in f32.
 """
@@ -25,6 +28,8 @@ from typing import Any, Mapping, Sequence
 
 import numpy as np
 import torch
+
+from repro_torch.kernels.entropy.ops import matrix_entropy as kernel_entropy
 
 DEFAULT_EPS = 0.01
 
@@ -62,9 +67,7 @@ def matrix_entropy(w: torch.Tensor, *, mode: str = "paper",
     if mode == "stream":
         return matrix_entropy_stream(w)
     if mode == "kernel":
-        raise NotImplementedError(
-            "mode='kernel' needs the entropy kernel (entropy_pallas), which "
-            "is still to be ported; use mode='paper' or 'stream'")
+        return kernel_entropy(w)
     raise ValueError(f"unknown entropy mode: {mode}")
 
 

@@ -1,28 +1,38 @@
-// Fused quantized SwiGLU MLP for Hopper:
+// Fused quantized MLP for Hopper, in its two forms:
 //
-//     y = (silu(x . Wg^T) * (x . Wu^T)) . Wd^T                 (f32 out)
+//     swiglu:  y = (silu(x . Wg^T) * (x . Wu^T)) . Wd^T         (f32 out)
+//     gelu:    y = gelu(x . Wu^T) . Wd^T                        (f32 out)
 //
 // Replaces the TPU kernel ``qmlp_pallas`` (src/repro/kernels/qmatmul/
-// kernel.py:143, swiglu form). All three weights share one (precision,
-// group) per launch, as on the TPU.
+// kernel.py:143) in both forms (``act``, kernel.py:132): the llama family's
+// SwiGLU and whisper's GeLU (tanh form, ``jax.nn.gelu``'s default). All
+// weights share one (precision, group) per launch, as on the TPU; the gelu
+// form has no gate weight (kernel.py:165-166) and reads only up and down.
 //
-// What bounds it on the H100: at decode the three weight matrices
-// (3 * D * FF elements, int8 or packed int4) over 3.35 TB/s. The (M, FF)
-// hidden activation must not reach device memory.
+// What bounds it on the H100: at decode the weight matrices (3 * D * FF
+// elements for swiglu, 2 * D * FF for gelu; int8 or packed int4) over
+// 3.35 TB/s. The (M, FF) hidden activation must not reach device memory.
 //
 // Design: the TPU kernel carried one (BM, D) accumulator across FF grid
 // steps in order. Hopper blocks run in no fixed order, so instead:
 //   * each block owns one kBF-row tile of FF (and up to 8 rows of x); it
-//     streams its gate and up rows GEMV-style (as qmatmul.cu does), forms
-//     h = silu(g) * u for its tile in shared memory (f32), and
+//     streams its gate and up rows (up rows only for gelu) GEMV-style (as
+//     qmatmul.cu does), forms h = silu(g) * u or gelu(u) for its tile in
+//     shared memory (f32), and
 //   * multiplies that h tile by the matching kBF columns of Wd into an f32
 //     partial buffer (n_tiles, M, D);
 //   * a second small kernel sums the partials over tiles in a fixed order.
 // No atomics: the result does not depend on block scheduling, so greedy
 // serving output is the same from run to run. Only the (n_tiles, M, D)
 // partials reach memory, never the (M, FF) hidden. h stays f32 between the
-// two products (the plain PyTorch version rounds silu(g) to x's dtype, as
-// the JAX fallback does; the difference is inside the stated tolerance).
+// two products, as on the TPU (the plain PyTorch version rounds the
+// activation to x's dtype, as the JAX fallback does; the difference is
+// inside the stated tolerance). The up product contracts over K (x staged
+// kChunk elements at a time) and the down product over FF, one kBF tile per
+// block, so K and FF need not match (whisper: K = 1024, FF = 4096). M above
+// 8 tiles into grid.y and re-reads the weights once per 8 rows (the
+// encoder's M = 1500: 188 tiles), and the partials grow with M: correct for
+// prefill, far from the tensor-core rate there (later work).
 #include "common.cuh"
 
 namespace {
@@ -32,7 +42,13 @@ constexpr int kBF = 64;      // FF rows per block
 constexpr int kFR = 2;       // FF rows per warp per pass (gate + up rows)
 constexpr int kChunk = 1024; // K elements of x staged per pass
 
-template <typename XT, bool PACKED, int MT>
+// 0.5 u (1 + tanh(sqrt(2 / pi) (u + 0.044715 u^3))), jax.nn.gelu's default
+__device__ __forceinline__ float gelu_tanh(float u) {
+  const float c = 0.7978845608028654f;  // sqrt(2 / pi)
+  return 0.5f * u * (1.f + tanhf(c * (u + 0.044715f * u * u * u)));
+}
+
+template <typename XT, bool PACKED, bool GELU, int MT>
 __global__ void __launch_bounds__(kWarps * 32)
 qmlp_tile_kernel(const XT* __restrict__ x, int M, int K, int FF, int D,
                  int group, const int8_t* __restrict__ gw,
@@ -51,9 +67,12 @@ qmlp_tile_kernel(const XT* __restrict__ x, int M, int K, int FF, int D,
   const int mt = min(MT, M - m0);
   const int kbytes = PACKED ? K / 2 : K;
   const int ngk = K / group;
-  constexpr int NR = 2 * kFR;  // weight rows per warp per pass
+  // weight rows per warp per pass: kFR up rows, and as many gate rows for
+  // swiglu (rows [0, kFR) gate, [kFR, 2 kFR) up; gelu: [0, kFR) up)
+  constexpr int NR = (GELU ? 1 : 2) * kFR;
+  constexpr int UP = GELU ? 0 : kFR;
 
-  // ---- phase 1: h = silu(x Wg^T) * (x Wu^T) for this FF tile ------------
+  // ---- phase 1: h = silu(x Wg^T) * (x Wu^T) or gelu(x Wu^T), this tile ---
   for (int it = 0; it < kBF / (kWarps * kFR); ++it) {
     int fl[kFR];
     bool live[kFR];
@@ -65,10 +84,12 @@ qmlp_tile_kernel(const XT* __restrict__ x, int M, int K, int FF, int D,
       int f = f_base + fl[j];
       live[j] = f < FF;
       if (!live[j]) f = 0;
-      wr[j] = gw + (size_t)f * kbytes;
-      sr[j] = gs + (size_t)f * ngk;
-      wr[kFR + j] = uw + (size_t)f * kbytes;
-      sr[kFR + j] = us + (size_t)f * ngk;
+      if (!GELU) {
+        wr[j] = gw + (size_t)f * kbytes;
+        sr[j] = gs + (size_t)f * ngk;
+      }
+      wr[UP + j] = uw + (size_t)f * kbytes;
+      sr[UP + j] = us + (size_t)f * ngk;
     }
     float acc[NR][MT];
 #pragma unroll
@@ -117,11 +138,15 @@ qmlp_tile_kernel(const XT* __restrict__ x, int M, int K, int FF, int D,
     for (int j = 0; j < kFR; ++j)
 #pragma unroll
       for (int m = 0; m < MT; ++m) {
-        const float g = warp_sum(acc[j][m]);
-        const float u = warp_sum(acc[kFR + j][m]);
-        if (lane == 0)
-          hs[m * kBF + fl[j]] =
-              (live[j] && m < mt) ? g / (1.f + expf(-g)) * u : 0.f;
+        const float u = warp_sum(acc[UP + j][m]);
+        float h;
+        if (GELU) {
+          h = gelu_tanh(u);
+        } else {
+          const float g = warp_sum(acc[j][m]);
+          h = g / (1.f + expf(-g)) * u;
+        }
+        if (lane == 0) hs[m * kBF + fl[j]] = (live[j] && m < mt) ? h : 0.f;
       }
   }
   __syncthreads();
@@ -179,7 +204,7 @@ __global__ void qmlp_reduce_kernel(const float* __restrict__ partial,
   out[i] = a;
 }
 
-template <typename XT, bool PACKED>
+template <typename XT, bool PACKED, bool GELU>
 void launch_tiles(const void* x, int M, int K, int FF, int D, int group,
                   const int8_t* gw, const __nv_bfloat16* gs, const int8_t* uw,
                   const __nv_bfloat16* us, const int8_t* dw,
@@ -188,16 +213,16 @@ void launch_tiles(const void* x, int M, int K, int FF, int D, int group,
   const XT* xp = static_cast<const XT*>(x);
   const dim3 block(kWarps * 32);
   if (M <= 1) {
-    qmlp_tile_kernel<XT, PACKED, 1><<<dim3(n_tiles, 1), block, 0, st>>>(
+    qmlp_tile_kernel<XT, PACKED, GELU, 1><<<dim3(n_tiles, 1), block, 0, st>>>(
         xp, M, K, FF, D, group, gw, gs, uw, us, dw, ds, partial);
   } else if (M <= 2) {
-    qmlp_tile_kernel<XT, PACKED, 2><<<dim3(n_tiles, 1), block, 0, st>>>(
+    qmlp_tile_kernel<XT, PACKED, GELU, 2><<<dim3(n_tiles, 1), block, 0, st>>>(
         xp, M, K, FF, D, group, gw, gs, uw, us, dw, ds, partial);
   } else if (M <= 4) {
-    qmlp_tile_kernel<XT, PACKED, 4><<<dim3(n_tiles, 1), block, 0, st>>>(
+    qmlp_tile_kernel<XT, PACKED, GELU, 4><<<dim3(n_tiles, 1), block, 0, st>>>(
         xp, M, K, FF, D, group, gw, gs, uw, us, dw, ds, partial);
   } else {
-    qmlp_tile_kernel<XT, PACKED, 8><<<dim3(n_tiles, (M + 7) / 8), block, 0, st>>>(
+    qmlp_tile_kernel<XT, PACKED, GELU, 8><<<dim3(n_tiles, (M + 7) / 8), block, 0, st>>>(
         xp, M, K, FF, D, group, gw, gs, uw, us, dw, ds, partial);
   }
 }
@@ -208,8 +233,9 @@ void launch_tiles(const void* x, int M, int K, int FF, int D, int group,
 // caller allocates as (n_tiles, M, D) f32.
 REPRO_API int repro_qmlp_tiles(int FF) { return (FF + kBF - 1) / kBF; }
 
+// gelu = 1: the gelu form (gw, gs ignored, may be null); 0: swiglu.
 REPRO_API int repro_qmlp(const void* x, int x_bf16, int M, int K, int FF,
-                         int D, int group, int packed, const void* gw,
+                         int D, int group, int packed, int gelu, const void* gw,
                          const void* gs, const void* uw, const void* us,
                          const void* dw, const void* ds, void* partial,
                          void* out, void* stream) {
@@ -221,17 +247,15 @@ REPRO_API int repro_qmlp(const void* x, int x_bf16, int M, int K, int FF,
   const __nv_bfloat16* usc = static_cast<const __nv_bfloat16*>(us);
   const __nv_bfloat16* dsc = static_cast<const __nv_bfloat16*>(ds);
   float* part = static_cast<float*>(partial);
-  if (x_bf16) {
-    if (packed)
-      launch_tiles<__nv_bfloat16, true>(x, M, K, FF, D, group, g, gsc, u, usc, d, dsc, part, st);
-    else
-      launch_tiles<__nv_bfloat16, false>(x, M, K, FF, D, group, g, gsc, u, usc, d, dsc, part, st);
-  } else {
-    if (packed)
-      launch_tiles<float, true>(x, M, K, FF, D, group, g, gsc, u, usc, d, dsc, part, st);
-    else
-      launch_tiles<float, false>(x, M, K, FF, D, group, g, gsc, u, usc, d, dsc, part, st);
-  }
+  auto tiles = gelu ? (x_bf16 ? (packed ? launch_tiles<__nv_bfloat16, true, true>
+                                          : launch_tiles<__nv_bfloat16, false, true>)
+                             : (packed ? launch_tiles<float, true, true>
+                                       : launch_tiles<float, false, true>))
+                    : (x_bf16 ? (packed ? launch_tiles<__nv_bfloat16, true, false>
+                                        : launch_tiles<__nv_bfloat16, false, false>)
+                              : (packed ? launch_tiles<float, true, false>
+                                        : launch_tiles<float, false, false>));
+  tiles(x, M, K, FF, D, group, g, gsc, u, usc, d, dsc, part, st);
   int err = (int)cudaGetLastError();
   if (err) return err;
   const long long md = (long long)M * D;

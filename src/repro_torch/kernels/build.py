@@ -30,22 +30,28 @@ CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
-SOURCES = ("qmatmul", "qmlp", "decode_attn")
+SOURCES = ("qmatmul", "qmlp", "decode_attn", "entropy", "quantize")
 
-# decode_attn_window: a multi-query (verify) window; decode_attn_fresh: with
-# fresh rows (fused draft propose); decode_attn: the single-query step; the
-# _paged counters count the same three forms over a paged KV pool.
-LAUNCHES = {"qmatmul": 0, "qkv": 0, "qmlp": 0, "decode_attn": 0,
-            "decode_attn_window": 0, "decode_attn_fresh": 0,
+# qmlp: the swiglu form of the fused MLP; qmlp_gelu: its gelu form.
+# decode_attn_window: a multi-query (verify) window, causal or not;
+# decode_attn_fresh: with fresh rows (fused draft propose); decode_attn: the
+# causal single-query step; decode_attn_cross: the single-query step with
+# causal=False over a dense cache (every cached row visible, as an encoder's
+# K/V are); the _paged counters count the single-query, window and fresh
+# forms over a paged KV pool.
+LAUNCHES = {"qmatmul": 0, "qkv": 0, "qmlp": 0, "qmlp_gelu": 0,
+            "decode_attn": 0, "decode_attn_window": 0,
+            "decode_attn_fresh": 0, "decode_attn_cross": 0,
             "decode_attn_paged": 0, "decode_attn_paged_window": 0,
-            "decode_attn_paged_fresh": 0}
+            "decode_attn_paged_fresh": 0, "entropy": 0, "quantize_int8": 0}
 
 _libs: dict = {}
 BUILD_INFO: dict = {}
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signatures: every pointer and the stream as c_void_p (a bare Python int
-# would be passed as a 32-bit int and cut), every size as c_int.
+# would be passed as a 32-bit int and cut), every size as c_int, an element
+# count that may pass 2^31 as c_longlong.
 _SIGNATURES = {
     "qmatmul": {
         "repro_qmatmul": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
@@ -54,7 +60,7 @@ _SIGNATURES = {
     },
     "qmlp": {
         "repro_qmlp_tiles": [_I],
-        "repro_qmlp": [_P, _I, _I, _I, _I, _I, _I, _I,
+        "repro_qmlp": [_P, _I, _I, _I, _I, _I, _I, _I, _I,
                        _P, _P, _P, _P, _P, _P, _P, _P, _P],
     },
     "decode_attn": {
@@ -62,6 +68,13 @@ _SIGNATURES = {
         "repro_decode_attn": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                               _I, _I, _P],
+    },
+    "entropy": {
+        "repro_entropy_parts": [_L],
+        "repro_entropy": [_P, _I, _L, _I, _I, _P, _P, _P],
+    },
+    "quantize": {
+        "repro_quantize_int8": [_P, _I, _I, _I, _I, _P, _P, _P],
     },
 }
 

@@ -283,9 +283,14 @@ def decode_attn_cuda(q: torch.Tensor, kp, vp, valid_len: torch.Tensor,
     valid = valid_len.to(device=dev, dtype=torch.int32).expand(b).contiguous()
     out = torch.empty((b, hkv, rep, s, d), dtype=torch.float32, device=dev)
     if b > 0:
-        name = ("decode_attn" + ("_paged" if paged else "")
-                + ("_fresh" if fresh is not None else
-                   "_window" if s > 1 else ""))
+        # the counter of the form launched (kernels/build.py)
+        if fresh is not None:
+            form = "_fresh"
+        elif s > 1:
+            form = "_window"
+        else:
+            form = "" if causal or paged else "_cross"
+        name = "decode_attn" + ("_paged" if paged else "") + form
         build.LAUNCHES[name] += 1
         build.check(lib.repro_decode_attn(
             qf.data_ptr(), *(t.data_ptr() for t in cache), valid.data_ptr(),

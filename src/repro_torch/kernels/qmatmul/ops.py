@@ -13,14 +13,16 @@ Every quantized path has two implementations side by side:
 * the plain PyTorch version, which mirrors the JAX package's CPU path
   exactly: ``qmatmul_plain`` dequantizes to bf16 and multiplies in f32
   (``_dequant_simple``), ``fused_qkv_plain`` is three ``qdot`` calls and
-  ``fused_mlp_plain`` the ``qdot`` sequence of the MLP, with silu rounded
-  to x's dtype before it multiplies u.
+  ``fused_mlp_plain`` the ``qdot`` sequence of the MLP, with silu (or
+  gelu) rounded to x's dtype before it multiplies u (or the down weight).
 
 A tensor on the CPU takes the plain version. ``plain=True`` asks for the
 plain version on the GPU too, which is how a run compares the two.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -137,18 +139,21 @@ def qkv_cuda(x2d: torch.Tensor, wq: QTensor, wk: QTensor, wv: QTensor):
     return tuple(ys)
 
 
-def qmlp_cuda(x2d: torch.Tensor, w_gate: QTensor, w_up: QTensor,
+def qmlp_cuda(x2d: torch.Tensor, w_gate: Optional[QTensor], w_up: QTensor,
               w_down: QTensor) -> torch.Tensor:
-    """Fused SwiGLU MLP kernel: (M, K) -> (M, D) f32; the (M, FF) hidden
-    never reaches device memory (only (FF / 64, M, D) f32 partials)."""
+    """Fused MLP kernel: (M, K) -> (M, D) f32, SwiGLU with a gate weight,
+    GeLU (tanh form) with ``w_gate=None``; the (M, FF) hidden never reaches
+    device memory (only (FF / 64, M, D) f32 partials)."""
     _check_x(x2d, "qmlp")
     m, k = x2d.shape
-    ff = _check_w(w_gate, k, x2d.device, "qmlp gate")
-    if _check_w(w_up, k, x2d.device, "qmlp up") != ff:
+    gelu = w_gate is None
+    ws = (w_up, w_down) if gelu else (w_gate, w_up, w_down)
+    ff = _check_w(w_up, k, x2d.device, "qmlp up")
+    if not gelu and _check_w(w_gate, k, x2d.device, "qmlp gate") != ff:
         raise ValueError("qmlp: gate and up must have the same rows")
     d = _check_w(w_down, ff, x2d.device, "qmlp down")
-    if len({(w.precision, w.group) for w in (w_gate, w_up, w_down)}) != 1:
-        raise ValueError("qmlp: the three weights must share precision/group")
+    if len({(w.precision, w.group) for w in ws}) != 1:
+        raise ValueError("qmlp: the weights must share precision/group")
     out = torch.empty((m, d), dtype=torch.float32, device=x2d.device)
     if m == 0:
         return out
@@ -156,15 +161,17 @@ def qmlp_cuda(x2d: torch.Tensor, w_gate: QTensor, w_up: QTensor,
     tiles = lib.repro_qmlp_tiles(ff)
     partial = torch.empty((tiles, m, d), dtype=torch.float32,
                           device=x2d.device)
-    build.LAUNCHES["qmlp"] += 1
+    name = "qmlp_gelu" if gelu else "qmlp"
+    build.LAUNCHES[name] += 1
     build.check(lib.repro_qmlp(
         x2d.data_ptr(), int(x2d.dtype == torch.bfloat16), m, k, ff, d,
-        w_up.group, _PACKED[w_up.precision],
-        w_gate.data.data_ptr(), w_gate.scale.data_ptr(),
+        w_up.group, _PACKED[w_up.precision], int(gelu),
+        0 if gelu else w_gate.data.data_ptr(),
+        0 if gelu else w_gate.scale.data_ptr(),
         w_up.data.data_ptr(), w_up.scale.data_ptr(),
         w_down.data.data_ptr(), w_down.scale.data_ptr(),
         partial.data_ptr(), out.data_ptr(), build.stream_ptr(x2d.device)),
-        "qmlp")
+        name)
     return out
 
 
@@ -215,11 +222,13 @@ def fused_qkv(x: torch.Tensor, wq, wk, wv, plain: bool = False):
 def fused_mlp(x: torch.Tensor, w_gate, w_up, w_down, act: str = "swiglu",
               plain: bool = False) -> torch.Tensor:
     """Whole quantized MLP block: one fused launch (plus its fixed-order
-    reduction) on the GPU for swiglu when all three weights share
-    (precision, group); otherwise the qdot sequence."""
+    reduction) on the GPU when its weights share (precision, group);
+    otherwise the qdot sequence. ``w_gate`` is None for act="gelu"."""
+    if act not in ("swiglu", "gelu") or (w_gate is None) != (act == "gelu"):
+        raise ValueError(f"fused_mlp: act is 'swiglu' (with a gate weight) "
+                         f"or 'gelu' (without), got {act!r}")
     ws = [w for w in (w_gate, w_up, w_down) if w is not None]
-    if (x.is_cuda and not plain and act == "swiglu"
-            and _mega_eligible(ws)):
+    if x.is_cuda and not plain and _mega_eligible(ws):
         lead, k = x.shape[:-1], x.shape[-1]
         y = qmlp_cuda(x.reshape(-1, k).contiguous(), w_gate, w_up, w_down)
         return y.reshape(*lead, _out_dim(w_down)).to(x.dtype)

@@ -7,10 +7,15 @@
         --spec-draft model     # self-speculative decoding, int4 self-draft
     python -m repro_torch.launch.serve --arch llama3.2-3b --paged \
         --shared-prefix-len 12 # paged KV pool with prefix sharing
+    python -m repro_torch.launch.serve --arch whisper-medium \
+        --kv-precision int8    # enc-dec: seeded frames per request
 
 Weights are random, drawn from a seeded ``torch.Generator`` at the JAX
 package's init scales (real checkpoints are not in the repository), so the
 run shows the serving path, its memory and its speed, not model quality.
+An enc-dec model (whisper) gets one block of (encoder_seq, d_model) frame
+embeddings per request, standard normal from ``--seed``, in place of the
+audio frontend.
 Without ``--device`` it runs on the GPU, and raises if there is none.
 """
 
@@ -19,6 +24,7 @@ from __future__ import annotations
 import argparse
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.configs.registry import ARCHS, get_config
@@ -104,6 +110,11 @@ def main(argv=None) -> dict:
                             prompt_len=args.prompt_len,
                             max_new_tokens=args.max_new,
                             arrival_rate=args.arrival_rate, seed=args.seed)
+    if cfg.family == "encdec":
+        rng = np.random.RandomState(args.seed + 2)
+        for r in reqs:
+            r.frames = rng.standard_normal(
+                (cfg.encoder_seq, cfg.d_model)).astype(np.float32)
     if args.shared_prefix_len > 0:
         if args.shared_prefix_len >= args.prompt_len:
             raise SystemExit("--shared-prefix-len must be shorter than "
@@ -119,7 +130,8 @@ def main(argv=None) -> dict:
                   tokens_per_s=stats.tokens_per_s,
                   ttft_mean_s=stats.ttft_mean_s,
                   weight_bytes=engine.weight_bytes(),
-                  kv_bytes_per_slot=engine.kv_bytes_per_slot())
+                  kv_bytes_per_slot=engine.kv_bytes_per_slot(),
+                  kv_bytes_by_field=engine.kv_bytes_by_field())
     if paged is not None:
         report.update(page_size=paged.page_size,
                       pool_pages=stats.pool_pages_total,

@@ -1,14 +1,18 @@
-"""GQA attention with RoPE and a KV cache.
+"""GQA attention with RoPE, a KV cache and cross-attention.
 
 Weights per attention block (all stored (out, in)):
   wq: (H*hd, D)   wk: (Hkv*hd, D)   wv: (Hkv*hd, D)   wo: (D, H*hd)
 
 Prefill runs causal attention in plain tensor ops (materialized scores, or
 a chunked online softmax above ``CHUNK_THRESHOLD`` tokens), as the JAX
-package leaves it to XLA. Decode writes the new K/V into the cache in place
-and attends over it: a raw cache with a validity bias, a quantized
-``KVPage`` cache or a ``PagedKV`` pool (written through its page table)
-through the decode attention kernel.
+package leaves it to XLA; an encoder runs it bidirectionally
+(``causal=False``), and a cross-attention forward takes its K/V from
+``kv_x``. Decode writes the new K/V into the cache in place and attends
+over it: a raw cache with a validity bias, a quantized ``KVPage`` cache or
+a ``PagedKV`` pool (written through its page table) through the decode
+attention kernel. Cross-attention decode reads a fixed precomputed encoder
+cache (``cached_kv``), all of whose rows every query sees: through the
+decode attention kernel with ``causal=False`` when it is quantized.
 """
 
 from __future__ import annotations
@@ -108,17 +112,27 @@ def _chunked_causal_attention(q, k, v):
 
 
 def attention(p, x, *, num_heads: int, num_kv_heads: int, head_dim: int,
-              positions: torch.Tensor, rope_theta: Optional[float],
+              positions: Optional[torch.Tensor] = None,
+              rope_theta: Optional[float] = None, causal: bool = True,
               qk_norm: bool = False, norm_eps: float = 1e-5,
+              kv_x: Optional[torch.Tensor] = None,
               cache: Optional[KVCache] = None,
               cache_pos: Optional[torch.Tensor] = None,
+              cached_kv: Optional[KVCache] = None,
               valid_bias: Optional[torch.Tensor] = None,
               fresh_kv: Optional[tuple] = None,
               emit_kv: bool = False, plain: bool = False):
-    """Causal self-attention.
+    """Self-attention (causal, or bidirectional with ``causal=False``) and
+    cross-attention.
 
-    * prefill (``cache=None``): full or chunked causal attention; with
-      ``emit_kv`` the layer's raw K/V come back as a KVCache.
+    * prefill (``cache=None``): full or chunked causal attention, or full
+      bidirectional attention; with ``emit_kv`` the layer's raw K/V come
+      back as a KVCache. With ``kv_x`` (B, T, D) the K/V are projected
+      from it (a cross-attention forward; pass ``causal=False``).
+    * cross-attention decode (``cached_kv`` given): attend over fixed
+      precomputed K/V, every row visible; a quantized cache goes through
+      the decode attention kernel with ``causal=False``, a raw one through
+      full attention.
     * decode (``cache`` given, x is (B, s, D)): K/V are written into the
       cache IN PLACE at ``cache_pos`` (scalar or (B,) per slot), then a raw
       cache is attended with ``valid_bias`` and a quantized cache
@@ -132,14 +146,32 @@ def attention(p, x, *, num_heads: int, num_kv_heads: int, head_dim: int,
       at positions ``cache_pos + j``. The buffers come back as the cache.
     Returns (out, cache_or_None)."""
     b, s, _ = x.shape
-    yq, yk, yv = fused_qkv(x, p["wq"], p["wk"], p["wv"], plain=plain)
+    if cached_kv is not None:
+        q = qdot(x, p["wq"], plain=plain).reshape(b, s, num_heads, head_dim)
+        if qk_norm:
+            q = rms_norm(q, p["q_norm"], norm_eps)
+        if KV.is_kv_page(cached_kv.k):
+            out = decode_attention(q, cached_kv.k, cached_kv.v, causal=False,
+                                   plain=plain)
+        else:
+            out = _full_attention(q, cached_kv.k, cached_kv.v, 0.0)
+        return qdot(out.reshape(b, s, num_heads * head_dim), p["wo"],
+                    plain=plain), None
+    if kv_x is None:
+        yq, yk, yv = fused_qkv(x, p["wq"], p["wk"], p["wv"], plain=plain)
+        t = s
+    else:
+        yq = qdot(x, p["wq"], plain=plain)
+        yk = qdot(kv_x, p["wk"], plain=plain)
+        yv = qdot(kv_x, p["wv"], plain=plain)
+        t = kv_x.shape[1]
     q = yq.reshape(b, s, num_heads, head_dim)
-    k = yk.reshape(b, s, num_kv_heads, head_dim)
-    v = yv.reshape(b, s, num_kv_heads, head_dim)
+    k = yk.reshape(b, t, num_kv_heads, head_dim)
+    v = yv.reshape(b, t, num_kv_heads, head_dim)
     if qk_norm:
         q = rms_norm(q, p["q_norm"], norm_eps)
         k = rms_norm(k, p["k_norm"], norm_eps)
-    if rope_theta is not None:
+    if rope_theta is not None and positions is not None:
         q = rope(q, positions, rope_theta)
         k = rope(k, positions, rope_theta)
 
@@ -164,6 +196,9 @@ def attention(p, x, *, num_heads: int, num_kv_heads: int, head_dim: int,
                 decode_valid_bias(cache_pos, s, cache.k.shape[1])
             out = _full_attention(q, cache.k, cache.v, bias)
         new_cache = cache
+    elif not causal:
+        new_cache = KVCache(k=k, v=v) if emit_kv else None
+        out = _full_attention(q, k, v, 0.0)
     else:
         new_cache = KVCache(k=k, v=v) if emit_kv else None
         if s > CHUNK_THRESHOLD:
@@ -177,17 +212,20 @@ def attention(p, x, *, num_heads: int, num_kv_heads: int, head_dim: int,
     return out, new_cache
 
 
-def init_attention_params(gen, cfg, dtype, device) -> dict:
+def init_attention_params(gen, cfg, dtype, device,
+                          layers: Optional[int] = None) -> dict:
     """Stacked (layers, out, in) attention weights at the reference's
-    scales."""
-    n, d = cfg.num_layers, cfg.d_model
+    scales (``layers`` defaults to ``cfg.num_layers``; the output
+    projection's scale always follows ``cfg.num_layers``, as in the
+    reference's encoder)."""
+    n, d = cfg.num_layers if layers is None else layers, cfg.d_model
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     p = {
         "wq": dense_init(gen, (n, h * hd, d), dtype, device),
         "wk": dense_init(gen, (n, hkv * hd, d), dtype, device),
         "wv": dense_init(gen, (n, hkv * hd, d), dtype, device),
         "wo": dense_init(gen, (n, d, h * hd), dtype, device,
-                         scale=1.0 / (2 * max(n, 1)) ** 0.5),
+                         scale=1.0 / (2 * max(cfg.num_layers, 1)) ** 0.5),
     }
     if cfg.qk_norm:
         p["q_norm"] = torch.ones((n, hd), dtype=dtype, device=device)

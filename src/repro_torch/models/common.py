@@ -1,4 +1,5 @@
-"""Shared model building blocks (norms, init, rope, embeddings, lm head).
+"""Shared model building blocks (norms, init, rope, sinusoidal positions,
+embeddings, lm head).
 
 Conventions, as in the JAX reference:
 * every weight matrix is stored ``(out_features, in_features)`` and applied
@@ -10,6 +11,7 @@ Conventions, as in the JAX reference:
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.qmatmul.ops import qdot
@@ -99,6 +101,16 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, dim: int, device) -> torch.Tensor:
+    """(seq, dim) f32 sinusoidal embedding, [sin | cos] halves, computed in
+    float64 on the host as the reference does, then cast."""
+    pos = np.arange(seq)[:, None]
+    i = np.arange(dim // 2)[None, :]
+    ang = pos / (10000 ** (2 * i / dim))
+    emb = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.from_numpy(emb.astype(np.float32)).to(device)
 
 
 # --------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Model facade: one interface over the family modules.
 
-This slice ports the dense family. Building a model of another family
-raises ``NotImplementedError`` naming its ROADMAP item.
+The dense family (``transformer``) and the encoder-decoder family
+(``encdec``) are ported. Building a model of another family raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -12,14 +13,13 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.quant import kvcache as KV
 
-_FAMILIES = {"dense": transformer}
+_FAMILIES = {"dense": transformer, "encdec": encdec}
 _TODO = {"moe": "the other families (MoE branch of the transformer)",
          "ssm": "the other families (ssm.py, ssm_lm.py)",
-         "hybrid": "the other families (hybrid.py)",
-         "encdec": "the other families (encdec.py)"}
+         "hybrid": "the other families (hybrid.py)"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,9 +41,17 @@ class Model:
         return self.module.init(self.cfg, gen, device)
 
     # ---- forward ----------------------------------------------------------
-    def apply(self, params, tokens: torch.Tensor, *, last_only: bool = False,
-              plain: bool = False) -> torch.Tensor:
-        """tokens (B, S) -> logits (B, S, V_pad) f32."""
+    def apply(self, params, tokens: torch.Tensor, *, frames=None,
+              last_only: bool = False, plain: bool = False) -> torch.Tensor:
+        """tokens (B, S) (+ ``frames`` (B, S_enc, D) for enc-dec) ->
+        logits (B, S, V_pad) f32."""
+        if self.cfg.family == "encdec":
+            if frames is None:
+                raise ValueError("an enc-dec model needs frames")
+            return self.module.apply(params, tokens, frames, self.cfg,
+                                     last_only=last_only, plain=plain)
+        if frames is not None:
+            raise ValueError("frames only apply to enc-dec models")
         return self.module.apply(params, tokens, self.cfg,
                                  last_only=last_only, plain=plain)
 
@@ -98,8 +106,9 @@ class Model:
 
     def insert_cache_slot(self, cache, one, slot: int, page_rows=None):
         """Write a batch=1 cache (scalar or (1,) pos) into slot ``slot`` of
-        a slotted cache, in place. Quantized fields quantize the prompt's
-        K/V here, at admission (quantize-on-insert). Paged-pool fields also
+        a slotted cache, in place, every field of the family's cache (an
+        enc-dec cache's cross K/V too). Quantized fields quantize the
+        prompt's K/V here, at admission (quantize-on-insert). Paged-pool fields also
         need ``page_rows=(row, wrow)``, the slot's page-table rows from the
         host allocator (``serving/pool.py``): ``row`` maps logical pages to
         physical ones, ``wrow`` redirects shared read-only prefix pages to

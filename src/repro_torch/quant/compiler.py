@@ -10,10 +10,11 @@ a KV-cache precision policy onto the family's cache layout
 ``compile_draft_plan`` derives the self-speculative all-int4 draft from a
 compiled target by the plan's entropy order.
 
-This slice compiles the dense and MoE layouts. The hybrid and enc-dec rows
-of ``family_layout`` are kept as plain data so plans for those families
-have the right length; compiling them waits for their models (ROADMAP.md).
-Persisted plan artifacts are still to be ported.
+This port compiles the dense, MoE and enc-dec layouts (the enc-dec family
+has two stacks, ``enc_layers`` and ``dec_layers``, under one plan). The
+hybrid row of ``family_layout`` is kept as plain data so its plans have the
+right length; compiling it waits for its model (ROADMAP.md). Persisted
+plan artifacts are still to be ported.
 """
 
 from __future__ import annotations
@@ -154,9 +155,10 @@ class CompiledPlan:
 def compile_plan(model, params, plan: QuantPlan, group: int = 128,
                  kv_precision: str = "bf16",
                  kv_group: int = DEFAULT_KV_GROUP) -> CompiledPlan:
-    """Lower ``plan`` onto ``params`` (dense and MoE families)."""
+    """Lower ``plan`` onto ``params`` (dense, MoE and enc-dec families):
+    every layer stack becomes a ``SegmentedParams``."""
     cfg = model.cfg
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "encdec"):
         raise NotImplementedError(
             f"compile_plan for the {cfg.family!r} family waits for its model "
             f"port (ROADMAP.md, 'the other families')")

@@ -36,6 +36,13 @@ Structure:
     while the pool cannot cover its worst case. Greedy output is
     token-identical to the dense engine's.
 
+Enc-dec models (whisper) serve with ``frames`` per request (a zero frame
+block when a request has none): prefill encodes them, computes every
+decoder layer's cross K/V once, and runs single-token decode steps over
+the prompt; admission quantizes the self and cross K/V into the slot. The
+paged pool and speculative decoding are not ported for this family, and
+the engine refuses both for it.
+
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"`` (the
 tests do, and then every kernel's plain version runs). With no GPU and no
 explicit CPU request it raises; it never falls back to the CPU.
@@ -52,6 +59,8 @@ import torch
 
 from repro_torch.core.policy import QuantPlan
 from repro_torch.device import resolve_device
+from repro_torch.models import encdec
+from repro_torch.models.common import dtype_of
 from repro_torch.quant import paged as PG
 from repro_torch.quant.apply import (SegmentedParams, segment_slices,
                                      tree_nbytes)
@@ -130,6 +139,11 @@ class ServeEngine:
         self.device = resolve_device(device)
         self.model = model
         self.cfg = model.cfg
+        if self.cfg.family == "encdec" and (spec is not None or paged):
+            raise NotImplementedError(
+                "enc-dec serving over a paged KV pool or with speculative "
+                "decoding is still to be ported (ROADMAP.md, 'the other "
+                "families'); serve it dense and non-speculative")
         self.max_seq = max_seq
         self.plan = plan
         self.eos_id = eos_id
@@ -154,9 +168,11 @@ class ServeEngine:
 
     # -- quantized KV cache ----------------------------------------------------
     def _kv_cuts(self) -> tuple:
-        """Page boundaries = the weight stack's segment boundaries."""
+        """Page boundaries = the segment boundaries of the weight stack the
+        cache follows (the decoder's for enc-dec)."""
+        key = "dec_layers" if self.cfg.family == "encdec" else "layers"
         return tuple(lo for _, lo, _ in
-                     segment_slices(self.params["layers"])[1:])
+                     segment_slices(self.params[key])[1:])
 
     def _wrap_cache(self, cache):
         """Raw family cache -> quantized pages per the KV plan (identity
@@ -172,12 +188,20 @@ class ServeEngine:
                                device=self.device)
 
     @torch.no_grad()
-    def prefill(self, prompts):
-        """(B, P) prompts -> (raw cache padded to max_seq at pos P,
-        last-token logits (B, V_pad))."""
+    def prefill(self, prompts, frames=None):
+        """(B, P) prompts (+ (B, S_enc, D) ``frames`` for enc-dec; zeros
+        when None) -> (raw cache padded to max_seq at pos P, last-token
+        logits (B, V_pad))."""
         toks = self._tokens(prompts)
         b, s = toks.shape
         assert s <= self.max_seq, (s, self.max_seq)
+        if self.cfg.family == "encdec":
+            if frames is None:
+                frames = self._default_frames(b)
+            return self._prefill_encdec(
+                toks, torch.as_tensor(frames, device=self.device))
+        if frames is not None:
+            raise ValueError("frames only apply to enc-dec models")
         logits, cache = self.model.module.apply(
             self.params, toks, self.cfg, return_cache=True, last_only=True)
         shape = cache.k.shape[:2] + (self.max_seq,) + cache.k.shape[3:]
@@ -187,13 +211,41 @@ class ServeEngine:
         v[:, :, :s] = cache.v
         return cache._replace(k=k, v=v), logits[:, 0]
 
-    def prefill_request(self, prompt, state: Optional[B.DecodeState] = None
-                        ) -> Prefill:
-        """Prefill ONE request (1-D prompt). A paged engine with prefix
-        sharing first matches the prompt against the pool's prefix cache,
-        pinning the matched pages; on a hit, and given ``state`` (which
-        holds the pool), it reads the shared K/V back from the pool and
-        runs the model over the suffix only."""
+    def _prefill_scan(self, toks: torch.Tensor, cache):
+        """Prefill as single-token decode steps over the prompt from a raw
+        batch cache at pos 0. Returns (cache at pos P, last logits)."""
+        for t in range(toks.shape[1]):
+            logits, cache = self.model.decode_step(self.params, cache,
+                                                   toks[:, t:t + 1])
+        return cache, logits[:, 0]
+
+    def _prefill_encdec(self, toks: torch.Tensor, frames: torch.Tensor):
+        """Enc-dec prefill: encode the frames, compute every decoder
+        layer's cross K/V once, then scan the prompt."""
+        if tuple(frames.shape[1:]) != (self.cfg.encoder_seq,
+                                       self.cfg.d_model):
+            raise ValueError(f"frames must be (B, {self.cfg.encoder_seq}, "
+                             f"{self.cfg.d_model}), got "
+                             f"{tuple(frames.shape)}")
+        enc_out = encdec.encode(self.params, frames, self.cfg)
+        ck, cv = encdec.precompute_cross_kv(self.params, enc_out, self.cfg)
+        cache = self.model.init_cache(toks.shape[0], self.max_seq,
+                                      self.device)
+        return self._prefill_scan(toks, cache._replace(cross_k=ck,
+                                                       cross_v=cv))
+
+    def _default_frames(self, batch: int) -> torch.Tensor:
+        return torch.zeros((batch, self.cfg.encoder_seq, self.cfg.d_model),
+                           dtype=dtype_of(self.cfg), device=self.device)
+
+    def prefill_request(self, prompt, state: Optional[B.DecodeState] = None,
+                        *, frames=None) -> Prefill:
+        """Prefill ONE request (1-D prompt; ``frames`` (S_enc, D) for an
+        enc-dec model). A paged engine with prefix sharing first matches
+        the prompt against the pool's prefix cache, pinning the matched
+        pages; on a hit, and given ``state`` (which holds the pool), it
+        reads the shared K/V back from the pool and runs the model over the
+        suffix only."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         match = None
         if self.pool is not None and self.pool.prefix is not None:
@@ -202,7 +254,8 @@ class ServeEngine:
                 cache, logits = self._seed_prefill(prompt, match, state)
                 return Prefill(prompt=prompt, cache=cache,
                                last_logits=logits, match=match)
-        cache, logits = self.prefill(prompt[None])
+        cache, logits = self.prefill(
+            prompt[None], None if frames is None else frames[None])
         return Prefill(prompt=prompt, cache=cache, last_logits=logits,
                        match=match)
 
@@ -407,12 +460,20 @@ class ServeEngine:
                 f"{self.max_seq}")
 
     # -- generation ---------------------------------------------------------------
+    def _slice_prefill(self, cache, i: int):
+        """Row ``i`` of a batch prefill cache: the batch=1 cache ``insert``
+        takes (a scalar pos is shared across the batch)."""
+        return type(cache)(*(
+            f if f.ndim == 0 else f.narrow(axis, i, 1)
+            for f, axis in zip(cache, self.model.cache_batch_axes)))
+
     @torch.no_grad()
     def generate(self, prompts, max_new_tokens: int,
                  temperature: float = 0.0, chunk: Optional[int] = None,
-                 seed: int = 0) -> GenerateResult:
+                 seed: int = 0, frames=None) -> GenerateResult:
         """One fixed batch: batched prefill, then chunks until every row
-        has ``max_new_tokens`` tokens (or hit EOS)."""
+        has ``max_new_tokens`` tokens (or hit EOS). ``frames``: (B, S_enc,
+        D) for an enc-dec model."""
         if max_new_tokens < 1:
             raise ValueError(f"max_new_tokens must be >= 1, got "
                              f"{max_new_tokens}")
@@ -425,9 +486,9 @@ class ServeEngine:
             assert total <= self.max_seq, (total, self.max_seq)
         state = self.init_decode_state(b, seed)
         prompts_np = toks.cpu().numpy().astype(np.int32)
-        cache, last = self.prefill(prompts_np)
+        cache, last = self.prefill(prompts_np, frames)
         for i in range(b):
-            one = cache._replace(k=cache.k[:, i:i + 1], v=cache.v[:, i:i + 1])
+            one = self._slice_prefill(cache, i)
             self.insert(state, i, Prefill(prompt=prompts_np[i], cache=one,
                                           last_logits=last[i:i + 1]),
                         max_new_tokens, temperature=temperature)
@@ -495,7 +556,8 @@ class ServeEngine:
                         else temperature)
                 try:
                     self.insert(state, slot,
-                                self.prefill_request(req.prompt, state),
+                                self.prefill_request(req.prompt, state,
+                                                     frames=req.frames),
                                 req.max_new_tokens, temperature=temp,
                                 top_k=req.top_k, top_p=req.top_p)
                 except OutOfPages:
@@ -581,14 +643,19 @@ class ServeEngine:
         return outputs, stats
 
     # -- accounting ----------------------------------------------------------------
-    def kv_bytes_per_slot(self) -> float:
-        """Attention-cache bytes one decode slot holds at ``max_seq``
-        (K/V payloads + per-group scales), from a one-slot cache built on
-        the meta device (shapes only, no memory)."""
+    def kv_bytes_by_field(self) -> dict:
+        """Attention-cache bytes one decode slot holds at ``max_seq`` per
+        cache field (K/V payloads + per-group scales; an enc-dec slot also
+        holds its cross K/V at ``encoder_seq`` rows), from a one-slot cache
+        built on the meta device (shapes only, no memory)."""
         cache = self._wrap_cache(self.model.slotted_cache(1, self.max_seq,
                                                           "meta"))
-        return float(sum(kv_field_nbytes(getattr(cache, name))
-                         for name in self.model.kv_cache_fields))
+        return {name: kv_field_nbytes(getattr(cache, name))
+                for name in self.model.kv_cache_fields}
+
+    def kv_bytes_per_slot(self) -> float:
+        """Attention-cache bytes one decode slot holds, all fields."""
+        return float(sum(self.kv_bytes_by_field().values()))
 
     def kv_bytes_allocated(self, num_slots: int = 1) -> float:
         """Attention-cache bytes held right now. A dense engine reserves

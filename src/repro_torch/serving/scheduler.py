@@ -30,6 +30,7 @@ class Request:
     top_k: int = 0                # 0: disabled
     top_p: float = 1.0            # >= 1: disabled
     priority: int = 1             # 0 = most urgent; ties break FIFO
+    frames: Optional[np.ndarray] = None  # (S_enc, D) encoder frames (enc-dec)
 
 
 @dataclasses.dataclass

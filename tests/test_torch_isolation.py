@@ -38,7 +38,8 @@ _FORBIDDEN = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\."
 
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")]
-    + ["chip_smoke.py"]))
+    + ["chip_smoke.py"]
+    + [str(p.relative_to(ROOT)) for p in (ROOT / "scripts").glob("*.py")]))
 def test_source_never_imports_jax_or_reference(path):
     src = (ROOT / path).read_text()
     assert not _FORBIDDEN.search(src), path
@@ -68,9 +69,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 
 def test_other_families_name_their_roadmap_item():
+    """The families still to port (the enc-dec family, whisper, is ported
+    and is held to the reference in tests/test_torch_encdec.py)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models.model import build
-    for arch in ("mamba2-780m", "zamba2-2.7b", "whisper-medium",
-                 "grok-1-314b"):
+    for arch in ("mamba2-780m", "zamba2-2.7b", "grok-1-314b"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build(get_config(arch, smoke=True))

@@ -45,11 +45,6 @@ def test_matrix_entropy_matches_reference(shape, scale):
         pytest.approx(want, rel=1e-5)
 
 
-def test_kernel_mode_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="entropy kernel"):
-        TE.matrix_entropy(torch.ones(4, 4), mode="kernel")
-
-
 @pytest.fixture(scope="module")
 def family_blocks():
     out = {}
