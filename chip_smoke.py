@@ -11,14 +11,17 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    inputs), timed with CUDA events (median of 20 after warm-up, L2 flushed
    before each call): the kernel, its plain version, and a PyTorch
    yardstick that the port itself never calls. The matmul kernels at
-   llama3.2-3b's shapes; decode attention in its forms: one query per
-   slot, the speculative verify window (qs = K+1 queries, causal and not),
-   and the fresh rows of the fused draft propose, each again over a paged
-   pool (pages of 64 rows, a permuted table with a page mapped by two
-   slots and dump entries past each allocation), where it must also equal
-   the dense kernel on the gathered rows to the bit. Whisper-medium's
-   shapes: the gelu form of the fused MLP (M = 1, 4 and the encoder's
-   1500) and cross-attention (causal=False over 1500 rows, hd 64). The
+   llama3.2-3b's shapes; decode attention in its forms (attention_cases;
+   each also within relative L2 ATTN_REL_L2 of its plain version): one
+   query per slot, the speculative verify window (qs = K+1 queries, causal
+   and not), and the fresh rows of the fused draft propose, slots whose
+   valid rows end on the kernel's split boundaries, each again over a
+   paged pool (pages of 64 rows and of 24, permuted tables, different for
+   K and V, with a page mapped by two slots and dump entries past each
+   allocation), where it must also equal the dense kernel on the gathered
+   rows to the bit. Whisper-medium's shapes: the gelu form of the fused
+   MLP (M = 1, 4 and the encoder's 1500), self-attention over its 448-row
+   decoder cache and cross-attention (causal=False over 1500 rows, hd 64). The
    entropy kernel (within 1e-3 * max(1, |H|) and 1e-5 absolute, at the
    weight scale and the reference test's, with a weighted ragged tail) and
    the int8 quantize kernel (payload and scales equal to the bit).
@@ -179,66 +182,261 @@ def serve_prompts(vocab: int) -> list:
 # ---------------------------------------------------------------------------
 
 def paged_pair(torch, gen, b: int, s: int, rows_needed, prec: str,
-               seed: int, hkv: int = 8, hd: int = 128) -> list:
+               seed: int, hkv: int = 8, hd: int = 128,
+               page: int = PAGE) -> list:
     """One layer's K and V pools for ``b`` slots of ``s`` logical rows in
-    pages of PAGE tokens: slot i holds ceil(rows_needed[i] / PAGE) pages at
-    physical ids drawn by a seeded permutation; the first page of the
-    second slot that holds any is the first slot's (one physical page
-    mapped by two slots, as a shared prefix is); every table entry past a
-    slot's allocation is the dump page 0, filled with large garbage that
-    no read may see. Rows are random, quantized with the page write math."""
+    pages of ``page`` tokens: slot i holds ceil(rows_needed[i] / page)
+    pages at physical ids drawn by a seeded permutation, a different one
+    for K and for V (a kernel that reads a pool through the other pool's
+    table reads the wrong rows); the first page of the second slot that
+    holds any is the first slot's (one physical page mapped by two slots,
+    as a shared prefix is); every table entry past a slot's allocation is
+    the dump page 0, filled with large garbage that no read may see. Rows
+    are random, quantized with the page write math."""
     import numpy as np
     from repro_torch.quant.kvcache import PagedKV, make_page
-    n_log = s // PAGE
-    need = [min(-(-int(r) // PAGE), n_log) for r in rows_needed]
+    n_log = s // page
+    need = [min(-(-int(r) // page), n_log) for r in rows_needed]
     owners = [i for i, n in enumerate(need) if n > 0][:2]
     shared = (owners[1], 0)
     unique = [(i, j) for i in range(b) for j in range(need[i])
               if (i, j) != shared]
-    perm = np.random.RandomState(seed).permutation(len(unique)) + 1
-    table = np.zeros((b, n_log), np.int32)
-    for (i, j), pid in zip(unique, perm):
-        table[i, j] = pid
-    table[shared] = table[owners[0], 0]
     pools = []
-    for _ in range(2):
-        raw = torch.randn((len(unique) + 1, PAGE, hkv, hd), generator=gen,
+    for k in range(2):
+        perm = np.random.RandomState(seed + 1000 * k).permutation(
+            len(unique)) + 1
+        table = np.zeros((b, n_log), np.int32)
+        for (i, j), pid in zip(unique, perm):
+            table[i, j] = pid
+        table[shared] = table[owners[0], 0]
+        raw = torch.randn((len(unique) + 1, page, hkv, hd), generator=gen,
                           device="cuda")
         raw[0] *= 100.0
-        page = make_page(raw, prec, 64)
+        pg = make_page(raw, prec, 64)
         pools.append(PagedKV(
-            data=page.data, scale=page.scale,
-            table=torch.from_numpy(table.copy()).cuda(), precision=prec,
-            head_dim=hd, group=64, page_size=PAGE))
+            data=pg.data, scale=pg.scale,
+            table=torch.from_numpy(table).cuda(), precision=prec,
+            head_dim=hd, group=64, page_size=page))
     return pools
 
 
-def attn_case(torch, timer, compare, kernel: str, shape: str, q, kp, vp,
-              valid, causal: bool = True, fresh=None, **extra) -> dict:
-    """One decode-attention form against its plain version at one shape:
-    the kernel, the plain version and SDPA on the dequantized cache with
-    the same boolean mask (a yardstick the port never calls), timed, with
-    the bound of the rows its queries see. ``fresh``: raw (fresh_k,
-    fresh_v, base), quantized here with the page's write math. ``kp``/
-    ``vp`` may be PagedKV pools: the kernel must then also equal, to the
-    bit, the dense kernel on the rows gathered through the tables, and
-    the yardstick is that gather followed by SDPA."""
+LLAMA_ATTN = (8, 3, 128)        # KV heads, query heads per KV head, head dim
+WHISPER_ATTN = (16, 1, 64)
+
+
+def attention_cases(torch):
+    """Every decode attention case of phase 3, one at a time, from their own
+    seeded generator (scripts/decode_attn_gate_mutants.py runs the same
+    cases): dicts of ``kernel`` (its launch counter), ``shape``, ``q``,
+    ``kp``, ``vp``, ``valid``, ``causal``, ``fresh`` (raw (fresh_k,
+    fresh_v, base) or None) and ``extra`` (fields of the row).
+
+    llama3.2-3b's heads: one query per slot at 8 slots x 2048 rows and at
+    the serve phase's 4 slots x 1024 rows mid-decode; the verify window (qs
+    = K+1, and 9 where shared memory is largest, causal and not) at the
+    serve shape and at 8 x 2048, where slot 0's first queries see no row;
+    the fresh rows of a draft propose at the serve shape, one case per
+    propose step (count rows already written, base per slot); slots whose
+    valid rows end on the kernel's split boundaries ("edges": L, L + 1,
+    2 L - 1 for L = split_rows(3) = 128 rows). The same forms over paged
+    pools (pages of 64 rows, and of 24 rows, which do not divide a split).
+    whisper-medium's heads (one query row each, splits of split_rows(1) =
+    256 rows): self-attention over its 448-row decoder cache at the split
+    edges, cross-attention (causal=False) over 1500 encoder rows. Small
+    cases ("f32q") run the kernel's other instantiations (hd 32, 64, 128
+    with one or several query rows a KV head) on f32 q."""
+    from repro_torch.kernels.decode_attn.ops import split_rows
+    from repro_torch.quant.kvcache import make_page
+    L, L1 = split_rows(LLAMA_ATTN[1]), split_rows(WHISPER_ATTN[1])
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    lens = [len(p) for p in serve_prompts(128256)]
+    serve_valid = [n + 16 for n in lens[:SLOTS]]
+    big_valid = [0, 1, 1000, 2048, 517, 64, 1500, 2000]
+    edge_valid = [L, L + 1, 2 * L - 1, 1024]
+    all3, int8 = ("int8", "int4", "bf16"), ("int8",)
+
+    def qkv(b, s, qs, geom):
+        hkv, rep, hd = geom
+        q = torch.randn((b, qs, hkv * rep, hd), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        kv = [torch.randn((b, s, hkv, hd), generator=gen, device="cuda")
+              for _ in range(2)]
+        return q, kv
+
+    def valid_of(v):
+        return torch.tensor(v, dtype=torch.int32, device="cuda")
+
+    def shape(b, s, qs, geom, tail=""):
+        hkv, rep, hd = geom
+        return (f"B{b} S{s} Hkv{hkv} rep{rep} hd{hd}{tail}"
+                + ("" if qs == 1 else f" qs{qs}"))
+
+    def case(kernel, shp, q, kp, vp, valid, causal=True, fresh=None,
+             **extra):
+        return dict(kernel=kernel, shape=shp, q=q, kp=kp, vp=vp, valid=valid,
+                    causal=causal, fresh=fresh, extra=extra)
+
+    def needed(rows, qs):      # a window's last query sees ``rows`` rows
+        return [v + qs - 1 if qs > 1 and v > 1 else v for v in rows]
+
+    dense = [("decode_attn", 8, 2048, 1, True, big_valid, all3, LLAMA_ATTN,
+              ""),
+             ("decode_attn", SLOTS, 1024, 1, True, serve_valid, all3,
+              LLAMA_ATTN, ""),
+             ("decode_attn", SLOTS, 1024, 1, True, edge_valid, all3,
+              LLAMA_ATTN, " edges"),
+             ("decode_attn", SLOTS, WHISPER_MAX_SEQ, 1, True,
+              [L1 - 1, L1, L1 + 1, WHISPER_MAX_SEQ], ("int8", "int4"),
+              WHISPER_ATTN, " self edges"),
+             ("decode_attn_window", SLOTS, 1024, SPEC_K + 1, True,
+              serve_valid, all3, LLAMA_ATTN, ""),
+             ("decode_attn_window", SLOTS, 1024, SPEC_K + 1, False,
+              serve_valid, int8, LLAMA_ATTN, ""),
+             ("decode_attn_window", SLOTS, 1024, 9, True, serve_valid, int8,
+              LLAMA_ATTN, ""),
+             ("decode_attn_window", SLOTS, 1024, SPEC_K + 1, True,
+              edge_valid, int8, LLAMA_ATTN, " edges"),
+             ("decode_attn_window", 8, 2048, SPEC_K + 1, True, big_valid,
+              int8, LLAMA_ATTN, ""),
+             ("decode_attn_cross", SLOTS, 1500, 1, False, [1500] * SLOTS,
+              ("int8", "int4"), WHISPER_ATTN, " cross")]
+    # the kernel's other instantiations: head dims 32 and 64 with several
+    # query rows a KV head, 128 with one, and f32 q (as a float32 model
+    # passes it); hd 32 leaves one scale per stored row (F / group odd)
+    for geom, qs in (((2, 2, 32), 3), ((2, 1, 32), 1), ((2, 2, 64), 2),
+                     ((2, 1, 128), 1)):
+        dense.append(("decode_attn" if qs == 1 else "decode_attn_window", 2,
+                      300, qs, True, [297, 129], all3, geom, " f32q"))
+    for kname, b, s, qs, causal, rows, precs, geom, tail in dense:
+        q, (kraw, vraw) = qkv(b, s, qs, geom)
+        if tail == " f32q":
+            q = q.float()
+        valid = valid_of(needed(rows, qs))
+        for prec in precs:
+            kp, vp = make_page(kraw, prec, 64), make_page(vraw, prec, 64)
+            yield case(kname, shape(b, s, qs, geom, tail), q, kp, vp, valid,
+                       causal)
+            del kp, vp
+    sf = SPEC_K
+    base = valid_of(serve_valid)
+    hkv, rep, hd = LLAMA_ATTN
+    _, (kraw, vraw) = qkv(SLOTS, 1024, 1, LLAMA_ATTN)
+    fk, fv = (torch.randn((SLOTS, sf, hkv, hd), generator=gen, device="cuda")
+              .to(torch.bfloat16) for _ in range(2))
+    for prec in ("int8", "int4"):
+        kp, vp = make_page(kraw, prec, 64), make_page(vraw, prec, 64)
+        for count in range(sf):
+            q, _ = qkv(SLOTS, 0, 1, LLAMA_ATTN)
+            yield case("decode_attn_fresh",
+                       shape(SLOTS, 1024, 1, LLAMA_ATTN, f" Sf{sf} count{count}"),
+                       q, kp, vp, base + count + 1, fresh=(fk, fv, base),
+                       count=count)
+        del kp, vp
+    # the same forms over paged pools (permuted tables, a shared page and
+    # dump entries), each also held to the dense kernel on the gathered rows
+    # to the bit
+    paged = [("decode_attn_paged", 8, 2048, 1, True, big_valid, all3, PAGE),
+             ("decode_attn_paged_window", 8, 2048, SPEC_K + 1, True,
+              big_valid, int8, PAGE),
+             ("decode_attn_paged_window", SLOTS, 1024, SPEC_K + 1, True,
+              serve_valid, all3, PAGE),
+             ("decode_attn_paged_window", SLOTS, 1024, SPEC_K + 1, False,
+              serve_valid, int8, PAGE),
+             ("decode_attn_paged", SLOTS, 24 * 43, 1, True, edge_valid, all3,
+              24),
+             ("decode_attn_paged_window", SLOTS, 24 * 43, SPEC_K + 1, True,
+              edge_valid, int8, 24)]
+    for ci, (kname, b, s, qs, causal, rows, precs, page) in enumerate(paged):
+        q, _ = qkv(b, 0, qs, LLAMA_ATTN)
+        rows = needed(rows, qs)
+        valid = valid_of(rows)
+        tail = f" P{page}" + (" edges" if page != PAGE else "")
+        for prec in precs:
+            kp, vp = paged_pair(torch, gen, b, s, rows, prec, seed=ci,
+                                page=page)
+            yield case(kname, shape(b, s, qs, LLAMA_ATTN, tail), q, kp, vp,
+                       valid, causal)
+            del kp, vp
+    for prec in ("int8", "int4"):
+        kp, vp = paged_pair(torch, gen, SLOTS, 1024,
+                            [v + sf for v in serve_valid], prec, seed=9)
+        for count in range(sf):
+            q, _ = qkv(SLOTS, 0, 1, LLAMA_ATTN)
+            yield case("decode_attn_paged_fresh",
+                       shape(SLOTS, 1024, 1, LLAMA_ATTN,
+                             f" P{PAGE} Sf{sf} count{count}"),
+                       q, kp, vp, base + count + 1, fresh=(fk, fv, base),
+                       count=count)
+        del kp, vp
+
+
+# Limit on the relative L2 distance of a decode attention kernel's output
+# from its plain version (both in q's dtype, bf16, over the whole output).
+# The elementwise 2e-2 (TOL) cannot see a fault of the split-KV merge: the
+# outputs are ~0.03 and one row of ~1000 weighs ~1e-3. Placed from the
+# readings of scripts/decode_attn_gate_mutants.py (PERF.md): the real
+# kernel against the plain version, and four planted faults (a lost split,
+# no merge rescale, splits overlapping by one row, swapped K/V page tables).
+ATTN_REL_L2 = 1e-3
+
+
+def attn_rel_l2(got, want) -> float:
+    """Relative L2 distance of a decode attention output from its plain
+    version's."""
+    return float((got.float() - want.float()).norm()
+                 / max(float(want.float().norm()), 1e-30))
+
+
+def attn_fault(got, want):
+    """None when a decode attention output passes the attention gate
+    (ATTN_REL_L2 against its plain version); else what it failed."""
+    rel = attn_rel_l2(got, want)
+    if not rel <= ATTN_REL_L2:
+        return f"relative L2 {rel} > ATTN_REL_L2 {ATTN_REL_L2}"
+    return None
+
+
+def attn_outputs(torch, c: dict) -> tuple:
+    """The kernel's and the plain version's output of one attention case
+    (f32 views), and its quantized fresh rows (or None)."""
+    from repro_torch.kernels.decode_attn import ops as DA
+    kp, vp = c["kp"], c["vp"]
+    fq = None
+    if c["fresh"] is not None:
+        fk, fv, base = c["fresh"]
+        fq = (DA._fresh_page(fk, kp), DA._fresh_page(fv, vp), base)
+    got = DA.decode_attn_cuda(c["q"], kp, vp, c["valid"], c["causal"], fq)
+    want = DA.decode_attention_plain(c["q"], kp, vp, c["valid"], c["causal"],
+                                     fq)
+    torch.cuda.synchronize()
+    return got.float(), want.float(), fq
+
+
+def attn_case(torch, timer, compare, c: dict) -> dict:
+    """One decode-attention case (``attention_cases``) against its plain
+    version: the elementwise tolerance and the attention gate
+    (``attn_fault``); a query that sees no row must give 0. Timed: the
+    kernel, the plain version and SDPA on the dequantized cache with the
+    same boolean mask (a yardstick the port never calls), with the bound of
+    the rows its queries see. Pools (PagedKV) must also equal, to the bit,
+    the dense kernel on the rows gathered through the tables, and the
+    yardstick is that gather followed by SDPA."""
     from repro_torch.kernels.decode_attn import ops as DA
     from repro_torch.quant import paged as PG
     from repro_torch.quant.kvcache import KVPage, PagedKV, dequantize_kv
+    kernel, q, kp, vp = c["kernel"], c["q"], c["kp"], c["vp"]
+    valid, causal = c["valid"], c["causal"]
     b, s, h, hd = q.shape
     S = kp.seq_len
     hkv = kp.num_kv_heads
     rep = h // hkv
     dev = q.device
     paged = isinstance(kp, PagedKV)
-    fq = None
-    if fresh is not None:
-        fq = (DA._fresh_page(fresh[0], kp), DA._fresh_page(fresh[1], vp),
-              fresh[2])
-    got = DA.decode_attn_cuda(q, kp, vp, valid, causal, fq).float()
-    want = DA.decode_attention_plain(q, kp, vp, valid, causal, fq).float()
+    got, want, fq = attn_outputs(torch, c)
     compare(kernel, [got], [want])
+    fault = attn_fault(got, want)
+    if fault:
+        raise AssertionError(f"{kernel} {c['shape']} {kp.precision}: {fault}")
     extra_row = {}
     if paged:
         dense = DA.decode_attn_cuda(q, PG.gather(kp), PG.gather(vp), valid,
@@ -259,9 +457,10 @@ def attn_case(torch, timer, compare, kernel: str, shape: str, q, kp, vp,
     if bool(blind.any()) and float(got[blind].abs().max()) != 0.0:
         raise AssertionError(f"{kernel}: a query that sees no row must "
                              "give 0")
-    row = dict(kernel=kernel, shape=shape, precision=kp.precision, m=b,
+    row = dict(kernel=kernel, shape=c["shape"], precision=kp.precision, m=b,
                qs=s, causal=causal, err=float((got - want).abs().max()),
-               **extra_row, **extra)
+               rel_l2=attn_rel_l2(got, want),
+               **extra_row, **c["extra"])
     if QUICK:
         return row
     row["ms"] = timer.ms(lambda: DA.decode_attn_cuda(q, kp, vp, valid,
@@ -275,11 +474,11 @@ def attn_case(torch, timer, compare, kernel: str, shape: str, q, kp, vp,
         pools = [dequantize_kv(KVPage(data=p.data, scale=p.scale,
                                       precision=p.precision,
                                       head_dim=p.head_dim, group=p.group),
-                               torch.bfloat16).repeat_interleave(rep, 2)
+                               q.dtype).repeat_interleave(rep, 2)
                  for p in (kp, vp)]                       # (N, P, H, hd)
         tables = [p.table.long() for p in (kp, vp)]
     else:
-        kd, vd = (dequantize_kv(p, torch.bfloat16) for p in (kp, vp))
+        kd, vd = (dequantize_kv(p, q.dtype) for p in (kp, vp))
     seen = cache_lim.clamp(0, S).sum()
     rows_read = int(vl.clamp(0, S).sum() if fq is None
                     else torch.minimum(vl, fq[2].long()).clamp(0, S).sum())
@@ -291,7 +490,7 @@ def attn_case(torch, timer, compare, kernel: str, shape: str, q, kp, vp,
         fmask = fpos[:, None, :] < limit[:, :, None]      # (B, s, Sf)
         seen = seen + fmask.sum()
         mask = torch.cat([mask, fmask], dim=2)
-        fresh_kv = [dequantize_kv(f, torch.bfloat16) for f in fq[:2]]
+        fresh_kv = [dequantize_kv(f, q.dtype) for f in fq[:2]]
         extra_bytes = 2 * sum(t.numel() * t.element_size() for t in
                               (fq[0].data, fq[0].scale) if t is not None)
         extra_bytes += b * 4
@@ -322,15 +521,14 @@ def attn_case(torch, timer, compare, kernel: str, shape: str, q, kp, vp,
     per_row = (kp.data[0, 0].numel() * kp.data.element_size()
                + (0 if kp.scale is None else kp.scale[0, 0].numel() * 2))
     row["bound_ms"], row["bound_by"] = bound_ms(
-        2 * rows_read * per_row + extra_bytes + q.numel() * 2
-        + b * h * s * hd * 4 + b * 4,
+        2 * rows_read * per_row + extra_bytes
+        + 2 * q.numel() * q.element_size() + b * 4,   # q in, out in q's dtype
         4.0 * int(seen) * h * hd)
     return row
 
 
 def check_kernels(torch, timer, rows: list) -> dict:
     from repro_torch.kernels.qmatmul import ops as QM
-    from repro_torch.quant.kvcache import make_page
     from repro_torch.quant.quantize import dequantize, quantize
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -437,116 +635,47 @@ def check_kernels(torch, timer, rows: list) -> dict:
             log(json.dumps(row))
         del wq, wk, wv, wg, wu, wdn, wqkv
 
-    # decode attention, one layer's cache. One query per slot at 8 slots x
-    # 2048 rows and at the serve phase's 4 slots x 1024 rows mid-decode;
-    # the verify window (qs = K+1, and 9 where shared memory is largest)
-    # at the serve shape and at 8 x 2048, where slot 0's first queries see
-    # no row; the fresh rows of a draft propose at the serve shape, one
-    # case per propose step (count rows already written, base per slot).
-    hkv, rep, hd = 8, 3, 128
-    serve_valid = [n + 16 for n in lens[:SLOTS]]
-    big_valid = [0, 1, 1000, 2048, 517, 64, 1500, 2000]
-
-    def attn_inputs(b, s, qs):
-        q = torch.randn((b, qs, hkv * rep, hd), generator=gen,
-                        device="cuda").to(torch.bfloat16)
-        kv = [torch.randn((b, s, hkv, hd), generator=gen, device="cuda")
-              for _ in range(2)]
-        return q, kv
-
     def add(row):
         rows.append(row)
         log(json.dumps(row))
 
-    def valid_of(v):
-        return torch.tensor(v, dtype=torch.int32, device="cuda")
-
-    cases = [("decode_attn", 8, 2048, 1, True, big_valid,
-              ("int8", "int4", "bf16")),
-             ("decode_attn", SLOTS, 1024, 1, True, serve_valid,
-              ("int8", "int4", "bf16")),
-             ("decode_attn_window", SLOTS, 1024, SPEC_K + 1, True,
-              serve_valid, ("int8", "int4", "bf16")),
-             ("decode_attn_window", SLOTS, 1024, SPEC_K + 1, False,
-              serve_valid, ("int8",)),
-             ("decode_attn_window", SLOTS, 1024, 9, True, serve_valid,
-              ("int8",)),
-             ("decode_attn_window", 8, 2048, SPEC_K + 1, True, big_valid,
-              ("int8",))]
-    for kname, b, s, qs, causal, valid_rows, cprecs in cases:
-        q, (kraw, vraw) = attn_inputs(b, s, qs)
-        valid = valid_of([v + qs - 1 if kname != "decode_attn" and v > 1
-                          else v for v in valid_rows])
-        for prec in cprecs:
-            kp, vp = make_page(kraw, prec, 64), make_page(vraw, prec, 64)
-            suffix = "" if qs == 1 else f" qs{qs}"
-            add(attn_case(torch, timer, compare, kname,
-                          f"B{b} S{s} Hkv{hkv} rep{rep} hd{hd}{suffix}",
-                          q, kp, vp, valid, causal))
-            del kp, vp
-    sf = SPEC_K
-    base = valid_of(serve_valid)
-    _, (kraw, vraw) = attn_inputs(SLOTS, 1024, 1)
-    fk, fv = (torch.randn((SLOTS, sf, hkv, hd), generator=gen, device="cuda")
-              .to(torch.bfloat16) for _ in range(2))
-    for prec in ("int8", "int4"):
-        kp, vp = make_page(kraw, prec, 64), make_page(vraw, prec, 64)
-        for count in range(sf):
-            q = torch.randn((SLOTS, 1, hkv * rep, hd), generator=gen,
-                            device="cuda").to(torch.bfloat16)
-            add(attn_case(torch, timer, compare, "decode_attn_fresh",
-                          f"B{SLOTS} S1024 Hkv{hkv} rep{rep} hd{hd} Sf{sf} "
-                          f"count{count}", q, kp, vp, base + count + 1,
-                          fresh=(fk, fv, base), count=count))
-    # the same forms over paged pools (pages of 64 rows, permuted tables
-    # with a shared page and dump entries), each also held to the dense
-    # kernel on the gathered rows to the bit
-    paged_cases = [("decode_attn_paged", 8, 2048, 1, True, big_valid,
-                    ("int8", "int4", "bf16")),
-                   ("decode_attn_paged_window", 8, 2048, SPEC_K + 1, True,
-                    big_valid, ("int8",)),
-                   ("decode_attn_paged_window", SLOTS, 1024, SPEC_K + 1, True,
-                    serve_valid, ("int8", "int4", "bf16")),
-                   ("decode_attn_paged_window", SLOTS, 1024, SPEC_K + 1,
-                    False, serve_valid, ("int8",))]
-    for ci, (kname, b, s, qs, causal, valid_rows, cprecs) in enumerate(
-            paged_cases):
-        q, _ = attn_inputs(b, 1, qs)
-        needed = [v + qs - 1 if qs > 1 and v > 1 else v for v in valid_rows]
-        valid = valid_of(needed)
-        for prec in cprecs:
-            kp, vp = paged_pair(torch, gen, b, s, needed, prec, seed=ci)
-            suffix = "" if qs == 1 else f" qs{qs}"
-            add(attn_case(torch, timer, compare, kname,
-                          f"B{b} S{s} Hkv{hkv} rep{rep} hd{hd} P{PAGE}"
-                          f"{suffix}", q, kp, vp, valid, causal))
-            del kp, vp
-    for prec in ("int8", "int4"):
-        kp, vp = paged_pair(torch, gen, SLOTS, 1024,
-                            [v + sf for v in serve_valid], prec, seed=9)
-        for count in range(sf):
-            q = torch.randn((SLOTS, 1, hkv * rep, hd), generator=gen,
-                            device="cuda").to(torch.bfloat16)
-            add(attn_case(torch, timer, compare, "decode_attn_paged_fresh",
-                          f"B{SLOTS} S1024 Hkv{hkv} rep{rep} hd{hd} P{PAGE} "
-                          f"Sf{sf} count{count}", q, kp, vp,
-                          base + count + 1, fresh=(fk, fv, base),
-                          count=count))
-        del kp, vp
-    check_whisper_kernels(torch, timer, gen, rows, worst, compare, add)
+    # decode attention in every form (attention_cases)
+    for case in attention_cases(torch):
+        add(attn_case(torch, timer, compare, case))
+        del case
+    attn_refusals()
+    check_whisper_kernels(torch, timer, gen, compare, add)
     check_entropy_quantize(torch, timer, gen, rows, worst, add)
     return worst
 
 
-def check_whisper_kernels(torch, timer, gen, rows, worst, compare,
-                          add) -> None:
-    """The whisper-medium path's kernel shapes: the gelu form of the fused
+def attn_refusals() -> None:
+    """The decode attention entry point refuses, launching nothing, what it
+    has no copy for: zamba2-2.7b's head dim 80, a scale group that is not a
+    power of two, and a split other than its own (every pointer is null,
+    so a launch would fault)."""
+    from repro_torch.kernels import build
+    lib = build.library("decode_attn")
+    # (hd, group, prec, rep, split) against llama's (128, 64, int8, 3, 128)
+    for hd, group, prec, rep, split in ((80, 64, 0, 1, 256),
+                                        (128, 48, 0, 3, 128),
+                                        (128, 64, 0, 3, 256),
+                                        (64, 64, 1, 1, 128)):
+        err = lib.repro_decode_attn(*[None] * 15, 0, 0, 0, 0, 4, 448, 1, 0,
+                                    16, rep, 1, hd, group, prec, 1, 0, split,
+                                    None)
+        if err == 0:
+            raise AssertionError(f"decode_attn took hd {hd}, group {group}, "
+                                 f"split {split}")
+    log("decode_attn refuses hd 80, group 48 and foreign splits")
+
+
+def check_whisper_kernels(torch, timer, gen, compare, add) -> None:
+    """The whisper-medium path's MLP shapes: the gelu form of the fused
     MLP (1024 -> 4096 -> 1024) at every M it runs (1: the batch-1 prefill
     steps; SLOTS: a decode step; 1500: the encoder, one request's frames)
-    in every precision; cross-attention (decode_attn, causal=False) over
-    a 1500-row encoder cache, 16 KV heads, hd 64, rep 1, int8 and int4."""
+    in every precision. Its attention shapes are in ``attention_cases``."""
     from repro_torch.kernels.qmatmul import ops as QM
-    from repro_torch.quant.kvcache import make_page
     from repro_torch.quant.quantize import quantize
     d, ff, s_enc = 1024, 4096, 1500
     for prec in ("int8", "int4", "ternary"):
@@ -573,18 +702,6 @@ def check_whisper_kernels(torch, timer, gen, rows, worst, compare,
                     2.0 * m * 2 * ff * d)
             add(row)
         del wu, wdn
-    hkv, hd = 16, 64
-    q = torch.randn((SLOTS, 1, hkv, hd), generator=gen,
-                    device="cuda").to(torch.bfloat16)
-    kraw, vraw = (torch.randn((SLOTS, s_enc, hkv, hd), generator=gen,
-                              device="cuda") for _ in range(2))
-    valid = torch.full((SLOTS,), s_enc, dtype=torch.int32, device="cuda")
-    for prec in ("int8", "int4"):
-        kp, vp = make_page(kraw, prec, 64), make_page(vraw, prec, 64)
-        add(attn_case(torch, timer, compare, "decode_attn_cross",
-                      f"B{SLOTS} S{s_enc} Hkv{hkv} rep1 hd{hd} cross", q, kp,
-                      vp, valid, causal=False))
-        del kp, vp
 
 
 # entropy: the largest error the reference's own test allows, relative to
@@ -1761,8 +1878,9 @@ def main() -> int:
     timer = Timer(torch)
     rows: list = []
     worst = check_kernels(torch, timer, rows)
-    log(f"kernels: all within rtol=atol=2e-2 of their plain versions; "
-        f"max abs err {worst}")
+    log(f"kernels: all within rtol=atol=2e-2 of their plain versions, "
+        f"decode attention within relative L2 {ATTN_REL_L2}; max abs err "
+        f"{worst}")
     report: dict = {"device": name, "nvidia_smi": smi, "rows": rows,
                     "build": dict(build.BUILD_INFO)}
     out_dir = ROOT / "chiprun_out"

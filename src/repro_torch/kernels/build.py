@@ -64,10 +64,10 @@ _SIGNATURES = {
                        _P, _P, _P, _P, _P, _P, _P, _P, _P],
     },
     "decode_attn": {
-        "repro_decode_attn_smem": [_I, _I],
+        "repro_decode_attn_smem": [_I, _I, _I],
         "repro_decode_attn": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                              _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                              _I, _I, _P],
+                              _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _I, _I, _I, _I, _I, _P],
     },
     "entropy": {
         "repro_entropy_parts": [_L],

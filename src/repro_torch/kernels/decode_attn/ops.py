@@ -20,15 +20,18 @@ at positions >= base are masked stale. This is the fused draft propose.
 Two implementations side by side:
 
 * the CUDA kernel (``csrc/decode_attn.cu``), launched for tensors on the
-  GPU; it raises on anything it does not take;
-* ``decode_attention_plain``, which mirrors the JAX package's ``_grouped``
-  backend: a chunked online softmax in f32 that dequantizes one KV chunk at
-  a time, then the fresh rows as one more block. A pool is read through
-  its tables a whole number of pages per chunk, with the dense masking
-  arithmetic, so a pool and the dense page gathered from it give the same
-  result to the bit. Like the TPU kernel, it zeroes V rows at or past
-  valid_len. A query that sees no row gives 0 in both (the reference's
-  backends disagree there; see ROADMAP.md section 3).
+  GPU; it raises on anything it does not take. It splits each slot's
+  logical rows into splits of ``split_rows(rep * s)`` rows
+  (``split_bounds``: boundaries at multiples of the split, never at S, the
+  page size or valid_len), attends each split in blocks of its own, and
+  merges the per-split partials in split order, the fresh rows last;
+* ``decode_attention_plain``: the same splits in f32, one softmax block per
+  split (a pool read through its tables), then the fresh rows as one more
+  part, merged by ``merge_partials`` in the kernel's order and arithmetic,
+  so a pool and the dense page gathered from it give the same result to
+  the bit. Like the TPU kernel, it zeroes V rows at or past valid_len. A
+  query that sees no row gives 0 in both (the reference's backends
+  disagree there; see ROADMAP.md section 3).
 
 A tensor on the CPU takes the plain version; ``plain=True`` asks for it on
 the GPU too.
@@ -44,9 +47,10 @@ from repro_torch.kernels import build
 from repro_torch.quant.kvcache import (KVPage, PagedKV, dequantize_kv,
                                        quantize_kv)
 
-NEG_INF = -1e30
-DEFAULT_KV_CHUNK = 256
+SPLIT_ROWS = 128                # logical rows per split (decode_attn.cu split_of)
+SPLIT_ROWS_ONE_QUERY = 256      # ... where a KV head has a single query row
 _PREC = {"int8": 0, "int4": 1, "bf16": 2}
+_Q_DTYPES = {torch.bfloat16: 0, torch.float32: 1}   # q dtype -> qf32 flag
 _SMEM_LIMIT = 227 * 1024        # dynamic shared memory a Hopper block can opt into
 _MAX_FRESH = 32                 # fresh rows the kernel's epilogue tile takes
 
@@ -77,37 +81,46 @@ def _slice_rows(page: KVPage, lo: int, hi: int) -> KVPage:
                   group=page.group)
 
 
-def _take_pages(pg: PagedKV, lo: int, hi: int) -> KVPage:
-    """Logical pages [lo, hi) of every slot, read through the pool's
-    table: a dense (B, (hi - lo) * P, ...) KVPage."""
-    ids = pg.table[:, lo:hi].long()                       # (B, npg)
+def _dense_rows(x) -> KVPage:
+    """A dense page, or a pool's logical rows read through its table as a
+    (B, n_log * P, ...) dense KVPage."""
+    if not isinstance(x, PagedKV):
+        return x
+    ids = x.table.long()                                  # (B, n_log)
 
-    def gat(x):
-        y = x[ids]                                        # (B, npg, P, ...)
+    def gat(t):
+        y = t[ids]                                        # (B, n_log, P, ...)
         return y.reshape(y.shape[0], y.shape[1] * y.shape[2], *y.shape[3:])
 
-    return KVPage(data=gat(pg.data),
-                  scale=None if pg.scale is None else gat(pg.scale),
-                  precision=pg.precision, head_dim=pg.head_dim,
-                  group=pg.group)
+    return KVPage(data=gat(x.data),
+                  scale=None if x.scale is None else gat(x.scale),
+                  precision=x.precision, head_dim=x.head_dim, group=x.group)
 
 
-def _chunks(kp, vp, kv_chunk: int):
-    """(K rows, V rows, first position) of each cache chunk in order: a
-    dense page sliced ``kv_chunk`` rows at a time, a pool read through its
-    tables a whole number of pages at a time (as ``_grouped`` snaps the
-    chunk to pages)."""
-    if isinstance(kp, PagedKV):
-        p_sz, n_log = kp.page_size, kp.table.shape[-1]
-        g = max(1, min(kv_chunk // p_sz, n_log))
-        for lo in range(0, n_log, g):
-            hi = min(n_log, lo + g)
-            yield _take_pages(kp, lo, hi), _take_pages(vp, lo, hi), lo * p_sz
-        return
-    t = kp.data.shape[1]
-    for lo in range(0, t, kv_chunk):
-        hi = min(t, lo + kv_chunk)
-        yield _slice_rows(kp, lo, hi), _slice_rows(vp, lo, hi), lo
+def split_rows(rows: int) -> int:
+    """Logical rows per split for a KV head's ``rows`` = rep * s query
+    rows: SPLIT_ROWS_ONE_QUERY for a single one (whisper's heads), else
+    SPLIT_ROWS. A shape, never the data, sets it. The wrapper passes it
+    with every launch, and the kernel refuses a split other than its own
+    (``split_rows`` in decode_attn.cu)."""
+    return SPLIT_ROWS_ONE_QUERY if rows == 1 else SPLIT_ROWS
+
+
+def split_bounds(seq: int, split: int = SPLIT_ROWS) -> list:
+    """[lo, hi) logical rows of each of the kernel's splits of a cache of
+    ``seq`` rows: boundaries at multiples of ``split`` only, so a cache of
+    any length (a pool of any page size, the dense page gathered from it)
+    splits its rows alike; at least one split, so the launch's shape never
+    depends on the data. A slot's rows past min(valid, base) leave the
+    splits that hold them empty."""
+    return [(j * split, min((j + 1) * split, seq))
+            for j in range(n_splits(seq, split))]
+
+
+def n_splits(seq: int, split: int = SPLIT_ROWS) -> int:
+    """The kernel's splits of a cache of ``seq`` rows: ceil(seq / split),
+    at least 1."""
+    return max(1, -(-seq // split))
 
 
 def _limits(valid: torch.Tensor, s: int, causal: bool) -> torch.Tensor:
@@ -117,16 +130,56 @@ def _limits(valid: torch.Tensor, s: int, causal: bool) -> torch.Tensor:
     return valid[:, None] - s + 1 + torch.arange(s, device=valid.device)[None]
 
 
+def _partial(qh, kpage: KVPage, vpage: KVPage, pos, lim, valid, inv_sqrt):
+    """One split's (or the fresh rows') softmax state over rows at
+    positions ``pos`` (B, C): (m, l, acc) with m = -inf, l = 0, acc = 0 for
+    a query row that sees none of them."""
+    kf = dequantize_kv(kpage)                             # (B, C, Hkv, hd)
+    vf = dequantize_kv(vpage)
+    vf = torch.where((pos < valid[:, None])[..., None, None], vf,
+                     torch.zeros_like(vf))
+    scores = torch.einsum("bhrsd,bchd->bhrsc", qh, kf) * inv_sqrt
+    mask = (pos[:, None, :] < lim[:, :, None])[:, None, None]   # (B,1,1,s,C)
+    scores = torch.where(mask, scores, torch.full_like(scores, -torch.inf))
+    m = scores.amax(dim=-1)
+    # a masked score has probability exactly 0
+    p = torch.where(mask, torch.exp(scores - m[..., None]),
+                    torch.zeros_like(scores))
+    return m, p.sum(dim=-1), torch.einsum("bhrsc,bchd->bhrsd", p, vf)
+
+
+def merge_partials(parts: list) -> torch.Tensor:
+    """Merge per-split states ``(m, l, acc)`` in list order, as the kernel's
+    merge does: w_j = exp(m_j - max m), 0 for a state with m_j = -inf, and
+    acc / max(sum w_j l_j, 1e-30). Empty states merge to nothing, so a
+    query row that sees no row gives exactly 0."""
+    mx = parts[0][0]
+    for m, _, _ in parts[1:]:
+        mx = torch.maximum(mx, m)
+    l = torch.zeros_like(mx)
+    acc = torch.zeros_like(parts[0][2])
+    for m, lj, aj in parts:
+        w = torch.where(m == -torch.inf, torch.zeros_like(m),
+                        torch.exp(m - mx))
+        l = l + w * lj
+        acc = acc + w[..., None] * aj
+    return acc / torch.clamp(l, min=1e-30)[..., None]
+
+
 def decode_attention_plain(q: torch.Tensor, kp, vp,
                            valid_len: torch.Tensor, causal: bool = True,
-                           fresh=None,
-                           kv_chunk: int = DEFAULT_KV_CHUNK) -> torch.Tensor:
-    """Chunked online-softmax (multi-)query GQA attention over KVPages or
-    PagedKV pools. ``fresh`` is ``(fresh_k_page, fresh_v_page, base)`` with
-    pages already quantized. Returns (B, s, H, hd) in q's dtype."""
+                           fresh=None, split: Optional[int] = None
+                           ) -> torch.Tensor:
+    """(Multi-)query GQA attention over KVPages or PagedKV pools, split as
+    the kernel splits (``split_bounds`` of ``split_rows(rep * s)`` rows
+    unless ``split`` is given), each split one softmax block, the parts
+    merged in split order by ``merge_partials``. ``fresh`` is
+    ``(fresh_k_page, fresh_v_page, base)`` with pages already quantized.
+    Returns (B, s, H, hd) in q's dtype."""
     b, s, h, d = q.shape
     hkv = kp.num_kv_heads
     rep = h // hkv
+    split = split_rows(rep * s) if split is None else split
     dev = q.device
     valid = valid_len.to(device=dev, dtype=torch.long).expand(b)
     qh = q.reshape(b, s, hkv, rep, d).permute(0, 2, 3, 1, 4).float()
@@ -137,40 +190,19 @@ def decode_attention_plain(q: torch.Tensor, kp, vp,
     if fresh is not None:
         base = fresh[2].to(device=dev, dtype=torch.long).expand(b)
         cache_limit = torch.minimum(limit, base[:, None])
-    m = torch.full((b, hkv, rep, s), NEG_INF, dtype=torch.float32, device=dev)
-    l = torch.zeros((b, hkv, rep, s), dtype=torch.float32, device=dev)
-    acc = torch.zeros((b, hkv, rep, s, d), dtype=torch.float32, device=dev)
-
-    def update(kpage, vpage, pos, lim):
-        """One online-softmax block over rows at positions ``pos`` (B, C)."""
-        nonlocal m, l, acc
-        kf = dequantize_kv(kpage)                           # (B, C, Hkv, hd)
-        vf = dequantize_kv(vpage)
-        vf = torch.where((pos < valid[:, None])[..., None, None], vf,
-                         torch.zeros_like(vf))
-        scores = torch.einsum("bhrsd,bchd->bhrsc", qh, kf) * inv_sqrt
-        mask = (pos[:, None, :] < lim[:, :, None])[:, None, None]  # (B,1,1,s,C)
-        scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
-        m_new = torch.maximum(m, scores.amax(dim=-1))
-        # a masked score has probability exactly 0, so a query that sees no
-        # row keeps l = 0 and gives 0
-        p = torch.where(mask, torch.exp(scores - m_new[..., None]),
-                        torch.zeros_like(scores))
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum("bhrsc,bchd->bhrsd", p, vf)
-        m = m_new
-
-    for kc, vc, lo in _chunks(kp, vp, kv_chunk):
-        c = kc.data.shape[1]
-        pos = torch.arange(lo, lo + c, device=dev)[None].expand(b, c)
-        update(kc, vc, pos, cache_limit)
+    kd, vd = _dense_rows(kp), _dense_rows(vp)
+    parts = []
+    for lo, hi in split_bounds(kp.seq_len, split):
+        pos = torch.arange(lo, hi, device=dev)[None].expand(b, hi - lo)
+        parts.append(_partial(qh, _slice_rows(kd, lo, hi),
+                              _slice_rows(vd, lo, hi), pos, cache_limit,
+                              valid, inv_sqrt))
     if fresh is not None:
         fkp, fvp, _ = fresh
         sf = fkp.data.shape[1]
         pos = base[:, None] + torch.arange(sf, device=dev)[None]
-        update(fkp, fvp, pos, limit)
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
+        parts.append(_partial(qh, fkp, fvp, pos, limit, valid, inv_sqrt))
+    out = merge_partials(parts)
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d).to(q.dtype)
 
 
@@ -202,6 +234,10 @@ def _check_pages(kp, vp, lead: tuple, hkv: int, d: int, dev,
             if not t.is_cuda or t.device != dev or not t.is_contiguous():
                 raise ValueError(f"decode_attn: {what} pages must be "
                                  f"contiguous CUDA tensors on {dev}")
+        # the kernel copies rows in 16-byte and scales in 4-byte words
+        if page.data.data_ptr() % 16 or scale.data_ptr() % 4:
+            raise ValueError(f"decode_attn: {what} data must start on 16 "
+                             f"bytes and scales on 4")
         out += [page.data, scale]
     return out
 
@@ -231,7 +267,8 @@ def decode_attn_cuda(q: torch.Tensor, kp, vp, valid_len: torch.Tensor,
                      causal: bool = True, fresh=None) -> torch.Tensor:
     """The decode attention kernel: dense pages or paged pools, s >= 1
     queries per slot, causal or not, with optional quantized fresh rows
-    ``(fresh_k_page, fresh_v_page, base)``. Returns (B, s, H, hd) in q's
+    ``(fresh_k_page, fresh_v_page, base)``. Reads q (bf16 or f32, last dim
+    contiguous) in place and returns a new (B, s, H, hd) tensor in q's
     dtype."""
     b, s, h, d = q.shape
     dev = q.device
@@ -260,17 +297,33 @@ def decode_attn_cuda(q: torch.Tensor, kp, vp, valid_len: torch.Tensor,
         p_sz, n_log = kp.page_size, kp.table.shape[-1]
     if not q.is_cuda:
         raise ValueError("decode_attn: q must be a CUDA tensor")
+    if q.dtype not in _Q_DTYPES or q.stride(-1) != 1:
+        raise ValueError(f"decode_attn: q must be bf16 or f32 with its last "
+                         f"dim contiguous, got {q.dtype} strides "
+                         f"{q.stride()}")
     hkv = kp.num_kv_heads
     if h % hkv:
         raise ValueError(f"{h} query heads do not group over {hkv} KV heads")
     rep = h // hkv
+    grp = kp.group
+    if kp.precision != "bf16" and (grp < 16 or grp & (grp - 1)):
+        raise ValueError(f"decode_attn: the kernel takes scale groups that "
+                         f"are powers of two >= 16, got {grp}")
+    if kp.precision == "int4" and hkv % 2:
+        raise ValueError("decode_attn: split-half int4 pages need an even "
+                         "number of KV heads")
     seq = kp.seq_len
     cache = _check_pages(kp, vp, tuple(kp.data.shape[:2]) if paged
                          else (b, seq), hkv, d, dev, "cache")
+    if kp.data.shape[0] * kp.data.shape[1] >= 2 ** 31:
+        raise ValueError("decode_attn: the kernel indexes fewer than 2^31 "
+                         "stored rows")
     lib = build.library("decode_attn")
-    if lib.repro_decode_attn_smem(rep * s, d) > _SMEM_LIMIT:
-        raise ValueError(f"decode_attn: rep={rep} x s={s} query rows at "
-                         f"hd={d} exceed the kernel's shared memory")
+    smem = lib.repro_decode_attn_smem(rep * s, d, _PREC[kp.precision])
+    if smem < 0 or smem > _SMEM_LIMIT:
+        raise ValueError(f"decode_attn: the kernel takes head_dim 32, 64 or "
+                         f"128 within its shared memory; got hd={d}, "
+                         f"rep={rep} x s={s} query rows")
     sf = 0
     fresh_ptrs = [0, 0, 0, 0, 0]
     if fresh is not None:
@@ -278,11 +331,15 @@ def decode_attn_cuda(q: torch.Tensor, kp, vp, valid_len: torch.Tensor,
         fresh_t = _check_pages(fkp, fvp, (b, sf), hkv, d, dev, "fresh")
         base = base.to(device=dev, dtype=torch.int32).expand(b).contiguous()
         fresh_ptrs = [t.data_ptr() for t in fresh_t] + [base.data_ptr()]
-    qf = (q.reshape(b, s, hkv, rep, d).permute(0, 2, 3, 1, 4).float()
-          .contiguous())                                  # (B, Hkv, rep, s, hd)
     valid = valid_len.to(device=dev, dtype=torch.int32).expand(b).contiguous()
-    out = torch.empty((b, hkv, rep, s, d), dtype=torch.float32, device=dev)
+    out = torch.empty((b, s, h, d), dtype=q.dtype, device=dev)
     if b > 0:
+        # per-split partials (m, l, acc[hd]) of every query row, f32; the
+        # kernel refuses a split other than its own
+        split = split_rows(rep * s)
+        nparts = n_splits(seq, split) + (sf > 0)
+        scratch = torch.empty(b * hkv * nparts * rep * s * (d + 2),
+                              dtype=torch.float32, device=dev)
         # the counter of the form launched (kernels/build.py)
         if fresh is not None:
             form = "_fresh"
@@ -293,11 +350,12 @@ def decode_attn_cuda(q: torch.Tensor, kp, vp, valid_len: torch.Tensor,
         name = "decode_attn" + ("_paged" if paged else "") + form
         build.LAUNCHES[name] += 1
         build.check(lib.repro_decode_attn(
-            qf.data_ptr(), *(t.data_ptr() for t in cache), valid.data_ptr(),
-            *tables, *fresh_ptrs, out.data_ptr(), b, seq, p_sz, n_log, hkv,
-            rep, s, d, kp.group, _PREC[kp.precision], int(causal), sf,
-            build.stream_ptr(dev)), name)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d).to(q.dtype)
+            q.data_ptr(), *(t.data_ptr() for t in cache), valid.data_ptr(),
+            *tables, *fresh_ptrs, out.data_ptr(), scratch.data_ptr(),
+            q.stride(0), q.stride(1), q.stride(2), _Q_DTYPES[q.dtype],
+            b, seq, p_sz, n_log, hkv, rep, s, d, grp, _PREC[kp.precision],
+            int(causal), sf, split, build.stream_ptr(dev)), name)
+    return out
 
 
 def decode_attention(q: torch.Tensor, k, v, *,

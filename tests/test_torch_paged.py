@@ -311,19 +311,19 @@ def _check_attention(q, valid, precision, causal=True, fresh=None, seed=0,
                          interpret=True),
                  _grouped(jq, jk, jv, jvalid, 16, causal, fresh=jfresh)):
         np.testing.assert_allclose(got[sees], np.asarray(want)[sees], **TOL)
-    # the dense plain version on the same rows, chunked as the pool is
+    # the dense plain version on the same rows, split alike (splits of 16
+    # logical rows: several per slot)
     fq = None
     if tfresh is not None:
         fq = (TDA._fresh_page(tfresh[0], tk), TDA._fresh_page(tfresh[1], tv),
               tfresh[2])
     paged = TDA.decode_attention_plain(torch.from_numpy(q), tk, tv,
                                        torch.from_numpy(valid), causal, fq,
-                                       kv_chunk=16)
-    g = max(1, min(16 // page, tk.table.shape[-1]))
+                                       split=16)
     dense = TDA.decode_attention_plain(torch.from_numpy(q), TPG.gather(tk),
                                        TPG.gather(tv),
                                        torch.from_numpy(valid), causal, fq,
-                                       kv_chunk=g * page)
+                                       split=16)
     assert torch.equal(paged, dense)
 
 
