@@ -5,14 +5,20 @@
 Phases, each of which raises (and the script exits non-zero) on failure:
 
 1. device: the card's name and power limit; TF32 off for f32 matmuls.
-2. build: nvcc builds every kernel under src/repro_torch/csrc for sm_90a.
+2. build: nvcc builds every kernel under src/repro_torch/csrc for sm_90a;
+   each kernel's registers, static shared memory and spill bytes as
+   ``-Xptxas -v`` reported them.
 3. kernels: each hand-written kernel against its plain PyTorch version at
    the full-width shapes of the main paths (rtol = atol = 2e-2 on bf16
    inputs), timed with CUDA events (median of 20 after warm-up, L2 flushed
    before each call): the kernel, its plain version, and a PyTorch
    yardstick that the port itself never calls. The matmul kernels at
-   llama3.2-3b's shapes; decode attention in its forms (attention_cases;
-   each also within relative L2 ATTN_REL_L2 of its plain version): one
+   llama3.2-3b's and whisper-medium's shapes, qmatmul and qkv also within
+   QMATMUL_F32 of the f32 dequantized product, equal to the bit over two
+   calls, with the launch each shape gets (grid, blocks per SM), and
+   refusing a weight group other than 128; decode attention in its forms
+   (attention_cases; each also within relative L2 ATTN_REL_L2 of its
+   plain version): one
    query per slot, the speculative verify window (qs = K+1 queries, causal
    and not), and the fresh rows of the fused draft propose, slots whose
    valid rows end on the kernel's split boundaries, each again over a
@@ -27,7 +33,14 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    the int8 quantize kernel (payload and scales equal to the bit).
 4. serve: llama3.2-3b FULL (28 layers, d_model 3072) from seeded random
    weights, EWQ-planned on the card and served with int8 KV, then an
-   explicit raw/int8/int4/ternary plan served with int4 KV. One decode
+   explicit raw/int8/int4/ternary plan served with int4 KV. Every serve
+   replays its decode chunks from CUDA graphs (the engine's default on the
+   card); the EWQ serve runs again eagerly (``cuda_graphs=False``), which
+   must give the same tokens and logprobs to the bit, and the graph serve
+   with ``state.last_logits`` rebound in the step (a planted stale-buffer
+   fault) must not. Each run also reports one decode chunk's wall time and,
+   replayed, its device time and launches per step; four sampled requests
+   (temperature 0.8, top-p 0.9) run from graphs and eagerly. One decode
    step through the kernels is then held against the plain versions
    (relative L2 of the logits), beside the readings that place that
    limit: the plain versions without their bf16 roundings, the plain
@@ -36,17 +49,20 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    limit must catch).
 4b. speculative serve: the EWQ plan with int8 KV and SpecConfig(k=4),
    once with the int4 self-draft (fused propose) and once with the ngram
-   draft, on the same requests. Then, at the same limit: a 5-token verify
+   draft, on the same requests, each from CUDA graphs and eagerly (equal to
+   the bit). Then, at the same limit: a 5-token verify
    window through the kernels against the plain versions and against five
    single-query decode steps; one fused propose step against a decode step
    on a clone of the cache, with the real cache unchanged to the byte; and
    the window run with causal=False (a planted fault the limit must catch).
 4c. paged serve: phase 4's requests on the EWQ plan from an equal-memory
-   paged pool with prefix sharing (tokens and logprobs identical to phase
-   4's dense run; one decode step's device time paged against dense); a
-   shared-prefix stream (8 x (256 common + 32 own tokens)) from an 11-page
-   pool, which must hit the prefix 7 times, requeue at least once and
-   leak nothing, beside the same stream without sharing and dense; phase
+   paged pool with prefix sharing, eagerly and from CUDA graphs (equal to
+   the bit, and tokens and logprobs identical to phase 4's dense run; one
+   decode step's device time paged against dense); a shared-prefix stream
+   (8 x (256 common + 32 own tokens)) from an 11-page pool, which must hit
+   the prefix 7 times, requeue at least once, leak nothing and have a mean
+   TTFT below the same stream without sharing (a hit's suffix is one
+   multi-query step), beside that stream and dense; phase
    4b's model-draft speculative serve over the pool (tokens identical).
 5. analysis: ``analyze_blocks`` over every matrix of llama3.2-3b FULL (197
    matrices) and of whisper-medium FULL through the entropy kernel
@@ -57,7 +73,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 4d. whisper serve: whisper-medium FULL (24 + 24 layers, d_model 1024)
    from seeded random weights, planned 4bit/8bit from phase 5's
    kernel-mode entropies, serves 8 requests with seeded frames at 4
-   slots, int8 self and cross KV; one decode step held to the plain
+   slots, int8 self and cross KV, from CUDA graphs, then eagerly (equal to
+   the bit), then eagerly with every prompt run as single-token steps (the
+   TTFT before prompts became one step); one decode step held to the plain
    versions at the same limit, each decoder layer's cross-attention output
    too (with the slots' cross caches rotated, a planted fault that limit
    must catch), and timed eager and from a CUDA graph.
@@ -90,6 +108,7 @@ TOL = dict(rtol=2e-2, atol=2e-2)
 QUICK = "--quick" in sys.argv   # skip timings and the lm_head shape
 SLOTS = 4                       # decode slots of the serve phase
 SPEC_K = 4                      # draft tokens per speculative round
+CHUNK = 8                       # decode steps (or spec rounds) per chunk
 PAGE = 64                       # tokens per page of the paged KV pool
 
 
@@ -533,8 +552,11 @@ def check_kernels(torch, timer, rows: list) -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     d, ff, vocab = 3072, 8192, 128256
+    # llama3.2-3b's matrices, and whisper-medium's 1024 x 1024 (its wo and
+    # cross-attention wq at decode)
     shapes = {"wq": (3072, d), "wk/wv": (1024, d), "gate/up": (ff, d),
-              "down": (d, ff), "lm_head": (vocab, d)}
+              "down": (d, ff), "lm_head": (vocab, d),
+              "whisper wo": (1024, 1024)}
     # The M values the main path gives the matmul kernels, each kernel
     # instantiation among them: decode runs every slot (M = 4, the MT = 4
     # kernel; 1-3 are the MT = 1, 2 kernels and a masked MT = 4 tile), a
@@ -578,7 +600,9 @@ def check_kernels(torch, timer, rows: list) -> dict:
                 row = dict(kernel="qmatmul", shape=f"{wname} {n}x{k}",
                            precision=prec, m=m,
                            err=float((got - want).abs().max()),
-                           err_f32=float((got - exact).abs().max()))
+                           **matmul_exactness(torch, "qmatmul", [got], [exact],
+                                              lambda: [QM.qmatmul_cuda(x, w)]),
+                           plan=qmatmul_plan(n, m, k, prec))
                 del exact
                 if not QUICK:
                     row["ms"] = timer.ms(lambda: QM.qmatmul_cuda(x, w))
@@ -591,32 +615,45 @@ def check_kernels(torch, timer, rows: list) -> dict:
             del w, wd
         del base
 
-    # qkv and qmlp: the fused projections and the fused SwiGLU MLP
+    # qkv: the fused projections at llama's and whisper's widths
     for prec in precs:
-        wq, wk, wv = (quantize(weight(n, d), prec) for n in (3072, 1024, 1024))
+        for label, dm, ns in (("wq|wk|wv 5120x3072", d, (3072, 1024, 1024)),
+                              ("whisper wq|wk|wv 3072x1024", 1024,
+                               (1024, 1024, 1024))):
+            ws = [quantize(weight(n, dm), prec) for n in ns]
+            wqkv = torch.cat([dequantize(w, torch.bfloat16) for w in ws])
+            for m in ms_list:
+                x = act(m, dm)
+                got = QM.qkv_cuda(x, *ws)
+                want = [QM.qmatmul_plain(x, w) for w in ws]
+                compare("qkv", got, want)
+                exact = [x.float() @ dequantize(w, torch.float32).t()
+                         for w in ws]
+                row = dict(kernel="qkv", shape=label, precision=prec, m=m,
+                           err=max(float((g - w).abs().max())
+                                   for g, w in zip(got, want)),
+                           **matmul_exactness(torch, "qkv", got, exact,
+                                              lambda: QM.qkv_cuda(x, *ws)),
+                           plan=qmatmul_plan(sum(ns), m, dm, prec))
+                if not QUICK:
+                    row["ms"] = timer.ms(lambda: QM.qkv_cuda(x, *ws))
+                    row["plain_ms"] = timer.ms(
+                        lambda: QM.fused_qkv_plain(x, *ws))
+                    row["library_ms"] = timer.ms(lambda: x @ wqkv.t())
+                    row["bound_ms"], row["bound_by"] = bound_ms(
+                        m * dm * 2 + sum(map(qbytes, ws)) + m * sum(ns) * 4,
+                        2.0 * m * sum(ns) * dm)
+                rows.append(row)
+                log(json.dumps(row))
+            del ws, wqkv
+    qmatmul_refusals()
+
+    # qmlp: the fused SwiGLU MLP
+    for prec in precs:
         wg, wu = (quantize(weight(ff, d), prec) for _ in range(2))
         wdn = quantize(weight(d, ff), prec)
-        wqkv = torch.cat([dequantize(w, torch.bfloat16) for w in (wq, wk, wv)])
         for m in ms_list:
             x = act(m, d)
-            got = QM.qkv_cuda(x, wq, wk, wv)
-            want = [QM.qmatmul_plain(x, w) for w in (wq, wk, wv)]
-            compare("qkv", got, want)
-            row = dict(kernel="qkv", shape="wq|wk|wv 5120x3072",
-                       precision=prec, m=m,
-                       err=max(float((g - w).abs().max())
-                               for g, w in zip(got, want)))
-            if not QUICK:
-                row["ms"] = timer.ms(lambda: QM.qkv_cuda(x, wq, wk, wv))
-                row["plain_ms"] = timer.ms(
-                    lambda: QM.fused_qkv_plain(x, wq, wk, wv))
-                row["library_ms"] = timer.ms(lambda: x @ wqkv.t())
-                row["bound_ms"], row["bound_by"] = bound_ms(
-                    m * d * 2 + sum(map(qbytes, (wq, wk, wv))) + m * 5120 * 4,
-                    2.0 * m * 5120 * d)
-            rows.append(row)
-            log(json.dumps(row))
-
             got = QM.qmlp_cuda(x, wg, wu, wdn)
             want = QM.fused_mlp_plain(x, wg, wu, wdn).float()
             compare("qmlp", [got], [want])
@@ -633,7 +670,7 @@ def check_kernels(torch, timer, rows: list) -> dict:
                     2.0 * m * (2 * ff * d + ff * d))
             rows.append(row)
             log(json.dumps(row))
-        del wq, wk, wv, wg, wu, wdn, wqkv
+        del wg, wu, wdn
 
     def add(row):
         rows.append(row)
@@ -668,6 +705,60 @@ def attn_refusals() -> None:
             raise AssertionError(f"decode_attn took hd {hd}, group {group}, "
                                  f"split {split}")
     log("decode_attn refuses hd 80, group 48 and foreign splits")
+
+
+# Limit on the largest absolute difference of a qmatmul / qkv output from
+# the product in f32 with the weights dequantized to f32 (q * s is exact in
+# f32, so only the order of the f32 sums differs; earlier designs read
+# <= 7.6e-6).
+QMATMUL_F32 = 1e-5
+
+
+def matmul_exactness(torch, kernel: str, got: list, exact: list,
+                     again) -> dict:
+    """The qmatmul / qkv checks beyond the plain version: within
+    QMATMUL_F32 of the f32 dequantized product, and a second call equal to
+    the first to the bit (no atomics, a fixed summation order)."""
+    err = max(float((g - e).abs().max()) for g, e in zip(got, exact))
+    second = again()
+    torch.cuda.synchronize()
+    if not err <= QMATMUL_F32:
+        raise AssertionError(f"{kernel}: {err} from the f32 dequantized "
+                             f"product (limit {QMATMUL_F32})")
+    if not all(torch.equal(a, b) for a, b in zip(got, second)):
+        raise AssertionError(f"{kernel}: two calls on the same inputs differ")
+    return dict(err_f32=err, bit_identical_twice=True)
+
+
+def qmatmul_plan(n: int, m: int, k: int, prec: str) -> dict:
+    """The launch csrc/qmatmul.cu picks for an (n, k) weight at m rows of
+    bf16 x: grid, threads, shared memory, blocks an SM holds (occupancy)
+    and blocks in flight per SM."""
+    import ctypes
+    from repro_torch.kernels import build
+    out = (ctypes.c_int * 6)()
+    build.check(build.library("qmatmul").repro_qmatmul_plan(
+        n, m, k, int(prec == "int4"), 1, out), "qmatmul plan")
+    gx, gy, threads, smem, per_sm, rows = list(out)
+    sms = 132
+    return dict(grid=[gx, gy], threads=threads, smem=smem, rows=rows,
+                blocks_per_sm_max=per_sm,
+                blocks_in_flight_per_sm=min(per_sm, (gx * gy) / sms))
+
+
+def qmatmul_refusals() -> None:
+    """The qmatmul entry point refuses, launching nothing, a weight group
+    other than 128 and x or weights that are not 16-byte aligned (every
+    other pointer is null, so a launch would fault)."""
+    from repro_torch.kernels import build
+    lib = build.library("qmatmul")
+    for group, x, w in ((64, None, None), (256, None, None), (128, 8, None),
+                        (128, None, 8)):
+        err = lib.repro_qmatmul(x, 1, 4, 3072, group, 0, w, None, None, 3072,
+                                None)
+        if err == 0:
+            raise AssertionError(f"qmatmul took group {group}, x {x}, w {w}")
+    log("qmatmul refuses groups 64 and 256 and unaligned x or weights")
 
 
 def check_whisper_kernels(torch, timer, gen, compare, add) -> None:
@@ -1048,18 +1139,22 @@ def serve_full_width(torch, build, report: dict, smoke: bool = False,
 
     launches = {k: 0 for k in build.LAUNCHES}
     runs = []
-    engine = None
-    for label, plan, kv in (("ewq-4bit/8bit", ewq, "int8"),
-                            ("explicit-all-precisions", explicit, "int4")):
+    engine = fault_outs = None
+    # the EWQ run twice: replayed from CUDA graphs (the engine's default on
+    # the card), then eagerly (cuda_graphs=False), held equal to the bit
+    for label, plan, kv, graphs in (
+            ("ewq-4bit/8bit", ewq, "int8", True),
+            ("ewq-4bit/8bit", ewq, "int8", False),
+            ("explicit-all-precisions", explicit, "int4", True)):
         engine = None                          # free the previous engine
-        if device == "cuda":
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
+        fresh_memory(torch, device)
         engine = ServeEngine(model, params, max_seq=1024, plan=plan,
-                             kv_precision=kv, device=device)
+                             kv_precision=kv, device=device,
+                             cuda_graphs=graphs)
         build.reset_launches()                 # main path: counts from 0
-        outs, stats = engine.serve(requests(), num_slots=SLOTS, chunk=8)
-        sync()
+        (outs, stats), peak, serve_peak = serve_peaks(
+            torch, device, lambda: engine.serve(requests(), num_slots=SLOTS,
+                                                chunk=CHUNK))
         counts = dict(build.LAUNCHES)
         for k, v in counts.items():
             launches[k] += v
@@ -1070,7 +1165,8 @@ def serve_full_width(torch, build, report: dict, smoke: bool = False,
                     or not np.all(np.isfinite(o.logprobs))):
                 raise AssertionError(f"{label}: bad output for request "
                                      f"{o.rid}: {gen_toks}")
-        run = dict(run=label, kv=kv, requests=len(outs),
+        run = dict(run=label, kv=kv, cuda_graphs=engine.graphs is not None,
+                   requests=len(outs),
                    generated=stats.generated_tokens,
                    tokens_per_s=stats.tokens_per_s,
                    ttft_mean_s=stats.ttft_mean_s,
@@ -1079,13 +1175,29 @@ def serve_full_width(torch, build, report: dict, smoke: bool = False,
                    wall_s=stats.wall_s,
                    weight_bytes=engine.weight_bytes(),
                    kv_bytes_per_slot=engine.kv_bytes_per_slot(),
-                   max_memory_allocated=(torch.cuda.max_memory_allocated()
-                                         if device == "cuda" else None),
-                   launches=counts)
+                   max_memory_allocated=peak,
+                   serve_max_memory_allocated=serve_peak,
+                   launches=counts,
+                   chunk=chunk_readings(torch, build, engine, prompts,
+                                        device))
+        # the graph engine also serves under the planted stale-buffer fault
+        # and serves sampled requests; the eager engine (built after the
+        # graph engine is freed, so each peak is its own) serves the same
+        # sampled requests
+        sampled = sampled_serve(torch, engine, prompts)
         log("serve: " + json.dumps(run))
         runs.append(run)
-        if kv == "int8":
+        if kv == "int8" and graphs:
             base_outs = outs                   # the EWQ non-spec tokens
+            base_sampled = sampled
+            fault_outs = (stale_buffer_serve(torch, engine, requests())
+                          if device == "cuda" else None)
+        elif kv == "int8":
+            require_same(label, base_outs, outs, logprobs=True)
+            run["identical_to_graph_run"] = True
+            if fault_outs is not None:
+                run["planted_fault"] = stale_buffer_caught(fault_outs, outs)
+            run["sampled"] = sampled_agreement(base_sampled, sampled)
     # first decode step through the kernels against the plain versions, on
     # the explicit plan's params and an identical int4 cache
     eng = engine
@@ -1153,6 +1265,165 @@ def serve_full_width(torch, build, report: dict, smoke: bool = False,
     return launches
 
 
+def fresh_memory(torch, device: str) -> None:
+    """Free cached blocks and restart the peak-memory count (on the card)."""
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def serve_peaks(torch, device: str, serve):
+    """Runs ``serve()`` and returns (its result, peak device memory since
+    the last reset (the engine's build and the serve), the serve's own
+    peak), the peaks None off the card."""
+    if device != "cuda":
+        return serve(), None, None
+    built = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = serve()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return out, max(built, peak), peak
+
+
+def same_outputs(outs, ref, logprobs: bool) -> bool:
+    """Tokens (and logprobs) of two serves equal to the bit, request by
+    request."""
+    import numpy as np
+    return len(outs) == len(ref) and all(
+        np.array_equal(o.tokens, r.tokens)
+        and (not logprobs or np.array_equal(o.logprobs, r.logprobs))
+        for o, r in zip(outs, ref))
+
+
+def require_same(label: str, graph_outs, eager_outs, logprobs: bool) -> None:
+    """A serve replayed from CUDA graphs against the same serve run
+    eagerly: the same kernels in the same order, so equal to the bit."""
+    if not same_outputs(graph_outs, eager_outs, logprobs):
+        raise AssertionError(f"{label}: the CUDA-graph serve's tokens"
+                             f"{' or logprobs' if logprobs else ''} differ "
+                             "from the eager serve's")
+    log(f"{label}: CUDA-graph serve equal to the eager serve to the bit "
+        f"(tokens{' and logprobs' if logprobs else ''})")
+
+
+def chunk_readings(torch, build, engine, prompts, device: str,
+                   frames=None) -> dict:
+    """One decode chunk (CHUNK steps, or CHUNK spec rounds) over SLOTS
+    freshly admitted requests: its wall time (host clock, ended by a
+    synchronize) and, on a CUDA-graph engine, its device time (CUDA events
+    around the replay), median of 3 after the chunk that captures; with
+    the kernel launches a replayed chunk credits, per step (per round on
+    a spec engine). A serve's own counts also hold the chunk a graph
+    engine runs over its empty slots before the first admission."""
+    if device != "cuda":
+        return {}
+    state = engine.init_decode_state(SLOTS)
+    for slot in range(SLOTS):
+        engine.insert(state, slot, engine.prefill_request(
+            prompts[slot], frames=None if frames is None else frames[slot]),
+            64)
+    engine.decode_chunk(state, CHUNK)          # a graph engine captures
+    torch.cuda.synchronize()
+    walls, devs = [], []
+    for _ in range(3):
+        build.reset_launches()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        engine.decode_chunk(state, CHUNK)
+        end.record()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        devs.append(start.elapsed_time(end))
+    out = dict(steps=CHUNK, wall_ms=sorted(walls)[1],
+               launches_per_step={k: v / CHUNK for k, v in
+                                  build.LAUNCHES.items() if v})
+    if engine.graphs is not None:
+        out["device_ms"] = sorted(devs)[1]
+        out["device_share_of_wall"] = out["device_ms"] / out["wall_ms"]
+    build.reset_launches()
+    return out
+
+
+@contextlib.contextmanager
+def stale_last_logits():
+    """A planted fault: the decode step rebinds ``state.last_logits`` to a
+    copy of itself in place of writing into it alone. Eagerly that changes
+    nothing; a replayed graph goes on reading the buffer its capture saw,
+    which no longer receives what the host writes (an admitted request's
+    logits) nor, from the second replay, the current step's."""
+    from repro_torch.serving.engine import ServeEngine
+    saved = ServeEngine._step
+
+    def step(self, st):
+        saved(self, st)
+        st.last_logits = st.last_logits.clone()
+
+    ServeEngine._step = step
+    try:
+        yield
+    finally:
+        ServeEngine._step = saved
+
+
+def stale_buffer_serve(torch, engine, requests) -> list:
+    """The graph engine serves ``requests`` under ``stale_last_logits``."""
+    with stale_last_logits():
+        outs, _ = engine.serve(requests, num_slots=SLOTS, chunk=CHUNK)
+    torch.cuda.synchronize()
+    return outs
+
+
+def stale_buffer_caught(fault_outs, eager_outs) -> dict:
+    """The graph-vs-eager check must fail the serve under the planted
+    stale-buffer fault."""
+    import numpy as np
+    if same_outputs(fault_outs, eager_outs, logprobs=True):
+        raise AssertionError("the graph-vs-eager check misses a decode step "
+                             "that rebinds a state tensor")
+    agree = float(np.mean([np.mean(o.generated == e.generated)
+                           for o, e in zip(fault_outs, eager_outs)]))
+    log(f"planted fault (last_logits rebound in the step): caught, greedy "
+        f"agreement with the eager serve {agree:.4f}")
+    return dict(caught=True, greedy_agreement_with_eager=agree)
+
+
+def sampled_serve(torch, engine, prompts) -> dict:
+    """Four requests sampled at temperature 0.8, top-p 0.9 (so a captured
+    chunk samples and masks, drawing from the state's generator), seed 7:
+    outputs must be in the vocabulary with finite logprobs."""
+    import numpy as np
+    from repro_torch.serving.scheduler import Request
+    cfg = engine.cfg
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=32, temperature=0.8,
+                    top_p=0.9) for i, p in enumerate(prompts[:SLOTS])]
+    outs, stats = engine.serve(reqs, num_slots=SLOTS, chunk=CHUNK, seed=7)
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize()
+    for o in outs:
+        if (len(o.generated) != 32 or o.generated.min() < 0
+                or o.generated.max() >= cfg.vocab_size
+                or not np.all(np.isfinite(o.logprobs))):
+            raise AssertionError(f"sampled serve: bad output for request "
+                                 f"{o.rid}: {o.generated}")
+    return dict(outs=outs, tokens_per_s=stats.tokens_per_s)
+
+
+def sampled_agreement(graph_run: dict, eager_run: dict) -> dict:
+    """The sampled serves' agreement, a reading (a replay draws from the
+    generator at the offsets its capture recorded)."""
+    import numpy as np
+    agree = float(np.mean([np.mean(a.generated == b.generated) for a, b in
+                           zip(graph_run["outs"], eager_run["outs"])]))
+    out = dict(tokens_per_s_graphs=graph_run["tokens_per_s"],
+               tokens_per_s_eager=eager_run["tokens_per_s"],
+               token_agreement_graphs_eager=agree)
+    log("sampled serve (temperature 0.8, top-p 0.9): " + json.dumps(out))
+    return out
+
+
 def step_ms(torch, model, params, state, toks) -> tuple[float, float]:
     """One decode step on a clone of ``state``'s cache: its eager wall time
     (host dispatch included, median of 5) and its device time (the step
@@ -1215,24 +1486,26 @@ def serve_speculative(torch, build, report: dict, model, params, plan,
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     launches = {k: 0 for k in build.LAUNCHES}
     runs = []
-    for label, source in (("spec-model-draft", "model"),
-                          ("spec-ngram-draft", "ngram")):
+    for label, source, graphs in (("spec-model-draft", "model", True),
+                                  ("spec-model-draft", "model", False),
+                                  ("spec-ngram-draft", "ngram", True),
+                                  ("spec-ngram-draft", "ngram", False)):
         engine = None                          # free the previous engine
-        if device == "cuda":
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
+        fresh_memory(torch, device)
         engine = ServeEngine(model, params, max_seq=1024, plan=plan,
                              kv_precision="int8", device=device,
-                             spec=SpecConfig(k=SPEC_K, draft_source=source))
+                             spec=SpecConfig(k=SPEC_K, draft_source=source),
+                             cuda_graphs=graphs)
         t0 = time.perf_counter()
         engine.draft_params                    # the draft, derived once
         sync()
         draft_s = time.perf_counter() - t0
         build.reset_launches()                 # main path: counts from 0
-        outs, stats = engine.serve(
-            [Request(rid=i, prompt=p, max_new_tokens=32)
-             for i, p in enumerate(prompts)], num_slots=SLOTS, chunk=8)
-        sync()
+        (outs, stats), peak, serve_peak = serve_peaks(
+            torch, device, lambda: engine.serve(
+                [Request(rid=i, prompt=p, max_new_tokens=32)
+                 for i, p in enumerate(prompts)], num_slots=SLOTS,
+                chunk=CHUNK))
         counts = dict(build.LAUNCHES)
         for k, v in counts.items():
             launches[k] += v
@@ -1245,7 +1518,9 @@ def serve_speculative(torch, build, report: dict, model, params, plan,
                                      f"{o.rid}: {gen_toks}")
         agree = float(np.mean([np.mean(o.generated == b.generated)
                                for o, b in zip(outs, base_outs)]))
-        run = dict(run=label, kv="int8", k=SPEC_K, requests=len(outs),
+        run = dict(run=label, kv="int8", k=SPEC_K,
+                   cuda_graphs=engine.graphs is not None,
+                   requests=len(outs),
                    generated=stats.generated_tokens,
                    tokens_per_s=stats.tokens_per_s,
                    ttft_mean_s=stats.ttft_mean_s,
@@ -1259,19 +1534,24 @@ def serve_speculative(torch, build, report: dict, model, params, plan,
                    draft_overhead_bytes=engine.draft_overhead_bytes(),
                    draft_weight_bytes=engine.draft_weight_bytes(),
                    weight_bytes=engine.weight_bytes(),
-                   max_memory_allocated=(torch.cuda.max_memory_allocated()
-                                         if device == "cuda" else None),
+                   max_memory_allocated=peak,
+                   serve_max_memory_allocated=serve_peak,
                    launches=counts,
-                   launches_per_round={k: v / stats.decode_steps
-                                       for k, v in counts.items()},
                    greedy_agreement_with_nonspec=agree,
-                   bigram_repeat_share=repeat_share(outs))
+                   bigram_repeat_share=repeat_share(outs),
+                   chunk=chunk_readings(torch, build, engine, prompts,
+                                        device))
         log("spec serve: " + json.dumps(run))
         runs.append(run)
-        if source == "model":
-            model_outs = outs
-            report["spec_readings"] = spec_readings(torch, model, engine,
-                                                    prompts, device)
+        if graphs:
+            graph_outs = outs
+            if source == "model":
+                model_outs = outs
+                report["spec_readings"] = spec_readings(torch, model, engine,
+                                                        prompts, device)
+        else:
+            require_same(label, graph_outs, outs, logprobs=True)
+            run["identical_to_graph_run"] = True
     report["spec_runs"] = runs
     return launches, model_outs
 
@@ -1293,21 +1573,16 @@ def serve_paged(torch, build, report: dict, model, params, plan, prompts,
     from repro_torch.serving.scheduler import Request
     from repro_torch.serving.spec import SpecConfig
     cfg = model.cfg
-    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     launches = {k: 0 for k in build.LAUNCHES}
     runs = []
 
-    def fresh_memory():
-        if device == "cuda":
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-
     def serve(engine, prompt_list, label):
         build.reset_launches()                 # main path: counts from 0
-        outs, stats = engine.serve(
-            [Request(rid=i, prompt=p, max_new_tokens=32)
-             for i, p in enumerate(prompt_list)], num_slots=SLOTS, chunk=8)
-        sync()
+        (outs, stats), peak, serve_peak = serve_peaks(
+            torch, device, lambda: engine.serve(
+                [Request(rid=i, prompt=p, max_new_tokens=32)
+                 for i, p in enumerate(prompt_list)], num_slots=SLOTS,
+                chunk=CHUNK))
         counts = dict(build.LAUNCHES)
         for k, v in counts.items():
             launches[k] += v
@@ -1317,7 +1592,8 @@ def serve_paged(torch, build, report: dict, model, params, plan, prompts,
                     or not np.all(np.isfinite(o.logprobs))):
                 raise AssertionError(f"{label}: bad output for request "
                                      f"{o.rid}: {o.generated}")
-        run = dict(run=label, requests=len(outs),
+        run = dict(run=label, cuda_graphs=engine.graphs is not None,
+                   requests=len(outs),
                    generated=stats.generated_tokens,
                    tokens_per_s=stats.tokens_per_s,
                    ttft_mean_s=stats.ttft_mean_s,
@@ -1331,25 +1607,32 @@ def serve_paged(torch, build, report: dict, model, params, plan, prompts,
                    kv_bytes_peak=stats.kv_bytes_peak,
                    spec_rounds=stats.spec_rounds,
                    acceptance_rate=stats.acceptance_rate,
-                   max_memory_allocated=(torch.cuda.max_memory_allocated()
-                                         if device == "cuda" else None),
+                   max_memory_allocated=peak,
+                   serve_max_memory_allocated=serve_peak,
                    launches=counts)
         log("paged serve: " + json.dumps(run))
         runs.append(run)
         return outs, stats, run
 
-    def same(outs, ref, logprobs: bool) -> bool:
-        return all(np.array_equal(o.tokens, r.tokens)
-                   and (not logprobs or np.array_equal(o.logprobs,
-                                                       r.logprobs))
-                   for o, r in zip(outs, ref))
+    same = same_outputs
 
-    # -- 1) phase 4's requests from an equal-memory pool --------------------
-    fresh_memory()
+    # -- 1) phase 4's requests from an equal-memory pool, eagerly then from
+    # CUDA graphs (held equal to the bit) ------------------------------------
+    fresh_memory(torch, device)
+    peng = ServeEngine(model, params, max_seq=1024, plan=plan,
+                       kv_precision="int8", device=device,
+                       paged=PagedConfig(page_size=PAGE), cuda_graphs=False)
+    e_outs, _, e_run = serve(peng, prompts, "paged-ewq-int8")
+    e_run["chunk"] = chunk_readings(torch, build, peng, prompts, device)
+    peng = None
+    fresh_memory(torch, device)
     peng = ServeEngine(model, params, max_seq=1024, plan=plan,
                        kv_precision="int8", device=device,
                        paged=PagedConfig(page_size=PAGE))
     outs, _, run = serve(peng, prompts, "paged-ewq-int8")
+    run["chunk"] = chunk_readings(torch, build, peng, prompts, device)
+    require_same("paged-ewq-int8", outs, e_outs, logprobs=True)
+    run["identical_to_eager_run"] = True
     if not same(outs, base_outs, logprobs=True):
         raise AssertionError("the paged serve's tokens or logprobs differ "
                              "from phase 4's dense serve")
@@ -1424,6 +1707,11 @@ def serve_paged(torch, build, report: dict, model, params, plan, prompts,
             [np.mean(o.generated == d.generated)
              for o, d in zip(s_outs, d_outs)])),
         stream_no_sharing_identical_to_dense=same(n_outs, d_outs, True))
+    if device == "cuda" and not s_run["ttft_mean_s"] < n_run["ttft_mean_s"]:
+        raise AssertionError(
+            f"shared-prefix stream: mean TTFT with sharing "
+            f"{s_run['ttft_mean_s']} s is not below the stream without "
+            f"sharing ({n_run['ttft_mean_s']} s)")
     log(f"paged: shared-prefix stream: {json.dumps(checks)}; KV bytes at "
         f"peak {readings['stream_kv_bytes_peak']:.0f} against the dense "
         f"reservation {readings['stream_dense_reservation']:.0f}; mean TTFT "
@@ -1434,7 +1722,7 @@ def serve_paged(torch, build, report: dict, model, params, plan, prompts,
     seng = dense = peng = None
 
     # -- 3) phase 4b's model-draft spec serve over the pool -------------------
-    fresh_memory()
+    fresh_memory(torch, device)
     speng = ServeEngine(model, params, max_seq=1024, plan=plan,
                         kv_precision="int8", device=device,
                         spec=SpecConfig(k=SPEC_K),
@@ -1672,26 +1960,46 @@ def serve_whisper(torch, build, report: dict, smoke: bool = False,
              for i in range(cfg.num_layers)]
     explicit = explicit_plan(cfg, stack * 2, embed_precision="int8")
     runs = []
-    for label, plan, kv in (("whisper-ewq-4bit/8bit", ewq, "int8"),
-                            ("whisper-explicit-all-precisions", explicit,
-                             "int4")):
-        engine = None                          # free the previous engine
-        if device == "cuda":
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-        engine = ServeEngine(model, params, max_seq=WHISPER_MAX_SEQ,
-                             plan=plan, kv_precision=kv, device=device)
-        run, counts = whisper_run(torch, build, model, engine, label, kv,
-                                  plan, device)
+    # EWQ from CUDA graphs, then eagerly (held equal to the bit), then
+    # eagerly with each prompt run as single-token steps (the TTFT of the
+    # older prefill); the explicit plan from CUDA graphs
+    engine = None
+    for label, plan, kv, graphs, scan in (
+            ("whisper-ewq-4bit/8bit", ewq, "int8", True, False),
+            ("whisper-ewq-4bit/8bit", ewq, "int8", False, False),
+            ("whisper-ewq-4bit/8bit", ewq, "int8", False, True),
+            ("whisper-explicit-all-precisions", explicit, "int4", True,
+             False)):
+        if not scan:
+            engine = None                      # free the previous engine
+        fresh_memory(torch, device)
+        if not scan:
+            engine = ServeEngine(model, params, max_seq=WHISPER_MAX_SEQ,
+                                 plan=plan, kv_precision=kv, device=device,
+                                 cuda_graphs=graphs)
+        run, counts, outs = whisper_run(torch, build, model, engine, label,
+                                        kv, plan, device,
+                                        readings=graphs, scan=scan)
         for k, v in counts.items():
             launches[k] += v
         runs.append(run)
+        if kv == "int8" and graphs:
+            graph_outs = outs
+        elif kv == "int8" and not scan:
+            require_same(label, graph_outs, outs, logprobs=True)
+            run["identical_to_graph_run"] = True
+    engine = None
+    ttft = {r["prefill"] + (" graphs" if r["cuda_graphs"] else " eager"):
+            r["ttft_mean_s"] for r in runs if r["kv"] == "int8"}
+    log(f"whisper: mean TTFT (EWQ, int8 KV): {json.dumps(ttft)}")
+    report["whisper_ttft"] = ttft
     report["whisper_runs"] = runs
     return launches
 
 
 def whisper_run(torch, build, model, engine, label: str, kv: str, plan,
-                device: str) -> tuple:
+                device: str, readings: bool = True,
+                scan: bool = False) -> tuple:
     """One whisper serve of ``whisper_requests`` and its readings: the
     kernel launches of the encoder for one request and of one decode step;
     that decode step through the kernels against the plain versions, its
@@ -1701,17 +2009,21 @@ def whisper_run(torch, build, model, engine, label: str, kv: str, plan,
     request's encoder output), a planted fault CROSS_REL_L2 must catch in
     every layer; with an int4 decoder layer, the step with that layer's
     nibbles swapped, a planted fault LOGIT_REL_L2 must catch; the step's
-    time eager and from a CUDA graph. Returns (the run's record, the
-    serve's launches)."""
+    time eager and from a CUDA graph; one decode chunk's wall and device
+    time (``chunk_readings``). ``readings=False`` serves and takes the
+    chunk readings only; ``scan=True`` serves with every prompt run as
+    single-token steps (``token_scan_prefill``). Returns (the run's
+    record, the serve's launches, the outputs)."""
     import numpy as np
     from repro_torch.models import encdec
     from repro_torch.quant.kvcache import clone_cache
     cfg = model.cfg
-    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     reqs = whisper_requests(cfg)
     build.reset_launches()                     # main path: counts from 0
-    outs, stats = engine.serve(reqs, num_slots=SLOTS, chunk=8)
-    sync()
+    with token_scan_prefill() if scan else contextlib.nullcontext():
+        (outs, stats), peak, serve_peak = serve_peaks(
+            torch, device, lambda: engine.serve(reqs, num_slots=SLOTS,
+                                                chunk=CHUNK))
     counts = dict(build.LAUNCHES)
     for o in outs:
         if (len(o.generated) != 32 or o.generated.min() < 0
@@ -1720,7 +2032,9 @@ def whisper_run(torch, build, model, engine, label: str, kv: str, plan,
             raise AssertionError(f"{label}: bad output for request {o.rid}: "
                                  f"{o.generated}")
     by_field = engine.kv_bytes_by_field()
-    run = dict(run=label, kv=kv, requests=len(outs),
+    run = dict(run=label, kv=kv, cuda_graphs=engine.graphs is not None,
+               prefill="token scan" if scan else "one step",
+               requests=len(outs),
                generated=stats.generated_tokens,
                tokens_per_s=stats.tokens_per_s,
                ttft_mean_s=stats.ttft_mean_s, tpot_p50_s=stats.tpot_p50_s,
@@ -1730,9 +2044,19 @@ def whisper_run(torch, build, model, engine, label: str, kv: str, plan,
                kv_bytes_per_slot_self=by_field["k"] + by_field["v"],
                kv_bytes_per_slot_cross=(by_field["cross_k"]
                                         + by_field["cross_v"]),
-               max_memory_allocated=(torch.cuda.max_memory_allocated()
-                                     if device == "cuda" else None),
+               max_memory_allocated=peak,
+               serve_max_memory_allocated=serve_peak,
                plan=plan.counts(), launches=counts)
+    for k in WHISPER_PATH:
+        if counts[k] <= 0 and device == "cuda":
+            raise AssertionError(f"{label}: kernel {k} never launched")
+    if not scan:
+        run["chunk"] = chunk_readings(torch, build, engine,
+                                      [r.prompt for r in reqs], device,
+                                      frames=[r.frames for r in reqs])
+    if scan or not readings:
+        log("whisper serve: " + json.dumps(run))
+        return run, counts, outs
     frames = torch.as_tensor(reqs[0].frames, device=device)[None]
     build.reset_launches()
     encdec.encode(engine.params, frames, cfg)
@@ -1805,10 +2129,28 @@ def whisper_run(torch, build, model, engine, label: str, kv: str, plan,
         raise AssertionError(f"{label}: the cross-attention limit misses "
                              f"the rotated cross caches (relative L2 "
                              f"{rotated})")
-    for k in WHISPER_PATH:
-        if counts[k] <= 0 and device == "cuda":
-            raise AssertionError(f"{label}: kernel {k} never launched")
-    return run, counts
+    return run, counts, outs
+
+
+@contextlib.contextmanager
+def token_scan_prefill():
+    """The prompt prefill as single-token steps, for the TTFT reading
+    it is compared with: one single-token decode step per prompt token in
+    place of one multi-query step."""
+    from repro_torch.serving.engine import ServeEngine
+    saved = ServeEngine._prefill_step
+
+    def scan(self, toks, cache):
+        for t in range(toks.shape[1]):
+            logits, cache = self.model.decode_step(self.params, cache,
+                                                   toks[:, t:t + 1])
+        return cache, logits[:, 0]
+
+    ServeEngine._prefill_step = scan
+    try:
+        yield
+    finally:
+        ServeEngine._prefill_step = saved
 
 
 @contextlib.contextmanager
@@ -1873,6 +2215,13 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build_all()
     log(f"build: {time.perf_counter() - t0:.1f} s ({build.BUILD_INFO})")
+    ptxas = {src: build.ptxas_report(src) for src in build.SOURCES}
+    for src, kernels in ptxas.items():
+        for k in kernels:
+            log(f"ptxas {src}: {k.get('registers')} registers, "
+                f"{k.get('smem_bytes')} bytes static smem, spill stores "
+                f"{k.get('spill_stores')} loads {k.get('spill_loads')} bytes: "
+                f"{k['kernel']}")
 
     # -- phase 3: kernels -------------------------------------------------------
     timer = Timer(torch)
@@ -1882,7 +2231,7 @@ def main() -> int:
         f"decode attention within relative L2 {ATTN_REL_L2}; max abs err "
         f"{worst}")
     report: dict = {"device": name, "nvidia_smi": smi, "rows": rows,
-                    "build": dict(build.BUILD_INFO)}
+                    "build": dict(build.BUILD_INFO), "ptxas": ptxas}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     out_file = out_dir / "chip_smoke.json"

@@ -11,6 +11,10 @@ once.
 Nothing here runs when a module is imported: the CPU tests import every
 module of the port on a machine without ``nvcc``.
 
+Each source is compiled with ``-Xptxas -v``; the compiler's report is kept
+beside its library (``lib<name>.ptxas.txt``), and :func:`ptxas_report`
+reads from it each kernel's registers, shared memory and spill bytes.
+
 Launch counts: every kernel wrapper adds one to ``LAUNCHES[name]`` where it
 launches its kernel, and nowhere else, so a run can show that its main path
 went through the kernels (``reset_launches`` before, read after).
@@ -22,6 +26,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import time
@@ -29,7 +34,7 @@ import time
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 SOURCES = ("qmatmul", "qmlp", "decode_attn", "entropy", "quantize")
 
 # qmlp: the swiglu form of the fused MLP; qmlp_gelu: its gelu form.
@@ -57,6 +62,7 @@ _SIGNATURES = {
         "repro_qmatmul": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
         "repro_qkv": [_P, _I, _I, _I, _I, _I,
                       _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P],
+        "repro_qmatmul_plan": [_I, _I, _I, _I, _I, _P],
     },
     "qmlp": {
         "repro_qmlp_tiles": [_I],
@@ -126,6 +132,7 @@ def build_all() -> dict:
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {name}.cu:\n{log}")
         else:
+            (out_dir / f"lib{name}.ptxas.txt").write_text(log)
             os.replace(tmp, target)
     if errors:
         raise RuntimeError("\n".join(errors))
@@ -143,6 +150,48 @@ def build_all() -> dict:
 
 def library(name: str):
     return build_all()[name]
+
+
+def parse_ptxas(text: str) -> list:
+    """``nvcc -Xptxas -v`` output -> one dict per kernel: ``kernel`` (its
+    mangled name), ``registers``, ``smem_bytes`` (static), ``spill_stores``
+    and ``spill_loads`` (bytes)."""
+    rows, cur = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"kernel": m.group(1)}
+            rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"] = int(m.group(1))
+            cur["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["smem_bytes"] = int(sm.group(1)) if sm else 0
+    return rows
+
+
+def ptxas_report(name: str) -> list:
+    """Each kernel of source ``name`` as the compiler reported it at its
+    build in this checkout (``parse_ptxas``), its name demangled where
+    ``cu++filt`` is found."""
+    text = (BUILD_ROOT / _source_hash() / f"lib{name}.ptxas.txt").read_text()
+    rows = parse_ptxas(text)
+    filt = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
+    if rows and os.path.exists(filt):
+        names = subprocess.run(
+            [filt], input="\n".join(r["kernel"] for r in rows),
+            capture_output=True, text=True).stdout.split("\n")
+        for r, n in zip(rows, names):
+            r["kernel"] = n.strip() or r["kernel"]
+    return rows
 
 
 def check(err: int, what: str) -> None:

@@ -67,17 +67,26 @@ def fused_mlp_plain(x: torch.Tensor, w_gate, w_up, w_down,
 # CUDA kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check_x(x2d: torch.Tensor, what: str) -> None:
+# the weight group csrc/qmatmul.cu takes (every plan's default)
+KERNEL_GROUP = 128
+
+
+def _check_x(x2d: torch.Tensor, what: str) -> torch.Tensor:
+    """Validate x for the kernels; returns it 16-byte aligned (the kernel
+    stages x with 16-byte copies; a view that starts mid-row is copied)."""
     if not x2d.is_cuda:
         raise ValueError(f"{what}: x must be a CUDA tensor")
     if x2d.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{what}: x must be bf16 or f32, got {x2d.dtype}")
     if not x2d.is_contiguous():
         raise ValueError(f"{what}: x must be contiguous")
+    return x2d if x2d.data_ptr() % 16 == 0 else x2d.clone()
 
 
-def _check_w(w: QTensor, k: int, device, what: str) -> int:
-    """Validate one quantized weight for the kernels; returns its N."""
+def _check_w(w: QTensor, k: int, device, what: str,
+             group: Optional[int] = None) -> int:
+    """Validate one quantized weight for the kernels; returns its N.
+    ``group``: the one group the kernel takes (qmatmul.cu: 128), if any."""
     if w.precision not in _PACKED:
         raise ValueError(f"{what}: unsupported precision {w.precision!r}")
     n = w.data.shape[0]
@@ -92,19 +101,24 @@ def _check_w(w: QTensor, k: int, device, what: str) -> int:
     if w.group % 8 or k % w.group:
         raise ValueError(f"{what}: needs group % 8 == 0 and K % group == 0 "
                          f"(K={k}, group={w.group})")
+    if group is not None and w.group != group:
+        raise ValueError(f"{what}: the kernel takes weight group {group} "
+                         f"only, got {w.group}")
     for t in (w.data, w.scale):
         if t.device != device or not t.is_contiguous():
             raise ValueError(f"{what}: weights must be contiguous on {device}")
-    if w.data.data_ptr() % 8:
-        raise ValueError(f"{what}: weight payload must be 8-byte aligned")
+    align = 8 if group is None else 16
+    if w.data.data_ptr() % align:
+        raise ValueError(f"{what}: weight payload must be {align}-byte "
+                         "aligned")
     return n
 
 
 def qmatmul_cuda(x2d: torch.Tensor, w: QTensor) -> torch.Tensor:
     """Fused dequant matmul kernel: (M, K) x QTensor (N, K) -> (M, N) f32."""
-    _check_x(x2d, "qmatmul")
+    x2d = _check_x(x2d, "qmatmul")
     m, k = x2d.shape
-    n = _check_w(w, k, x2d.device, "qmatmul")
+    n = _check_w(w, k, x2d.device, "qmatmul", KERNEL_GROUP)
     y = torch.empty((m, n), dtype=torch.float32, device=x2d.device)
     if m == 0 or n == 0:
         return y
@@ -119,9 +133,10 @@ def qmatmul_cuda(x2d: torch.Tensor, w: QTensor) -> torch.Tensor:
 
 def qkv_cuda(x2d: torch.Tensor, wq: QTensor, wk: QTensor, wv: QTensor):
     """The three projections in one launch -> three (M, N_*) f32 outputs."""
-    _check_x(x2d, "qkv")
+    x2d = _check_x(x2d, "qkv")
     m, k = x2d.shape
-    ns = [_check_w(w, k, x2d.device, "qkv") for w in (wq, wk, wv)]
+    ns = [_check_w(w, k, x2d.device, "qkv", KERNEL_GROUP)
+          for w in (wq, wk, wv)]
     if len({(w.precision, w.group) for w in (wq, wk, wv)}) != 1:
         raise ValueError("qkv: the three weights must share precision/group")
     ys = [torch.empty((m, n), dtype=torch.float32, device=x2d.device)

@@ -2,7 +2,11 @@
 
 The engine decodes a fixed number of *slots* in lockstep; each slot holds at
 most one in-flight request. ``DecodeState`` keeps every per-slot buffer on
-the device, and the helpers below update it in place:
+the device, and every update writes into those buffers in place (the
+helpers below, the engine's decode step, the spec round): a decode chunk
+replayed from a CUDA graph (``serving/graphs.py``) reads and writes the
+addresses it was captured with, so a tensor that got rebound would
+silently go stale.
 
 * ``tokens`` / ``logprobs`` are (B, S_max) buffers written at
   ``lengths[slot]`` (done and empty slots never advance);
@@ -123,8 +127,9 @@ def commit_tokens(state: DecodeState, cand: torch.Tensor,
     ``cand``/``cand_lp``: (B, K+1) candidate tokens and their
     chosen-token logprobs; ``counts`` (B,): how many leading candidates
     each slot keeps (0 for done and empty slots). Candidate j lands at
-    ``lengths[slot] + j``; ``lengths`` advances by ``counts``. The caller
-    handles done flags and the cache rollback."""
+    ``lengths[slot] + j``; ``lengths`` advances by ``counts``; all three
+    buffers are written in place. The caller handles done flags and the
+    cache rollback."""
     dev = cand.device
     jidx = torch.arange(cand.shape[1], device=dev)[None, :]
     wpos = state.lengths[:, None] + jidx                      # (B, K+1)
@@ -136,10 +141,11 @@ def commit_tokens(state: DecodeState, cand: torch.Tensor,
     zero = torch.zeros((), dtype=cand_lp.dtype, device=dev)
     toks = torch.where(at, cand[:, :, None], 0).sum(dim=1)
     lps = torch.where(at, cand_lp[:, :, None], zero).sum(dim=1)
-    state.tokens = torch.where(hit, toks.to(state.tokens.dtype), state.tokens)
-    state.logprobs = torch.where(hit, lps.to(state.logprobs.dtype),
-                                 state.logprobs)
-    state.lengths = state.lengths + counts.to(state.lengths.dtype)
+    state.tokens.copy_(torch.where(hit, toks.to(state.tokens.dtype),
+                                   state.tokens))
+    state.logprobs.copy_(torch.where(hit, lps.to(state.logprobs.dtype),
+                                     state.logprobs))
+    state.lengths.add_(counts.to(state.lengths.dtype))
     return state
 
 

@@ -11,7 +11,13 @@ The paper's deployment pipeline, end to end:
 Structure:
   * ``decode_chunk`` runs ``steps`` token steps over every slot: sampling,
     per-slot stop conditions (EOS / max-new-tokens), then one batched
-    ``decode_step``. Nothing in a chunk waits for the device.
+    ``decode_step``. Nothing in a chunk waits for the device, and every
+    step writes the decode state in place. On the card the whole chunk is
+    captured into a CUDA graph the first time its key is seen and
+    replayed afterwards (``serving/graphs.py``, the counterpart of the
+    reference's jitted chunk); ``cuda_graphs=False`` runs the same code
+    eagerly, the baseline a replay is held against. CPU engines always
+    run eagerly.
   * ``serve`` is continuous batching: between chunks the host-side
     Scheduler admits queued requests into freed slots and harvests finished
     ones (one device read per chunk).
@@ -31,17 +37,17 @@ Structure:
     leak-free when the pool cannot supply them; ``release`` returns them.
     With prefix sharing, a prompt's full pages that match an earlier
     prompt are mapped read-only (copy-on-write at the boundary page), and
-    ``prefill_request`` runs only the suffix, as single-token decode steps
-    over the shared rows. ``serve`` holds a request back (requeues it)
+    ``prefill_request`` runs only the suffix, as one multi-query decode
+    step over the shared rows. ``serve`` holds a request back (requeues it)
     while the pool cannot cover its worst case. Greedy output is
     token-identical to the dense engine's.
 
 Enc-dec models (whisper) serve with ``frames`` per request (a zero frame
 block when a request has none): prefill encodes them, computes every
-decoder layer's cross K/V once, and runs single-token decode steps over
-the prompt; admission quantizes the self and cross K/V into the slot. The
-paged pool and speculative decoding are not ported for this family, and
-the engine refuses both for it.
+decoder layer's cross K/V once, and scores the whole prompt in one
+multi-query decode step; admission quantizes the self and cross K/V into
+the slot. The paged pool and speculative decoding are not ported for this
+family, and the engine refuses both for it.
 
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"`` (the
 tests do, and then every kernel's plain version runs). With no GPU and no
@@ -70,6 +76,7 @@ from repro_torch.quant.kvcache import (DEFAULT_KV_GROUP, KVPlan,
                                        quantize_model_cache)
 from repro_torch.serving import batch as B
 from repro_torch.serving import sampling as S
+from repro_torch.serving.graphs import ChunkGraphs
 from repro_torch.serving.pool import (OutOfPages, PagedConfig, PoolSession,
                                       PrefixMatch)
 from repro_torch.serving.quantized import apply_plan_to_params
@@ -135,8 +142,13 @@ class ServeEngine:
                  plan: Optional[QuantPlan] = None, group: int = 128,
                  eos_id: Optional[int] = None, pad_id: int = 0,
                  kv_precision="bf16", kv_group: Optional[int] = None,
-                 spec: Optional[SpecConfig] = None, paged=None, device=None):
+                 spec: Optional[SpecConfig] = None, paged=None, device=None,
+                 cuda_graphs: bool = True):
         self.device = resolve_device(device)
+        # decode chunks replay from CUDA graphs on the card (never on the
+        # CPU); a capture that fails raises
+        self.graphs = (ChunkGraphs() if cuda_graphs
+                       and self.device.type == "cuda" else None)
         self.model = model
         self.cfg = model.cfg
         if self.cfg.family == "encdec" and (spec is not None or paged):
@@ -211,17 +223,18 @@ class ServeEngine:
         v[:, :, :s] = cache.v
         return cache._replace(k=k, v=v), logits[:, 0]
 
-    def _prefill_scan(self, toks: torch.Tensor, cache):
-        """Prefill as single-token decode steps over the prompt from a raw
-        batch cache at pos 0. Returns (cache at pos P, last logits)."""
-        for t in range(toks.shape[1]):
-            logits, cache = self.model.decode_step(self.params, cache,
-                                                   toks[:, t:t + 1])
-        return cache, logits[:, 0]
+    def _prefill_step(self, toks: torch.Tensor, cache):
+        """Score ``toks`` (B, s) in ONE multi-query decode step over a raw
+        batch cache (rows written at its pos, query i sees the rows up to
+        pos + i), as the reference's chunked prefill scores a chunk
+        (``src/repro/serving/engine.py`` ``_prefill_chunk_fn``). Returns
+        (cache at pos + s, last logits (B, V_pad))."""
+        logits, cache = self.model.decode_step(self.params, cache, toks)
+        return cache, logits[:, -1]
 
     def _prefill_encdec(self, toks: torch.Tensor, frames: torch.Tensor):
         """Enc-dec prefill: encode the frames, compute every decoder
-        layer's cross K/V once, then scan the prompt."""
+        layer's cross K/V once, then score the prompt in one step."""
         if tuple(frames.shape[1:]) != (self.cfg.encoder_seq,
                                        self.cfg.d_model):
             raise ValueError(f"frames must be (B, {self.cfg.encoder_seq}, "
@@ -231,7 +244,7 @@ class ServeEngine:
         ck, cv = encdec.precompute_cross_kv(self.params, enc_out, self.cfg)
         cache = self.model.init_cache(toks.shape[0], self.max_seq,
                                       self.device)
-        return self._prefill_scan(toks, cache._replace(cross_k=ck,
+        return self._prefill_step(toks, cache._replace(cross_k=ck,
                                                        cross_v=cv))
 
     def _default_frames(self, batch: int) -> torch.Tensor:
@@ -264,8 +277,8 @@ class ServeEngine:
                       state: B.DecodeState):
         """Prefix-hit prefill: gather the matched rows (shared pages, then
         the COW donor's page) from the pool, dequantize them into a raw
-        batch=1 cache at ``pos = hit``, and run single-token decode steps
-        over the suffix. Returns (cache, last logits (1, V_pad))."""
+        batch=1 cache at ``pos = hit``, and score the suffix in one
+        multi-query decode step. Returns (cache, last logits (1, V_pad))."""
         row = np.zeros(self.pool.n_log, np.int32)
         row[:len(m.full_ids)] = m.full_ids
         if m.donor is not None:
@@ -281,10 +294,7 @@ class ServeEngine:
             reps[name] = torch.cat(parts, 0)[:, :, :self.max_seq].contiguous()
         cache = proto._replace(pos=torch.tensor(m.hit, dtype=torch.int32,
                                                 device=self.device), **reps)
-        for tok in prompt[m.hit:]:
-            logits, cache = self.model.decode_step(
-                self.params, cache, self._tokens([[tok]]))
-        return cache, logits[:, 0]
+        return self._prefill_step(self._tokens(prompt[None, m.hit:]), cache)
 
     # -- slotted decode ----------------------------------------------------------
     def _pool_runs(self, raw) -> list:
@@ -370,6 +380,7 @@ class ServeEngine:
 
     @torch.no_grad()
     def _step(self, st: B.DecodeState) -> None:
+        """One decode step over every slot, every write in place."""
         vocab = self.cfg.vocab_size
         lp = torch.log_softmax(st.last_logits[:, :vocab].float(), dim=-1)
         if st.samples:
@@ -392,26 +403,43 @@ class ServeEngine:
         done = st.done | (advance & (st.lengths >= st.max_len))
         if self.eos_id is not None:
             done = done | (advance & (nxt == self.eos_id))
-        st.done = done
-        logits, st.cache = self.model.decode_step(self.params, st.cache,
-                                                  nxt[:, None].long())
-        st.last_logits = logits[:, 0].float()
+        st.done.copy_(done)
+        # the K/V rows are written in place; decode_step returns the
+        # advanced position as a new tensor, copied back into the state's
+        logits, cache = self.model.decode_step(self.params, st.cache,
+                                               nxt[:, None].long())
+        st.cache.pos.copy_(cache.pos)
+        st.last_logits.copy_(logits[:, 0])
 
+    def _chunk(self, state: B.DecodeState, steps: int):
+        """The chunk's work: ``steps`` decode steps (returns None) or
+        ``steps`` spec rounds (returns their SpecMetrics)."""
+        if self.spec is None:
+            for _ in range(steps):
+                self._step(state)
+            return None
+        run = make_spec_round(
+            self.model, self.spec.k, steps, self.eos_id,
+            fused_propose=(self.spec.fused_propose
+                           and self.model.supports_fused_propose),
+            draft_source=self.spec.draft_source)
+        return run(self.params, self.draft_params, state)[1]
+
+    @torch.no_grad()
     def decode_chunk(self, state: B.DecodeState, steps: int = DEFAULT_CHUNK):
         """Run ``steps`` decode steps over every slot; does not wait for
         the device. A spec engine runs ``steps`` propose/verify rounds and
         returns ``(state, SpecMetrics)``; a plain engine returns the
-        state."""
-        if self.spec is not None:
-            run = make_spec_round(
-                self.model, self.spec.k, steps, self.eos_id,
-                fused_propose=(self.spec.fused_propose
-                               and self.model.supports_fused_propose),
-                draft_source=self.spec.draft_source)
-            return run(self.params, self.draft_params, state)
-        for _ in range(steps):
-            self._step(state)
-        return state
+        state. On a CUDA-graph engine the chunk replays the graph captured
+        for (state, steps, whether any slot samples, whether any slot
+        masks, spec config), capturing it on the key's first chunk."""
+        if self.graphs is None:
+            out = self._chunk(state, steps)
+        else:
+            key = (steps, state.samples, state.masks, self.spec)
+            out = self.graphs.run(state, key,
+                                  lambda: self._chunk(state, steps))
+        return state if self.spec is None else (state, out)
 
     # -- self-speculative decoding ----------------------------------------------
     def _ensure_draft(self):
@@ -532,6 +560,13 @@ class ServeEngine:
             sched.submit(r)
         spec_m = SpecMetrics.zeros(self.device)
         state = self.init_decode_state(num_slots, seed)
+        if self.graphs is not None:
+            # capture the greedy chunk before the first admission: a
+            # capture costs an eager chunk of host time, which would land
+            # in the first requests' TTFT. A chunk over empty slots writes
+            # only rows an insert overwrites (or the dump page) and leaves
+            # tokens, lengths and done flags as they are.
+            self.decode_chunk(state, chunk)
         clock, admissions, generated, requeues = 0, 0, 0, 0
         occupancy: list[float] = []
         gaps: list[float] = []

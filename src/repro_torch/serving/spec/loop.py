@@ -180,7 +180,9 @@ def spec_round(model, params, draft_params, state: B.DecodeState, k: int,
                draft_source: str = "model"
                ) -> tuple[B.DecodeState, SpecMetrics]:
     """One draft-propose / target-verify / accept / rollback round; the
-    state is updated in place and returned with the round's counters."""
+    state is updated in place (every tensor keeps its address, so a chunk
+    of rounds can be replayed from a CUDA graph) and returned with the
+    round's counters. The round reads nothing back to the host."""
     cfg = model.cfg
     vocab = cfg.vocab_size
     dev = state.tokens.device
@@ -260,11 +262,12 @@ def spec_round(model, params, draft_params, state: B.DecodeState, k: int,
     done = state.done | (live & (state.lengths >= state.max_len))
     if eos_id is not None:
         done = done | (live & (is_eos & (jidx < c[:, None])).any(dim=1))
-    state.done = done
+    state.done.copy_(done)
     # fresh slots never fed their pending token, so the cache keeps one
-    # row less than the commit count (pos = lengths - 1 afterwards)
-    rows = (c - fresh.to(c.dtype)).clamp(min=0)
-    state.cache = model.spec_commit(snap, rows)
+    # row less than the commit count (pos = lengths - 1 afterwards); the
+    # verify wrote its rows in place, and the rollback is the position
+    state.cache.pos.copy_(
+        model.spec_commit(snap, (c - fresh.to(c.dtype)).clamp(min=0)).pos)
 
     # draft tokens actually COMMITTED: the last committed candidate is the
     # correction/bonus only when nothing cut the window short (c == a + 1)
