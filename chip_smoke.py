@@ -27,7 +27,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    allocation), where it must also equal the dense kernel on the gathered
    rows to the bit. Whisper-medium's shapes: the gelu form of the fused
    MLP (M = 1, 4 and the encoder's 1500), self-attention over its 448-row
-   decoder cache and cross-attention (causal=False over 1500 rows, hd 64). The
+   decoder cache and cross-attention (causal=False over 1500 rows, hd 64).
+   zamba2-2.7b's attention (4 slots x 1024 rows, 32 KV heads of hd 80,
+   group 64) in every form and precision, dense and paged, a group of 80
+   at hd 80 and int4 at an odd Hkv (3 heads of 64); the refusals of what
+   the kernel has no copy for (attn_refusals); the matmul kernels at
+   zamba2's and mamba2's shapes at M = 1 and 4 (RECURRENT_SHAPES). The
    entropy kernel (within 1e-3 * max(1, |H|) and 1e-5 absolute, at the
    weight scale and the reference test's, with a weighted ragged tail) and
    the int8 quantize kernel (payload and scales equal to the bit).
@@ -79,6 +84,26 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    versions at the same limit, each decoder layer's cross-attention output
    too (with the slots' cross caches rotated, a planted fault that limit
    must catch), and timed eager and from a CUDA graph.
+4e. zamba2-2.7b FULL (54 Mamba2 layers, d_model 2560, one shared
+   attention + MLP block at 9 sites, hd 80, vocab 32000) from seeded
+   random weights, and 4f. mamba2-780m FULL (48 layers, d_model 1536,
+   vocab 50280), each after its phase 5 analysis (kernel against stream
+   mode): phase 4's 8 prompts, each prefilled as a scan of single-token
+   steps (replayed from a CUDA graph on a graph engine), 32 new tokens,
+   max_seq 1024, 4 slots, chunk 8; the kernel-mode 4bit/8bit plan with int8
+   KV from CUDA graphs, with eager decode chunks (equal to the bit; its
+   prompts also replay the prompt step, itself held to the eager scan to
+   the bit on the shortest prompt) and under the planted stale-buffer
+   fault (must differ); an explicit raw/int8/int4/ternary plan
+   (int8 embedding and shared block) with int4 KV; zamba2 also from an
+   equal-memory paged pool with prefix sharing (equal to the dense serve)
+   and speculatively (k = 4, int4 self-draft and ngram draft, each from
+   graphs and eagerly, equal to the bit). One decode step through the
+   kernels against the plain versions (LOGIT_REL_L2), and one Mamba2
+   layer's int4 w_in nibble-swapped, which the limit must catch. Each run
+   reports tokens/s, TTFT, a chunk's device and wall ms and launches per
+   step, weight bytes, KV and conv/state bytes a slot and peak memory.
+   The kernels of ZAMBA_PATH and MAMBA_PATH must launch there.
 6. a JSON line naming each kernel, then the device line last. Every
    kernel's launch count must have risen on the serve and analysis paths,
    except the int8 quantize kernel, which no path runs.
@@ -202,7 +227,7 @@ def serve_prompts(vocab: int) -> list:
 
 def paged_pair(torch, gen, b: int, s: int, rows_needed, prec: str,
                seed: int, hkv: int = 8, hd: int = 128,
-               page: int = PAGE) -> list:
+               page: int = PAGE, group: int = 64) -> list:
     """One layer's K and V pools for ``b`` slots of ``s`` logical rows in
     pages of ``page`` tokens: slot i holds ceil(rows_needed[i] / page)
     pages at physical ids drawn by a seeded permutation, a different one
@@ -231,16 +256,17 @@ def paged_pair(torch, gen, b: int, s: int, rows_needed, prec: str,
         raw = torch.randn((len(unique) + 1, page, hkv, hd), generator=gen,
                           device="cuda")
         raw[0] *= 100.0
-        pg = make_page(raw, prec, 64)
+        pg = make_page(raw, prec, group)
         pools.append(PagedKV(
             data=pg.data, scale=pg.scale,
             table=torch.from_numpy(table).cuda(), precision=prec,
-            head_dim=hd, group=64, page_size=page))
+            head_dim=hd, group=group, page_size=page))
     return pools
 
 
 LLAMA_ATTN = (8, 3, 128)        # KV heads, query heads per KV head, head dim
 WHISPER_ATTN = (16, 1, 64)
+ZAMBA_ATTN = (32, 1, 80)        # zamba2-2.7b's shared attention
 
 
 def attention_cases(torch):
@@ -261,9 +287,15 @@ def attention_cases(torch):
     pools (pages of 64 rows, and of 24 rows, which do not divide a split).
     whisper-medium's heads (one query row each, splits of split_rows(1) =
     256 rows): self-attention over its 448-row decoder cache at the split
-    edges, cross-attention (causal=False) over 1500 encoder rows. Small
-    cases ("f32q") run the kernel's other instantiations (hd 32, 64, 128
-    with one or several query rows a KV head) on f32 q."""
+    edges, cross-attention (causal=False) over 1500 encoder rows.
+    zamba2-2.7b's heads (hd 80, one query row a KV head, the default scale
+    group of 64, so a head's groups cross heads) at the serve shape in every
+    form: one query, the verify window causal and not, causal=False, the
+    split edges, the fresh rows, and paged in pages of 64 and of 24; a
+    group of 80 at hd 80 (a multiple of 16 that is not a power of two) and
+    int4 at an odd Hkv (3 heads of 64, a head straddling the two halves).
+    Small cases ("f32q") run the kernel's other instantiations (hd 32, 64,
+    80, 128 with one or several query rows a KV head) on f32 q."""
     from repro_torch.kernels.decode_attn.ops import split_rows
     from repro_torch.quant.kvcache import make_page
     L, L1 = split_rows(LLAMA_ATTN[1]), split_rows(WHISPER_ATTN[1])
@@ -318,75 +350,110 @@ def attention_cases(torch):
              ("decode_attn_window", 8, 2048, SPEC_K + 1, True, big_valid,
               int8, LLAMA_ATTN, ""),
              ("decode_attn_cross", SLOTS, 1500, 1, False, [1500] * SLOTS,
-              ("int8", "int4"), WHISPER_ATTN, " cross")]
+              ("int8", "int4"), WHISPER_ATTN, " cross"),
+             ("decode_attn", SLOTS, 1024, 1, True, serve_valid, all3,
+              ZAMBA_ATTN, ""),
+             ("decode_attn", SLOTS, 1024, 1, True,
+              [L1 - 1, L1, L1 + 1, 2 * L1 + 1], all3, ZAMBA_ATTN, " edges"),
+             ("decode_attn_window", SLOTS, 1024, SPEC_K + 1, True,
+              serve_valid, all3, ZAMBA_ATTN, ""),
+             ("decode_attn_window", SLOTS, 1024, SPEC_K + 1, False,
+              serve_valid, all3, ZAMBA_ATTN, ""),
+             ("decode_attn_cross", SLOTS, 1024, 1, False, serve_valid, all3,
+              ZAMBA_ATTN, " cross"),
+             ("decode_attn", SLOTS, 1024, 1, True, serve_valid, int8,
+              ZAMBA_ATTN, " g80", 80),
+             ("decode_attn_window", SLOTS, 1024, SPEC_K + 1, True,
+              serve_valid, ("int4",), (3, 2, 64), " odd Hkv")]
     # the kernel's other instantiations: head dims 32 and 64 with several
     # query rows a KV head, 128 with one, and f32 q (as a float32 model
     # passes it); hd 32 leaves one scale per stored row (F / group odd)
     for geom, qs in (((2, 2, 32), 3), ((2, 1, 32), 1), ((2, 2, 64), 2),
-                     ((2, 1, 128), 1)):
+                     ((2, 1, 128), 1), ((4, 2, 80), 3), ((4, 1, 80), 1)):
         dense.append(("decode_attn" if qs == 1 else "decode_attn_window", 2,
                       300, qs, True, [297, 129], all3, geom, " f32q"))
-    for kname, b, s, qs, causal, rows, precs, geom, tail in dense:
+    for kname, b, s, qs, causal, rows, precs, geom, tail, *grp in dense:
+        group = grp[0] if grp else 64
         q, (kraw, vraw) = qkv(b, s, qs, geom)
         if tail == " f32q":
             q = q.float()
         valid = valid_of(needed(rows, qs))
         for prec in precs:
-            kp, vp = make_page(kraw, prec, 64), make_page(vraw, prec, 64)
+            kp, vp = (make_page(kraw, prec, group),
+                      make_page(vraw, prec, group))
             yield case(kname, shape(b, s, qs, geom, tail), q, kp, vp, valid,
                        causal)
             del kp, vp
     sf = SPEC_K
     base = valid_of(serve_valid)
-    hkv, rep, hd = LLAMA_ATTN
-    _, (kraw, vraw) = qkv(SLOTS, 1024, 1, LLAMA_ATTN)
-    fk, fv = (torch.randn((SLOTS, sf, hkv, hd), generator=gen, device="cuda")
-              .to(torch.bfloat16) for _ in range(2))
-    for prec in ("int8", "int4"):
-        kp, vp = make_page(kraw, prec, 64), make_page(vraw, prec, 64)
-        for count in range(sf):
-            q, _ = qkv(SLOTS, 0, 1, LLAMA_ATTN)
-            yield case("decode_attn_fresh",
-                       shape(SLOTS, 1024, 1, LLAMA_ATTN, f" Sf{sf} count{count}"),
-                       q, kp, vp, base + count + 1, fresh=(fk, fv, base),
-                       count=count)
-        del kp, vp
+    fresh_rows = {}
+    for geom, precs in ((LLAMA_ATTN, ("int8", "int4")), (ZAMBA_ATTN, all3)):
+        hkv, rep, hd = geom
+        _, (kraw, vraw) = qkv(SLOTS, 1024, 1, geom)
+        fk, fv = (torch.randn((SLOTS, sf, hkv, hd), generator=gen,
+                              device="cuda").to(torch.bfloat16)
+                  for _ in range(2))
+        fresh_rows[geom] = fk, fv
+        for prec in precs:
+            kp, vp = make_page(kraw, prec, 64), make_page(vraw, prec, 64)
+            for count in range(sf):
+                q, _ = qkv(SLOTS, 0, 1, geom)
+                yield case("decode_attn_fresh",
+                           shape(SLOTS, 1024, 1, geom,
+                                 f" Sf{sf} count{count}"),
+                           q, kp, vp, base + count + 1, fresh=(fk, fv, base),
+                           count=count)
+            del kp, vp
     # the same forms over paged pools (permuted tables, a shared page and
     # dump entries), each also held to the dense kernel on the gathered rows
     # to the bit
-    paged = [("decode_attn_paged", 8, 2048, 1, True, big_valid, all3, PAGE),
+    lz = LLAMA_ATTN
+    paged = [("decode_attn_paged", 8, 2048, 1, True, big_valid, all3, PAGE,
+              lz),
              ("decode_attn_paged_window", 8, 2048, SPEC_K + 1, True,
-              big_valid, int8, PAGE),
+              big_valid, int8, PAGE, lz),
              ("decode_attn_paged_window", SLOTS, 1024, SPEC_K + 1, True,
-              serve_valid, all3, PAGE),
+              serve_valid, all3, PAGE, lz),
              ("decode_attn_paged_window", SLOTS, 1024, SPEC_K + 1, False,
-              serve_valid, int8, PAGE),
+              serve_valid, int8, PAGE, lz),
              ("decode_attn_paged", SLOTS, 24 * 43, 1, True, edge_valid, all3,
-              24),
+              24, lz),
              ("decode_attn_paged_window", SLOTS, 24 * 43, SPEC_K + 1, True,
-              edge_valid, int8, 24)]
-    for ci, (kname, b, s, qs, causal, rows, precs, page) in enumerate(paged):
-        q, _ = qkv(b, 0, qs, LLAMA_ATTN)
+              edge_valid, int8, 24, lz),
+             ("decode_attn_paged", SLOTS, 1024, 1, True, serve_valid, all3,
+              PAGE, ZAMBA_ATTN),
+             ("decode_attn_paged_window", SLOTS, 1024, SPEC_K + 1, True,
+              serve_valid, all3, PAGE, ZAMBA_ATTN),
+             ("decode_attn_paged", SLOTS, 24 * 43, 1, True,
+              [L1 - 1, L1, L1 + 1, 2 * L1 + 1], all3, 24, ZAMBA_ATTN),
+             ("decode_attn_paged_window", SLOTS, 24 * 43, SPEC_K + 1, True,
+              edge_valid, int8, 24, ZAMBA_ATTN)]
+    for ci, (kname, b, s, qs, causal, rows, precs, page,
+             geom) in enumerate(paged):
+        q, _ = qkv(b, 0, qs, geom)
         rows = needed(rows, qs)
         valid = valid_of(rows)
         tail = f" P{page}" + (" edges" if page != PAGE else "")
         for prec in precs:
             kp, vp = paged_pair(torch, gen, b, s, rows, prec, seed=ci,
-                                page=page)
-            yield case(kname, shape(b, s, qs, LLAMA_ATTN, tail), q, kp, vp,
+                                hkv=geom[0], hd=geom[2], page=page)
+            yield case(kname, shape(b, s, qs, geom, tail), q, kp, vp,
                        valid, causal)
             del kp, vp
-    for prec in ("int8", "int4"):
-        kp, vp = paged_pair(torch, gen, SLOTS, 1024,
-                            [v + sf for v in serve_valid], prec, seed=9)
-        for count in range(sf):
-            q, _ = qkv(SLOTS, 0, 1, LLAMA_ATTN)
-            yield case("decode_attn_paged_fresh",
-                       shape(SLOTS, 1024, 1, LLAMA_ATTN,
-                             f" P{PAGE} Sf{sf} count{count}"),
-                       q, kp, vp, base + count + 1, fresh=(fk, fv, base),
-                       count=count)
-        del kp, vp
+    for geom, precs in ((LLAMA_ATTN, ("int8", "int4")), (ZAMBA_ATTN, all3)):
+        fk, fv = fresh_rows[geom]
+        for prec in precs:
+            kp, vp = paged_pair(torch, gen, SLOTS, 1024,
+                                [v + sf for v in serve_valid], prec, seed=9,
+                                hkv=geom[0], hd=geom[2])
+            for count in range(sf):
+                q, _ = qkv(SLOTS, 0, 1, geom)
+                yield case("decode_attn_paged_fresh",
+                           shape(SLOTS, 1024, 1, geom,
+                                 f" P{PAGE} Sf{sf} count{count}"),
+                           q, kp, vp, base + count + 1, fresh=(fk, fv, base),
+                           count=count)
+            del kp, vp
 
 
 # Limit on the relative L2 distance of a decode attention kernel's output
@@ -547,9 +614,6 @@ def attn_case(torch, timer, compare, c: dict) -> dict:
 
 
 def check_kernels(torch, timer, rows: list) -> dict:
-    from repro_torch.kernels.qmatmul import ops as QM
-    from repro_torch.quant.quantize import dequantize, quantize
-
     gen = torch.Generator(device="cuda").manual_seed(0)
     d, ff, vocab = 3072, 8192, 128256
     # llama3.2-3b's matrices, and whisper-medium's 1024 x 1024 (its wo and
@@ -566,7 +630,6 @@ def check_kernels(torch, timer, rows: list) -> dict:
     lens = [len(p) for p in serve_prompts(vocab)]
     ragged = next(n for n in lens if n % 8)
     ms_list = (1, 2, 3, SLOTS, 8, SLOTS * (SPEC_K + 1), 256, ragged)
-    precs = ("int8", "int4", "ternary")
     worst = {k: 0.0 for k in KERNEL_SOURCES}
 
     def weight(n, k):
@@ -583,18 +646,80 @@ def check_kernels(torch, timer, rows: list) -> dict:
             torch.testing.assert_close(g, w, **TOL)
             worst[name] = max(worst[name], float((g - w).abs().max()))
 
-    # qmatmul: every precision, M and projection shape of the model
+    def add(row):
+        rows.append(row)
+        log(json.dumps(row))
+
+    # every precision, M and shape of llama's and whisper's matrices
+    mm = (torch, timer, weight, act, compare, add)
+    check_qmatmul(*mm, shapes, ms_list)
+    check_qkv(*mm, {"wq|wk|wv 5120x3072": ((3072, 1024, 1024), d),
+                    "whisper wq|wk|wv 3072x1024": ((1024, 1024, 1024),
+                                                   1024)}, ms_list)
+    qmatmul_refusals()
+    check_qmlp(*mm, {"swiglu 3072->8192->3072": (ff, d)}, ms_list)
+    # zamba2's and mamba2's, at the M their paths give the kernels: M = 4
+    # for a decode step of 4 slots (a verify window and a two-pass draft
+    # step too, each a scan of single-token steps), M = 1 for a prompt
+    # token (a prompt is a scan of single-token steps)
+    check_qmatmul(*mm, RECURRENT_SHAPES["qmatmul"], (1, SLOTS))
+    check_qkv(*mm, RECURRENT_SHAPES["qkv"], (1, SLOTS))
+    check_qmlp(*mm, RECURRENT_SHAPES["qmlp"], (1, SLOTS))
+
+    # decode attention in every form (attention_cases)
+    for case in attention_cases(torch):
+        add(attn_case(torch, timer, compare, case))
+        del case
+    attn_refusals()
+    check_whisper_kernels(torch, timer, gen, compare, add)
+    check_entropy_quantize(torch, timer, gen, rows, worst, add)
+    return worst
+
+
+# zamba2-2.7b's and mamba2-780m's matrices (N, K) by kernel: the Mamba2
+# products and the heads through qmatmul, zamba2's shared block through
+# qkv and the swiglu qmlp (d_model 2560 -> d_ff 10240)
+RECURRENT_SHAPES = {
+    "qmatmul": {"zamba2 w_in": (10368, 2560), "zamba2 w_out": (2560, 5120),
+                "zamba2 wo": (2560, 2560), "zamba2 lm_head": (32000, 2560),
+                "mamba2 w_in": (6448, 1536), "mamba2 w_out": (1536, 3072),
+                "mamba2 lm_head": (50432, 1536)},
+    "qkv": {"zamba2 wq|wk|wv 7680x2560": ((2560, 2560, 2560), 2560)},
+    "qmlp": {"zamba2 swiglu 2560->10240->2560": (10240, 2560)},
+}
+
+
+MATMUL_PRECISIONS = ("int8", "int4", "ternary")
+
+
+def _timed(row, timer, fn, plain, library, nbytes, flops):
+    """A matmul row's timings and bound (skipped by --quick)."""
+    if not QUICK:
+        row["ms"] = timer.ms(fn)
+        row["plain_ms"] = timer.ms(plain)
+        row["library_ms"] = None if library is None else timer.ms(library)
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops)
+    return row
+
+
+def check_qmatmul(torch, timer, weight, act, compare, add, shapes: dict,
+                  ms_list) -> None:
+    """qmatmul at every precision and M of ``shapes`` (label -> (N, K)):
+    against the plain version, within QMATMUL_F32 of the f32 dequantized
+    product and equal to the bit over two calls, timed beside the library
+    product and the bound. --quick skips the lm_head shapes."""
+    from repro_torch.kernels.qmatmul import ops as QM
+    from repro_torch.quant.quantize import dequantize, quantize
     for wname, (n, k) in shapes.items():
-        if QUICK and wname == "lm_head":
+        if QUICK and "lm_head" in wname:
             continue
         base = weight(n, k)
-        for prec in precs:
+        for prec in MATMUL_PRECISIONS:
             w = quantize(base, prec)
             wd = dequantize(w, torch.bfloat16)
             for m in ms_list:
                 x = act(m, k)
-                got = QM.qmatmul_cuda(x, w)
-                want = QM.qmatmul_plain(x, w)
+                got, want = QM.qmatmul_cuda(x, w), QM.qmatmul_plain(x, w)
                 compare("qmatmul", [got], [want])
                 exact = x.float() @ dequantize(w, torch.float32).t()
                 row = dict(kernel="qmatmul", shape=f"{wname} {n}x{k}",
@@ -604,22 +729,22 @@ def check_kernels(torch, timer, rows: list) -> dict:
                                               lambda: [QM.qmatmul_cuda(x, w)]),
                            plan=qmatmul_plan(n, m, k, prec))
                 del exact
-                if not QUICK:
-                    row["ms"] = timer.ms(lambda: QM.qmatmul_cuda(x, w))
-                    row["plain_ms"] = timer.ms(lambda: QM.qmatmul_plain(x, w))
-                    row["library_ms"] = timer.ms(lambda: x @ wd.t())
-                    row["bound_ms"], row["bound_by"] = bound_ms(
-                        m * k * 2 + qbytes(w) + m * n * 4, 2.0 * m * n * k)
-                rows.append(row)
-                log(json.dumps(row))
+                add(_timed(row, timer, lambda: QM.qmatmul_cuda(x, w),
+                           lambda: QM.qmatmul_plain(x, w), lambda: x @ wd.t(),
+                           m * k * 2 + qbytes(w) + m * n * 4,
+                           2.0 * m * n * k))
             del w, wd
         del base
 
-    # qkv: the fused projections at llama's and whisper's widths
-    for prec in precs:
-        for label, dm, ns in (("wq|wk|wv 5120x3072", d, (3072, 1024, 1024)),
-                              ("whisper wq|wk|wv 3072x1024", 1024,
-                               (1024, 1024, 1024))):
+
+def check_qkv(torch, timer, weight, act, compare, add, cases: dict,
+              ms_list) -> None:
+    """The fused projections, ``cases`` label -> ((Nq, Nk, Nv), D), with
+    qmatmul's checks."""
+    from repro_torch.kernels.qmatmul import ops as QM
+    from repro_torch.quant.quantize import dequantize, quantize
+    for label, (ns, dm) in cases.items():
+        for prec in MATMUL_PRECISIONS:
             ws = [quantize(weight(n, dm), prec) for n in ns]
             wqkv = torch.cat([dequantize(w, torch.bfloat16) for w in ws])
             for m in ms_list:
@@ -635,76 +760,63 @@ def check_kernels(torch, timer, rows: list) -> dict:
                            **matmul_exactness(torch, "qkv", got, exact,
                                               lambda: QM.qkv_cuda(x, *ws)),
                            plan=qmatmul_plan(sum(ns), m, dm, prec))
-                if not QUICK:
-                    row["ms"] = timer.ms(lambda: QM.qkv_cuda(x, *ws))
-                    row["plain_ms"] = timer.ms(
-                        lambda: QM.fused_qkv_plain(x, *ws))
-                    row["library_ms"] = timer.ms(lambda: x @ wqkv.t())
-                    row["bound_ms"], row["bound_by"] = bound_ms(
-                        m * dm * 2 + sum(map(qbytes, ws)) + m * sum(ns) * 4,
-                        2.0 * m * sum(ns) * dm)
-                rows.append(row)
-                log(json.dumps(row))
+                add(_timed(row, timer, lambda: QM.qkv_cuda(x, *ws),
+                           lambda: QM.fused_qkv_plain(x, *ws),
+                           lambda: x @ wqkv.t(),
+                           m * dm * 2 + sum(map(qbytes, ws))
+                           + m * sum(ns) * 4, 2.0 * m * sum(ns) * dm))
             del ws, wqkv
-    qmatmul_refusals()
 
-    # qmlp: the fused SwiGLU MLP
-    for prec in precs:
-        wg, wu = (quantize(weight(ff, d), prec) for _ in range(2))
-        wdn = quantize(weight(d, ff), prec)
-        for m in ms_list:
-            x = act(m, d)
-            got = QM.qmlp_cuda(x, wg, wu, wdn)
-            want = QM.fused_mlp_plain(x, wg, wu, wdn).float()
-            compare("qmlp", [got], [want])
-            row = dict(kernel="qmlp", shape="swiglu 3072->8192->3072",
-                       precision=prec, m=m,
-                       err=float((got - want).abs().max()))
-            if not QUICK:
-                row["ms"] = timer.ms(lambda: QM.qmlp_cuda(x, wg, wu, wdn))
-                row["plain_ms"] = timer.ms(
-                    lambda: QM.fused_mlp_plain(x, wg, wu, wdn))
-                row["library_ms"] = None
-                row["bound_ms"], row["bound_by"] = bound_ms(
-                    m * d * 2 + sum(map(qbytes, (wg, wu, wdn))) + m * d * 4,
-                    2.0 * m * (2 * ff * d + ff * d))
-            rows.append(row)
-            log(json.dumps(row))
-        del wg, wu, wdn
 
-    def add(row):
-        rows.append(row)
-        log(json.dumps(row))
-
-    # decode attention in every form (attention_cases)
-    for case in attention_cases(torch):
-        add(attn_case(torch, timer, compare, case))
-        del case
-    attn_refusals()
-    check_whisper_kernels(torch, timer, gen, compare, add)
-    check_entropy_quantize(torch, timer, gen, rows, worst, add)
-    return worst
+def check_qmlp(torch, timer, weight, act, compare, add, cases: dict,
+               ms_list) -> None:
+    """The fused SwiGLU MLP, ``cases`` label -> (d_ff, d_model), against
+    its plain version, timed with its bound (no single library call)."""
+    from repro_torch.kernels.qmatmul import ops as QM
+    from repro_torch.quant.quantize import quantize
+    for label, (ff, d) in cases.items():
+        for prec in MATMUL_PRECISIONS:
+            wg, wu = (quantize(weight(ff, d), prec) for _ in range(2))
+            wdn = quantize(weight(d, ff), prec)
+            for m in ms_list:
+                x = act(m, d)
+                got = QM.qmlp_cuda(x, wg, wu, wdn)
+                want = QM.fused_mlp_plain(x, wg, wu, wdn).float()
+                compare("qmlp", [got], [want])
+                row = dict(kernel="qmlp", shape=label, precision=prec, m=m,
+                           err=float((got - want).abs().max()))
+                add(_timed(row, timer, lambda: QM.qmlp_cuda(x, wg, wu, wdn),
+                           lambda: QM.fused_mlp_plain(x, wg, wu, wdn), None,
+                           m * d * 2 + sum(map(qbytes, (wg, wu, wdn)))
+                           + m * d * 4, 2.0 * m * 3 * ff * d))
+            del wg, wu, wdn
 
 
 def attn_refusals() -> None:
     """The decode attention entry point refuses, launching nothing, what it
-    has no copy for: zamba2-2.7b's head dim 80, a scale group that is not a
-    power of two, and a split other than its own (every pointer is null,
-    so a launch would fault)."""
+    has no copy for: a head dim outside 32, 64, 80 and 128 (72), a scale
+    group that is not a multiple of 16 (24) or does not divide Hkv * hd
+    (48 at 16 heads of 80), int4 at hd 80 with an odd Hkv (a 16-element
+    chunk would straddle the two halves), and a split other than its own
+    (every pointer is null, so a launch would fault). hd 80, a group of
+    80 and int4 at an odd Hkv with hd 64 launch in attention_cases."""
     from repro_torch.kernels import build
     lib = build.library("decode_attn")
-    # (hd, group, prec, rep, split) against llama's (128, 64, int8, 3, 128)
-    for hd, group, prec, rep, split in ((80, 64, 0, 1, 256),
-                                        (128, 48, 0, 3, 128),
-                                        (128, 64, 0, 3, 256),
-                                        (64, 64, 1, 1, 128)):
+    # (hkv, hd, group, prec, rep, split)
+    for hkv, hd, group, prec, rep, split in ((16, 72, 64, 0, 1, 256),
+                                             (16, 128, 24, 0, 3, 128),
+                                             (16, 80, 48, 0, 1, 256),
+                                             (3, 80, 16, 1, 1, 256),
+                                             (16, 128, 64, 0, 3, 256),
+                                             (16, 64, 64, 1, 1, 128)):
         err = lib.repro_decode_attn(*[None] * 15, 0, 0, 0, 0, 4, 448, 1, 0,
-                                    16, rep, 1, hd, group, prec, 1, 0, split,
-                                    None)
+                                    hkv, rep, 1, hd, group, prec, 1, 0,
+                                    split, None)
         if err == 0:
-            raise AssertionError(f"decode_attn took hd {hd}, group {group}, "
-                                 f"split {split}")
-    log("decode_attn refuses hd 80, group 48 and foreign splits")
+            raise AssertionError(f"decode_attn took Hkv {hkv}, hd {hd}, "
+                                 f"group {group}, prec {prec}, split {split}")
+    log("decode_attn refuses hd 72, groups 24 and 48 (at 16 x 80), hd 80 "
+        "int4 at an odd Hkv and foreign splits")
 
 
 # Limit on the largest absolute difference of a qmatmul / qkv output from
@@ -960,6 +1072,13 @@ LLAMA_PATH = ("qmatmul", "qkv", "qmlp", "decode_attn", "decode_attn_window",
 # launch in every whisper run
 WHISPER_PATH = ("qmatmul", "qkv", "qmlp_gelu", "decode_attn",
                 "decode_attn_cross")
+# the kernels zamba2-2.7b's serves (phase 4e) and its analysis run, each
+# of which must launch there: the Mamba2 products, the shared block's
+# projections and MLP, and decode attention at hd 80, dense and paged
+ZAMBA_PATH = ("qmatmul", "qkv", "qmlp", "decode_attn", "decode_attn_paged",
+              "entropy")
+# the kernels mamba2-780m's serves (phase 4f) and its analysis run
+MAMBA_PATH = ("qmatmul", "entropy")
 # the row of each kernel reported on the kernels line: the serve phase's
 # decode shape (4 slots) for the matmul kernels
 HEADLINE = {"qmatmul": ("wq 3072x3072", "int8", SLOTS),
@@ -1046,9 +1165,11 @@ def patched_plain(torch, mode: str):
         QM.qmatmul_plain, MLP.fused_mlp = saved
 
 
-def swap_nibbles_one_layer(torch, params, key: str = "layers") -> dict:
+def swap_nibbles_one_layer(torch, params, key: str = "layers",
+                           leaf=None) -> dict:
     """A planted fault: ``params`` with the first int4 layer of the stack
-    ``key`` nibble-swapped in its payload bytes (the other layers are
+    ``key`` nibble-swapped in its payload bytes, in every weight of the
+    layer or (``leaf``) in that one weight alone (the other layers are
     shared, not copied)."""
     from repro_torch.quant.qtypes import QTensor
     from repro_torch.tree import tree_map
@@ -1064,8 +1185,10 @@ def swap_nibbles_one_layer(torch, params, key: str = "layers") -> dict:
         data[0] = (((u & 0x0F) << 4) | (u >> 4)).view(torch.int8)
         return dataclasses.replace(x, data=data)
 
-    segs[i] = dataclasses.replace(segs[i],
-                                  params=tree_map(swap, segs[i].params))
+    sp = segs[i].params
+    sp = ({**sp, leaf: swap(sp[leaf])} if leaf is not None
+          else tree_map(swap, sp))
+    segs[i] = dataclasses.replace(segs[i], params=sp)
     return {**params, key: dataclasses.replace(layers, segments=segs)}
 
 
@@ -1896,6 +2019,247 @@ def _matrices(tree) -> list:
 # phase 4d: whisper-medium (enc-dec) serve at full width
 # ---------------------------------------------------------------------------
 
+RECURRENT_MAX_SEQ = 1024   # cache depth per slot of phases 4e and 4f
+
+
+def recurrent_run(torch, build, model, params, label: str, plan, kv: str,
+                  graphs: bool, prompts, device: str, spec=None,
+                  paged=None, readings: bool = False):
+    """One serve of phase 4e/4f: the engine, its outputs (checked: 32 new
+    tokens in the vocabulary with finite logprobs each), its launches and
+    its row (tokens/s, TTFT, bytes, peak memory; ``readings``: one decode
+    chunk's wall and device time and launches per step). Every engine
+    scans its prompts through the captured prompt step, one with eager
+    decode chunks too (those are what it holds a graph serve to);
+    ``prompt_graph_check`` holds the prompt step to the eager scan."""
+    import numpy as np
+    from repro_torch.serving.engine import ServeEngine
+    cfg = model.cfg
+    fresh_memory(torch, device)
+    engine = ServeEngine(model, params, max_seq=RECURRENT_MAX_SEQ, plan=plan,
+                         kv_precision=kv, device=device, cuda_graphs=graphs,
+                         spec=spec, paged=paged)
+    if spec is not None:
+        engine.draft_params                    # the draft, derived once
+    build.reset_launches()                     # main path: counts from 0
+    (outs, stats), peak, serve_peak = serve_peaks(
+        torch, device, lambda: engine.serve(_requests_of(prompts),
+                                            num_slots=SLOTS, chunk=CHUNK))
+    counts = dict(build.LAUNCHES)
+    for o in outs:
+        if (len(o.generated) != 32 or o.generated.min() < 0
+                or o.generated.max() >= cfg.vocab_size
+                or not np.all(np.isfinite(o.logprobs))):
+            raise AssertionError(f"{label}: bad output for request {o.rid}: "
+                                 f"{o.generated}")
+    run = dict(run=label, model=cfg.name, kv=kv,
+               cuda_graphs=engine.graphs is not None,
+               prompt_graph=engine.prompt_graph,
+               paged=paged is not None,
+               spec=None if spec is None else spec.draft_source,
+               requests=len(outs), generated=stats.generated_tokens,
+               tokens_per_s=stats.tokens_per_s,
+               ttft_mean_s=stats.ttft_mean_s, tpot_p50_s=stats.tpot_p50_s,
+               decode_chunk_p50_s=stats.decode_gap_p50_s, wall_s=stats.wall_s,
+               weight_bytes=engine.weight_bytes(),
+               kv_bytes_by_field=engine.kv_bytes_by_field(),
+               kv_bytes_per_slot=engine.kv_bytes_per_slot(),
+               state_bytes_by_field=engine.state_bytes_by_field(),
+               max_memory_allocated=peak,
+               serve_max_memory_allocated=serve_peak, launches=counts)
+    if spec is not None:
+        run.update(spec_rounds=stats.spec_rounds,
+                   acceptance_rate=stats.acceptance_rate,
+                   tokens_per_round=stats.tokens_per_round,
+                   draft_overhead_bytes=engine.draft_overhead_bytes())
+    if paged is not None:
+        run.update(pool_pages=stats.pool_pages_total,
+                   pool_pages_peak=stats.pool_pages_peak,
+                   prefix_hits=stats.prefix_hits,
+                   kv_bytes_peak=stats.kv_bytes_peak)
+    if readings:
+        run["chunk"] = chunk_readings(torch, build, engine, prompts, device)
+    log(f"{cfg.name} serve: " + json.dumps(run))
+    return engine, outs, run, counts
+
+
+def serve_recurrent(torch, build, report: dict, arch: str,
+                    smoke: bool = False, device: str = "cuda") -> dict:
+    """Phases 5 and 4e (zamba2-2.7b FULL: 54 Mamba2 layers, d_model 2560,
+    one shared attention + MLP block at 9 sites, 32 heads of hd 80, vocab
+    32000) or 4f (mamba2-780m FULL: 48 layers, d_model 1536, vocab 50280)
+    from seeded random weights, max_seq 1024, 4 slots, chunk 8, phase 4's
+    8 prompts of 64-256 tokens (each prefilled as a scan of single-token
+    steps, replayed from a CUDA graph on a graph engine), 32 new tokens
+    each. The analysis through the entropy kernel (phase 5); its 4bit/8bit
+    plan served with int8 KV from CUDA graphs, with eager decode chunks
+    (equal to the bit) and under the planted stale-buffer fault (must
+    differ); the prompt step against the eager scan (to the bit); an explicit
+    raw/int8/int4/ternary plan (int8 embedding and shared block) with int4
+    KV. zamba2 only: an equal-memory paged pool with prefix sharing
+    (tokens and logprobs equal to the dense EWQ serve) and spec k = 4 with
+    the int4 self-draft and the ngram draft, each from CUDA graphs and
+    eagerly (equal to the bit). Then, on the explicit engine, one decode
+    step through the kernels against the plain versions (LOGIT_REL_L2),
+    and the planted fault the limit must catch: one Mamba2 layer's int4
+    ``w_in`` nibble-swapped. Returns the launches of the phases."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import policy
+    from repro_torch.models.model import build as build_model
+    from repro_torch.quant.kvcache import clone_cache
+    from repro_torch.serving.pool import PagedConfig
+    from repro_torch.serving.quantized import explicit_plan
+    from repro_torch.serving.spec import SpecConfig
+
+    cfg = get_config(arch, smoke=smoke)
+    hybrid = cfg.family == "hybrid"
+    model = build_model(cfg)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=device).manual_seed(0), device)
+    sync()
+    n_params = sum(t.numel() for t in _matrices(params))
+    log(f"{cfg.name}: {cfg.family} {cfg.num_layers}L d_model {cfg.d_model} "
+        f"d_inner {cfg.d_inner} ssm heads {cfg.ssm_nheads}x{cfg.ssm_headdim} "
+        f"state {cfg.ssm_state} "
+        + (f"shared attention {cfg.num_heads}H/{cfg.num_kv_heads}KV hd "
+           f"{cfg.head_dim} x {cfg.num_layers // cfg.shared_attn_period} "
+           f"sites d_ff {cfg.d_ff} " if hybrid else "")
+        + f"vocab {cfg.vocab_size} {cfg.dtype}: {n_params} matrix params; "
+        f"random init {time.perf_counter() - t0:.1f} s")
+    launches = {k: 0 for k in build.LAUNCHES}
+    ents, launches["entropy"] = analyze_model(torch, build, report, model,
+                                              params, device)
+    ewq = policy.decide(ents, aggressive="int4")    # the 4bit/8bit variant
+    log(f"{cfg.name}: EWQ 4bit/8bit plan from the kernel-mode entropies: "
+        f"{ewq.counts()} precisions {ewq.precisions()}")
+    tiers = ["raw", "int8", "int4", "ternary"]
+    n = cfg.num_layers
+    explicit = explicit_plan(cfg, [tiers[i * len(tiers) // n]
+                                   for i in range(n)],
+                             embed_precision="int8",
+                             shared_precision="int8")
+    prompts = serve_prompts(cfg.vocab_size)
+    runs = []
+
+    def serve(label, plan, kv, graphs, **kw):
+        engine, outs, run, counts = recurrent_run(
+            torch, build, model, params, label, plan, kv, graphs, prompts,
+            device, **kw)
+        for k, v in counts.items():
+            launches[k] += v
+        runs.append(run)
+        return engine, outs, run
+
+    engine, base_outs, _ = serve("ewq-4bit/8bit", ewq, "int8", True,
+                                 readings=True)
+    fault_outs = (stale_buffer_serve(torch, engine, _requests_of(prompts))
+                  if device == "cuda" else None)
+    prompt_check = prompt_graph_check(torch, engine, min(prompts, key=len))
+    engine = None
+    _, outs, run = serve("ewq-4bit/8bit", ewq, "int8", False)
+    require_same(f"{cfg.name} ewq", base_outs, outs, logprobs=True)
+    run["identical_to_graph_run"] = True
+    if fault_outs is not None:
+        run["planted_fault"] = stale_buffer_caught(fault_outs, outs)
+    if hybrid:
+        _, outs, run = serve("ewq-4bit/8bit-paged", ewq, "int8", True,
+                             paged=PagedConfig(page_size=PAGE))
+        if not same_outputs(outs, base_outs, logprobs=True):
+            raise AssertionError(f"{cfg.name}: the paged serve differs from "
+                                 "the dense serve")
+        run["identical_to_dense_run"] = True
+        for label, source in (("spec-model-draft", "model"),
+                              ("spec-ngram-draft", "ngram")):
+            spec = SpecConfig(k=SPEC_K, draft_source=source)
+            _, graph_outs, _ = serve(label, ewq, "int8", True, spec=spec,
+                                     readings=True)
+            _, outs, run = serve(label, ewq, "int8", False, spec=spec)
+            require_same(f"{cfg.name} {label}", graph_outs, outs,
+                         logprobs=True)
+            run["identical_to_graph_run"] = True
+    engine, _, _ = serve("explicit-all-precisions", explicit, "int4", True,
+                         readings=True)
+
+    # one decode step through the kernels against the plain versions, on
+    # the explicit plan's params and an identical int4 cache
+    state = engine.init_decode_state(SLOTS)
+    for slot in range(SLOTS):
+        engine.insert(state, slot, engine.prefill_request(prompts[slot]), 32)
+    toks = torch.argmax(state.last_logits[:, :cfg.vocab_size], -1)[:, None]
+
+    def step_logits(p, plain=False):
+        logits, _ = model.decode_step(p, clone_cache(state.cache), toks,
+                                      plain=plain)
+        return logits.float()
+
+    k_logits = step_logits(engine.params)
+    p_logits = step_logits(engine.params, True)
+    if not bool(torch.isfinite(k_logits).all()):
+        raise AssertionError(f"{cfg.name}: non-finite logits through the "
+                             "kernels")
+    rel = rel_l2(k_logits, p_logits)
+    rel_fault = rel_l2(step_logits(swap_nibbles_one_layer(
+        torch, engine.params, leaf="w_in")), p_logits)
+    agree = float((k_logits.argmax(-1) == p_logits.argmax(-1)).float().mean())
+    log(f"{cfg.name}: first decode step, kernels vs plain versions: relative "
+        f"L2 {rel:.4g} (limit {LOGIT_REL_L2}), greedy agreement {agree:.2f}; "
+        f"one Mamba2 layer's int4 w_in nibble-swapped: {rel_fault:.4g}")
+    if rel > LOGIT_REL_L2:
+        raise AssertionError(f"{cfg.name}: decode logits differ: relative L2 "
+                             f"{rel}")
+    if rel_fault <= LOGIT_REL_L2:
+        raise AssertionError(f"{cfg.name}: the logit limit {LOGIT_REL_L2} "
+                             f"misses a planted fault (relative L2 "
+                             f"{rel_fault})")
+    step = {}
+    if device == "cuda":
+        eager_ms, device_ms = step_ms(torch, model, engine.params, state,
+                                      toks)
+        step = dict(eager_ms=eager_ms, device_ms=device_ms)
+        log(f"{cfg.name}: one decode step at {SLOTS} slots (explicit plan, "
+            f"int4 KV): eager {eager_ms:.2f} ms wall, device {device_ms:.2f} "
+            f"ms (CUDA graph replay)")
+    report.setdefault("recurrent", {})[cfg.name] = dict(
+        runs=runs, ewq_counts=ewq.counts(), logit_rel_l2=rel,
+        logit_rel_l2_planted_fault=rel_fault, greedy_agreement=agree,
+        decode_step=step, prompt_graph_check=prompt_check,
+        launches=launches)
+    return launches
+
+
+def prompt_graph_check(torch, engine, prompt) -> dict:
+    """A prompt scanned through the captured prompt step against the same
+    prompt scanned eagerly: the cache (conv, state and K/V) and the last
+    logits must be equal to the bit."""
+    sync = (torch.cuda.synchronize if engine.device.type == "cuda"
+            else (lambda: None))
+    toks = engine._tokens(prompt[None])
+    t0 = time.perf_counter()
+    g_cache, g_logits = engine._scan_prompt(toks)
+    sync()
+    t1 = time.perf_counter()
+    e_cache, e_logits = engine._scan_prompt(toks, eager=True)
+    sync()
+    t2 = time.perf_counter()
+    same = torch.equal(g_logits, e_logits) and all(
+        torch.equal(a, b) for a, b in zip(g_cache, e_cache))
+    if not same:
+        raise AssertionError(f"{engine.cfg.name}: the prompt step replayed "
+                             "from its graph differs from the eager scan")
+    out = dict(tokens=int(prompt.size), graph_s=t1 - t0, eager_s=t2 - t1,
+               identical=True)
+    log(f"{engine.cfg.name}: prompt scan from its CUDA graph equal to the "
+        f"eager scan to the bit: " + json.dumps(out))
+    return out
+
+
+def _requests_of(prompts, max_new: int = 32) -> list:
+    from repro_torch.serving.scheduler import Request
+    return [Request(rid=i, prompt=p, max_new_tokens=max_new)
+            for i, p in enumerate(prompts)]
+
+
 WHISPER_MAX_SEQ = 448   # whisper's published decoder context (n_text_ctx)
 
 
@@ -2246,6 +2610,18 @@ def main() -> int:
     for k, v in serve_whisper(torch, build, report).items():
         launches[k] += v
     out_file.write_text(json.dumps(report, indent=1))
+    # -- phases 5, 4e and 4f: zamba2-2.7b and mamba2-780m at full width -----
+    for arch, path in (("zamba2-2.7b", ZAMBA_PATH),
+                       ("mamba2-780m", MAMBA_PATH)):
+        torch.cuda.empty_cache()
+        got = serve_recurrent(torch, build, report, arch)
+        for k in path:
+            if got[k] <= 0:
+                raise AssertionError(f"kernel {k} never launched on "
+                                     f"{arch}'s serve and analysis paths")
+        for k, v in got.items():
+            launches[k] += v
+        out_file.write_text(json.dumps(report, indent=1))
     for k, v in launches.items():
         if v <= 0 and k not in OFF_PATH:
             raise AssertionError(f"kernel {k} never launched on the serve "

@@ -14,11 +14,14 @@ module imports nothing of the JAX package:
 * the same fields without them                    -> ``KVPage``
 * a NamedTuple with the fields of a family cache  -> the port's cache
   (``(k, v, pos)``: ``DecodeCache``; ``(k, v, cross_k, cross_v, pos)``:
-  ``EncDecCache``);
+  ``EncDecCache``; ``(conv, state, pos)``: ``SSMLMCache``;
+  ``(conv, state, k, v, pos)``: ``HybridCache``);
 * dicts, lists, tuples and other NamedTuples keep their structure.
 
 So an enc-dec model's params (two segmented stacks, ``enc_layers`` and
-``dec_layers``) and its cache, raw or quantized, carry over as they are.
+``dec_layers``), a hybrid model's (the stacked Mamba2 ``layers`` and the
+``shared`` block) and their caches, raw or quantized, carry over as they
+are.
 
 bf16 leaves arrive as ``ml_dtypes.bfloat16`` arrays and are carried over
 bit for bit through a uint16 view; int8 payloads keep their bytes.
@@ -36,6 +39,8 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.encdec import EncDecCache
+from repro_torch.models.hybrid import HybridCache
+from repro_torch.models.ssm_lm import SSMLMCache
 from repro_torch.models.transformer import DecodeCache
 from repro_torch.quant.apply import Segment, SegmentedParams
 from repro_torch.quant.kvcache import KVPage, PagedKV
@@ -61,7 +66,8 @@ def to_torch(a, device=None) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
-_CACHES = {cls._fields: cls for cls in (DecodeCache, EncDecCache)}
+_CACHES = {cls._fields: cls for cls in (DecodeCache, EncDecCache,
+                                        SSMLMCache, HybridCache)}
 
 
 def _has(x, *names) -> bool:

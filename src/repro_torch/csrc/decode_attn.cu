@@ -71,10 +71,21 @@
 //   query rows per warp; P.V gives each thread a 16-element chunk of hd for
 //   its query rows (1 or 4, a template parameter) and a slice of the tile's
 //   rows, the slices summed in a fixed order at the end. Element indices
-//   come from compile-time hd: there are copies for hd 32, 64 and 128
-//   (hd / 16 threads a row, a power of two for the shuffles), and the entry
-//   point refuses any other hd, a scale group that is not a power of two
-//   >= 16, and a split other than its own, launching nothing.
+//   come from compile-time hd: there are copies for hd 32, 64, 80 and 128.
+//   A score row takes hd / 16 threads rounded up to a power of two for the
+//   shuffles (hd 80: 8 lanes, the last 3 idle and adding 0, so no
+//   arithmetic is spent on padding; P.V deals 5 chunks a row to its
+//   threads). Each thread's chunk is fixed, so its byte offset, its int4
+//   nibble and its scale index are worked out once: a chunk's scale is
+//   that of its flat element index over ``group`` (a multiple of 16, so a
+//   chunk lies inside one group, while a head's groups may cross heads:
+//   hd 80 over groups of 64), and an int4 chunk is the low nibbles of
+//   bytes f .. f + 15 for flat index f < F / 2, else the high nibbles of
+//   bytes f - F / 2 .. (a head may straddle F / 2 when Hkv is odd). The
+//   entry point refuses any other hd, a group that is not a multiple of 16
+//   or does not divide F, int4 where F / 2 is not a multiple of 16 (a
+//   chunk would straddle the halves: hd 80 with an odd Hkv), and a split
+//   other than its own, launching nothing.
 // * q is read in place from its (B, s, H, hd) layout (bf16 or f32, any
 //   strides but the last); the merge writes (B, s, H, hd) in q's dtype,
 //   bf16 rounded to nearest even.
@@ -156,6 +167,12 @@ __host__ __device__ inline int pv_slices(int rows, int chunks) {
   int ts = 1;
   while (ts * 2 <= kTile && ts * 2 * chunks * groups <= kThreads) ts *= 2;
   return ts;
+}
+
+// Threads of one score row: hd / 16 chunks rounded up to a power of two
+// (the shuffle width); lanes past the chunks sit idle.
+__host__ __device__ constexpr int score_lanes(int hd) {
+  return hd / 16 <= 2 ? hd / 16 : (hd / 16 <= 4 ? 4 : 8);
 }
 
 // Bytes of one row of one head as staged: hd for int8 and int4, 2 hd bf16.
@@ -243,12 +260,33 @@ struct Source {
 
 struct Head {
   size_t row_stride;         // bytes of one stored row (all heads)
-  int head_off;              // byte offset of the head's elements in a row
+  int f0;                    // flat index of the head's first element (h * hd)
+  int half;                  // int4: F / 2, the flat index of the first high nibble
   int ns_row;                // scales per stored row (F / group)
-  int s0, ns;                // the head's first scale in a row, and count
-  int glog2;                 // log2(group)
-  bool hi;                   // int4: the head's elements are high nibbles
+  int s0, ns;                // the head's first scale in a row, and the count
+                             // of groups its elements touch
+  int group;                 // elements per scale (a multiple of 16)
 };
+
+// Byte offset, within a stored row, of the 16 bytes that hold chunk c of
+// a head's row as staged (c counts 16-byte copies: 8 elements for bf16, 16
+// otherwise).
+template <int PREC>
+__device__ __forceinline__ int chunk_offset(const Head& hd, int c) {
+  if (PREC == 2) return 2 * hd.f0 + 16 * c;
+  const int f = hd.f0 + 16 * c;
+  return PREC == 1 && f >= hd.half ? f - hd.half : f;
+}
+
+// int4: whether 16-element chunk c of the head is stored as high nibbles.
+__device__ __forceinline__ bool chunk_hi(const Head& hd, int c) {
+  return hd.f0 + 16 * c >= hd.half;
+}
+
+// The index of 16-element chunk c's scale among the head's staged scales.
+__device__ __forceinline__ int chunk_sidx(const Head& hd, int c) {
+  return (hd.f0 + 16 * c) / hd.group - hd.s0;
+}
 
 // The stored K and V row of each of the block's rows (logical positions
 // lo + i, i < n), looked up once (through the page tables for a pool): -1
@@ -293,7 +331,7 @@ __device__ __forceinline__ void copy_tile(unsigned char* st, const int* krow,
     const int row = (which == 0 ? krow : vrow)[r0 + t];
     const unsigned char* base = which == 0 ? src.kd : src.vd;
     cp_async16(st + (which * kTile + t) * RB + 16 * c,
-               row >= 0 ? base + (size_t)row * hd.row_stride + hd.head_off + 16 * c
+               row >= 0 ? base + (size_t)row * hd.row_stride + chunk_offset<PREC>(hd, c)
                         : base,
                row >= 0 ? 16 : 0);
   }
@@ -321,42 +359,45 @@ __device__ __forceinline__ void copy_tile(unsigned char* st, const int* krow,
   }
 }
 
-// The scale of chunk c of a staged row (1 for bf16 pages).
-template <int PREC, int HD>
+// The scale of a chunk of a staged row whose scale is the head's ``sidx``-th
+// (chunk_sidx; 1 for bf16 pages).
+template <int PREC>
 __device__ __forceinline__ float chunk_scale(const unsigned char* words,
-                                             unsigned char shift, const Head& hd,
-                                             int h, int c) {
+                                             unsigned char shift, int sidx) {
   if (PREC == 2) return 1.f;
-  const int idx = shift + (((h * HD + 16 * c) >> hd.glog2) - hd.s0);
-  return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(words)[idx]);
+  return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(words)[shift + sidx]);
 }
 
 // Scores of N query rows r0 .. r0 + N - 1 against tile row t (16-element
-// chunk c of it in x, its scale sc): N independent FMA chains, reduced over
-// the G threads of the row, written by its chunk-0 thread (-inf where the
-// row is not seen).
-template <int N, int G, int HD>
+// chunk c of it in x, its scale sc; ``on`` false for an idle lane, which
+// adds 0): N independent FMA chains, reduced over the GL lanes of the row,
+// written by its chunk-0 thread (-inf where the row is not seen). q_s
+// interleaves a row's G = hd / 16 chunks.
+template <int N, int G, int GL, int HD>
 __device__ __forceinline__ void score_rows(const float* q_s, const float (&x)[16],
-                                           float sc, int c, int r0, int t,
-                                           bool live, int pos, const int* lim_s,
-                                           float inv_sqrt, float* p_s) {
+                                           float sc, int c, bool on, int r0,
+                                           int t, bool live, int pos,
+                                           const int* lim_s, float inv_sqrt,
+                                           float* p_s) {
   float s[N];
 #pragma unroll
   for (int u = 0; u < N; ++u) {
-    const float4* qv = reinterpret_cast<const float4*>(q_s + (r0 + u) * HD) + c;
     float a = 0.f;
+    if (on) {
+      const float4* qv = reinterpret_cast<const float4*>(q_s + (r0 + u) * HD) + c;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float4 v = qv[k * G];
-      a = fmaf(v.x, x[4 * k], a);
-      a = fmaf(v.y, x[4 * k + 1], a);
-      a = fmaf(v.z, x[4 * k + 2], a);
-      a = fmaf(v.w, x[4 * k + 3], a);
+      for (int k = 0; k < 4; ++k) {
+        const float4 v = qv[k * G];
+        a = fmaf(v.x, x[4 * k], a);
+        a = fmaf(v.y, x[4 * k + 1], a);
+        a = fmaf(v.z, x[4 * k + 2], a);
+        a = fmaf(v.w, x[4 * k + 3], a);
+      }
     }
     s[u] = a * sc;
   }
 #pragma unroll
-  for (int o = G / 2; o > 0; o >>= 1)
+  for (int o = GL / 2; o > 0; o >>= 1)
 #pragma unroll
     for (int u = 0; u < N; ++u) s[u] += __shfl_xor_sync(0xffffffffu, s[u], o);
   if (c == 0) {
@@ -383,10 +424,11 @@ decode_attn_split(const void* __restrict__ q, int qf32, long long q_sb,
                   const unsigned char* __restrict__ fvs,
                   const int* __restrict__ base_pos, float* __restrict__ part_acc,
                   float2* __restrict__ part_ml, int S, int P, int n_log,
-                  int Hkv, int rep, int qs, int ns_row, int glog2, int causal,
+                  int Hkv, int rep, int qs, int ns_row, int group, int causal,
                   int Sf, int n_split, float inv_sqrt) {
   constexpr int RB = row_bytes(PREC, HD);
-  constexpr int G = HD / 16;       // threads (16-element chunks) per row
+  constexpr int G = HD / 16;       // 16-element chunks per row
+  constexpr int GL = score_lanes(HD);   // threads of a score row (>= G)
   constexpr int kSplit = split_of(RPT);
   extern __shared__ __align__(16) unsigned char smem[];
   // this block's query rows: rows rbase .. rbase + R - 1 of the KV head's
@@ -433,12 +475,12 @@ decode_attn_split(const void* __restrict__ q, int qf32, long long q_sb,
   } else {
     Head hd;
     hd.row_stride = (size_t)Hkv * HD * (PREC == 2 ? 2 : 1) / (PREC == 1 ? 2 : 1);
-    hd.hi = PREC == 1 && h >= Hkv / 2;
-    hd.head_off = PREC == 1 ? (h % (Hkv / 2)) * HD : h * RB;
+    hd.f0 = h * HD;
+    hd.half = Hkv * HD / 2;
     hd.ns_row = ns_row;
-    hd.glog2 = glog2;
-    hd.s0 = (h * HD) >> glog2;
-    hd.ns = (HD >> glog2) > 0 ? (HD >> glog2) : 1;
+    hd.group = group;
+    hd.s0 = hd.f0 / group;
+    hd.ns = (hd.f0 + HD - 1) / group - hd.s0 + 1;
     // a pool's logical rows go through the slot's K and V page tables
     const bool paged = ktable != nullptr;
     const int* kt = paged ? ktable + (size_t)b * n_log : nullptr;
@@ -482,6 +524,14 @@ decode_attn_split(const void* __restrict__ q, int qf32, long long q_sb,
     const int TS = pv_slices(RG, G);
     const int pc = tid % G, pts = (tid / G) % TS, prg = tid / (G * TS);
     const bool pv_on = prg * RPT < R;
+    // a thread's chunk is the same in every tile, so its nibble and scale
+    // index are too (scores: chunk sc_c, idle past G; P.V: chunk pc)
+    const int sc_c = tid % GL;
+    const bool sc_on = sc_c < G;
+    const bool sc_hi = PREC == 1 && chunk_hi(hd, sc_on ? sc_c : 0);
+    const int sc_idx = chunk_sidx(hd, sc_on ? sc_c : 0);
+    const bool pv_hi = PREC == 1 && chunk_hi(hd, pc);
+    const int pv_idx = chunk_sidx(hd, pc);
     float acc[RPT][16];
 #pragma unroll
     for (int a = 0; a < RPT; ++a)
@@ -514,24 +564,29 @@ decode_attn_split(const void* __restrict__ q, int qf32, long long q_sb,
       const int nrows = hi - pos0 < kTile ? hi - pos0 : kTile;
 
       // scores: row t, chunk c, query rows four (then two, then one) at once
-      // (independent FMA chains); reduced over the G threads of the row
-      for (int t = tid / G; t < kTile; t += kThreads / G) {
-        const int c = tid % G;
+      // (independent FMA chains); reduced over the GL lanes of the row
+      for (int t = tid / GL; t < kTile; t += kThreads / GL) {
+        const int c = sc_c;
         float x[16];
-        chunk16<PREC>(kst + t * RB, c, hd.hi, x);
-        const float sc = chunk_scale<PREC, HD>(ksc + t * kScW * 4,
-                                               kshift[it * kTile + t], hd, h, c);
+        float sc = 0.f;
+        if (sc_on) {
+          chunk16<PREC>(kst + t * RB, c, sc_hi, x);
+          sc = chunk_scale<PREC>(ksc + t * kScW * 4, kshift[it * kTile + t], sc_idx);
+        }
         const int pos = pos0 + t;
         const bool live = t < nrows;
         int r0 = 0;
         for (; r0 + 4 <= R; r0 += 4)
-          score_rows<4, G, HD>(q_s, x, sc, c, r0, t, live, pos, lim_s, inv_sqrt, p_s);
+          score_rows<4, G, GL, HD>(q_s, x, sc, c, sc_on, r0, t, live, pos, lim_s,
+                                   inv_sqrt, p_s);
         if (r0 + 2 <= R) {
-          score_rows<2, G, HD>(q_s, x, sc, c, r0, t, live, pos, lim_s, inv_sqrt, p_s);
+          score_rows<2, G, GL, HD>(q_s, x, sc, c, sc_on, r0, t, live, pos, lim_s,
+                                   inv_sqrt, p_s);
           r0 += 2;
         }
         if (r0 < R)
-          score_rows<1, G, HD>(q_s, x, sc, c, r0, t, live, pos, lim_s, inv_sqrt, p_s);
+          score_rows<1, G, GL, HD>(q_s, x, sc, c, sc_on, r0, t, live, pos, lim_s,
+                                   inv_sqrt, p_s);
       }
       __syncthreads();
       // online softmax: a warp takes two query rows at once, a lane kPerLane
@@ -597,9 +652,9 @@ decode_attn_split(const void* __restrict__ q, int qf32, long long q_sb,
 #pragma unroll 2
         for (int t = pts; t < nrows; t += TS) {
           float x[16];
-          chunk16<PREC>(vst + t * RB, pc, hd.hi, x);
-          const float sc = chunk_scale<PREC, HD>(vsc + t * kScW * 4,
-                                                 vshift[it * kTile + t], hd, h, pc);
+          chunk16<PREC>(vst + t * RB, pc, pv_hi, x);
+          const float sc = chunk_scale<PREC>(vsc + t * kScW * 4,
+                                             vshift[it * kTile + t], pv_idx);
 #pragma unroll
           for (int a = 0; a < RPT; ++a) {
             const int r = prg * RPT + a;
@@ -687,7 +742,7 @@ struct Args {
   float* part_acc;
   float2* part_ml;
   void* out;
-  int B, S, P, n_log, Hkv, rep, qs, ns_row, glog2, causal, Sf, n_split;
+  int B, S, P, n_log, Hkv, rep, qs, ns_row, group, causal, Sf, n_split;
   float inv_sqrt;
 };
 
@@ -712,7 +767,7 @@ int launch(const Args& a, cudaStream_t st) {
   decode_attn_split<PREC, HD, RPT><<<grid, kThreads, smem, st>>>(
       a.q, a.qf32, a.q_sb, a.q_ss, a.q_sh, a.kd, a.ks, a.vd, a.vs, a.valid,
       a.ktable, a.vtable, a.fkd, a.fks, a.fvd, a.fvs, a.base, a.part_acc,
-      a.part_ml, a.S, a.P, a.n_log, a.Hkv, a.rep, a.qs, a.ns_row, a.glog2,
+      a.part_ml, a.S, a.P, a.n_log, a.Hkv, a.rep, a.qs, a.ns_row, a.group,
       a.causal, a.Sf, a.n_split, a.inv_sqrt);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -732,6 +787,7 @@ template <int PREC>
 int launch_hd(const Args& a, int hd, cudaStream_t st) {
   if (hd == 32) return launch_rows<PREC, 32>(a, st);
   if (hd == 64) return launch_rows<PREC, 64>(a, st);
+  if (hd == 80) return launch_rows<PREC, 80>(a, st);
   if (hd == 128) return launch_rows<PREC, 128>(a, st);
   return (int)cudaErrorInvalidValue;   // no copy for this head dim
 }
@@ -740,9 +796,9 @@ int launch_hd(const Args& a, int hd, cudaStream_t st) {
 
 // Dynamic shared memory of one split block for a KV head's ``rows`` =
 // rep * qs query rows at head dim ``hd`` and precision ``prec``; -1 where
-// the kernel does not take the shape (hd not 32, 64 or 128).
+// the kernel does not take the shape (hd not 32, 64, 80 or 128).
 REPRO_API int repro_decode_attn_smem(int rows, int hd, int prec) {
-  if ((hd != 32 && hd != 64 && hd != 128) || rows < 1) return -1;
+  if ((hd != 32 && hd != 64 && hd != 80 && hd != 128) || rows < 1) return -1;
   return layout(prec, hd, rows_per_group(rows)).total;
 }
 
@@ -756,12 +812,13 @@ REPRO_API int repro_decode_attn_smem(int rows, int hd, int prec) {
 // (B, Sf, F / group) at positions base (B,) int32 + j (all ignored when
 // Sf == 0); ``scratch`` f32 of B * Hkv * (ceil(S / L) + (Sf > 0)) *
 // rep * s * (hd + 2) elements (the per-split partials); out (B, s, H, hd)
-// contiguous in q's dtype. prec: 0 int8, 1 int4, 2 bf16. group is a power
-// of two >= 16. ``split`` is the caller's logical rows per split (the plain
-// version's ``split_rows(rep * qs)``, which sized the scratch). Returns
-// cudaErrorInvalidValue, launching nothing, for a shape the kernel has no
-// copy for (hd not 32, 64 or 128; another group or precision; int4 with
-// an odd Hkv) or a split other than its own.
+// contiguous in q's dtype. prec: 0 int8, 1 int4, 2 bf16. group (int8, int4)
+// is a multiple of 16 that divides F = Hkv * hd. ``split`` is the caller's
+// logical rows per split (the plain version's ``split_rows(rep * qs)``,
+// which sized the scratch). Returns cudaErrorInvalidValue, launching
+// nothing, for a shape the kernel has no copy for (hd not 32, 64, 80 or
+// 128; another group or precision; int4 where F / 2 is not a multiple of
+// 16) or a split other than its own.
 REPRO_API int repro_decode_attn(const void* q, const void* kd, const void* ks,
                                 const void* vd, const void* vs,
                                 const void* valid, const void* ktable,
@@ -774,16 +831,16 @@ REPRO_API int repro_decode_attn(const void* q, const void* kd, const void* ks,
                                 int group, int prec, int causal, int Sf,
                                 int split, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (rep < 1 || qs < 1 || prec < 0 || prec > 2 ||
-      (prec != 2 && (group < 16 || (group & (group - 1)))) ||
-      (prec == 1 && Hkv % 2) || split != split_rows(rep * qs))
+  if (rep < 1 || qs < 1 || Hkv < 1 || prec < 0 || prec > 2 ||
+      (hd != 32 && hd != 64 && hd != 80 && hd != 128) ||
+      (prec != 2 && (group < 16 || group % 16 || (Hkv * hd) % group)) ||
+      (prec == 1 && (Hkv * hd / 2) % 16) || split != split_rows(rep * qs))
     return (int)cudaErrorInvalidValue;
+  if (prec == 2) group = 16;   // no scales: a value that keeps the arithmetic defined
   if (n_log > 0) S = n_log * P;
   const int L = split;
   const int n_split = S > 0 ? (S + L - 1) / L : 1;
   const int nparts = n_split + (Sf > 0 ? 1 : 0);
-  int glog2 = 0;
-  while ((1 << glog2) < group) ++glog2;
   Args a;
   a.q = q;
   a.qf32 = qf32;
@@ -814,7 +871,7 @@ REPRO_API int repro_decode_attn(const void* q, const void* kd, const void* ks,
   a.rep = rep;
   a.qs = qs;
   a.ns_row = Hkv * hd / group;
-  a.glog2 = glog2;
+  a.group = group;
   a.causal = causal;
   a.Sf = Sf;
   a.n_split = n_split;

@@ -53,6 +53,7 @@ _PREC = {"int8": 0, "int4": 1, "bf16": 2}
 _Q_DTYPES = {torch.bfloat16: 0, torch.float32: 1}   # q dtype -> qf32 flag
 _SMEM_LIMIT = 227 * 1024        # dynamic shared memory a Hopper block can opt into
 _MAX_FRESH = 32                 # fresh rows the kernel's epilogue tile takes
+HEAD_DIMS = (32, 64, 80, 128)   # head dims decode_attn.cu has copies for
 
 
 def _page_of(x):
@@ -242,6 +243,29 @@ def _check_pages(kp, vp, lead: tuple, hkv: int, d: int, dev,
     return out
 
 
+def check_form(hd: int, hkv: int, group: int, precision: str) -> None:
+    """Raise ValueError, naming what the kernel takes, for a cache form
+    ``decode_attn.cu`` has no copy for: a head dim outside ``HEAD_DIMS``, a
+    scale group (int8, int4) that is not a multiple of 16 or does not
+    divide F = Hkv * hd, or split-half int4 pages whose halves F / 2 are
+    not a multiple of 16 elements (a 16-element chunk would straddle them:
+    hd 80 with an odd Hkv). The C entry point refuses the same forms."""
+    if precision not in _PREC:
+        raise ValueError(f"unsupported KV precision {precision!r}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"decode_attn: the kernel takes head dims "
+                         f"{HEAD_DIMS}, got {hd}")
+    f = hkv * hd
+    if precision != "bf16" and (group < 16 or group % 16 or f % group):
+        raise ValueError(f"decode_attn: the kernel takes scale groups that "
+                         f"are multiples of 16 and divide Hkv * hd = {f}, "
+                         f"got {group}")
+    if precision == "int4" and (f // 2) % 16:
+        raise ValueError(f"decode_attn: split-half int4 pages need Hkv * hd "
+                         f"/ 2 to be a multiple of 16, got {f // 2} (Hkv "
+                         f"{hkv}, hd {hd})")
+
+
 def _check_tables(kp: PagedKV, vp: PagedKV, b: int, dev) -> list:
     """Both pools' page tables: (B, n_log) int32, contiguous, on ``dev``,
     over the same page size; at least one physical page."""
@@ -272,8 +296,6 @@ def decode_attn_cuda(q: torch.Tensor, kp, vp, valid_len: torch.Tensor,
     dtype."""
     b, s, h, d = q.shape
     dev = q.device
-    if kp.precision not in _PREC:
-        raise ValueError(f"unsupported KV precision {kp.precision!r}")
     if kp.precision != vp.precision or kp.group != vp.group:
         raise ValueError("decode_attn: K and V pages must share precision "
                          "and group")
@@ -306,12 +328,7 @@ def decode_attn_cuda(q: torch.Tensor, kp, vp, valid_len: torch.Tensor,
         raise ValueError(f"{h} query heads do not group over {hkv} KV heads")
     rep = h // hkv
     grp = kp.group
-    if kp.precision != "bf16" and (grp < 16 or grp & (grp - 1)):
-        raise ValueError(f"decode_attn: the kernel takes scale groups that "
-                         f"are powers of two >= 16, got {grp}")
-    if kp.precision == "int4" and hkv % 2:
-        raise ValueError("decode_attn: split-half int4 pages need an even "
-                         "number of KV heads")
+    check_form(d, hkv, grp, kp.precision)
     seq = kp.seq_len
     cache = _check_pages(kp, vp, tuple(kp.data.shape[:2]) if paged
                          else (b, seq), hkv, d, dev, "cache")
@@ -321,9 +338,8 @@ def decode_attn_cuda(q: torch.Tensor, kp, vp, valid_len: torch.Tensor,
     lib = build.library("decode_attn")
     smem = lib.repro_decode_attn_smem(rep * s, d, _PREC[kp.precision])
     if smem < 0 or smem > _SMEM_LIMIT:
-        raise ValueError(f"decode_attn: the kernel takes head_dim 32, 64 or "
-                         f"128 within its shared memory; got hd={d}, "
-                         f"rep={rep} x s={s} query rows")
+        raise ValueError(f"decode_attn: hd={d} with rep={rep} x s={s} query "
+                         f"rows does not fit the kernel's shared memory")
     sf = 0
     fresh_ptrs = [0, 0, 0, 0, 0]
     if fresh is not None:

@@ -9,13 +9,19 @@
         --shared-prefix-len 12 # paged KV pool with prefix sharing
     python -m repro_torch.launch.serve --arch whisper-medium \
         --kv-precision int8    # enc-dec: seeded frames per request
+    python -m repro_torch.launch.serve --arch zamba2-2.7b --smoke \
+        --device cpu           # hybrid (also --paged, --spec-k 4)
+    python -m repro_torch.launch.serve --arch mamba2-780m --smoke \
+        --device cpu           # SSM (also --spec-k 4)
 
 Weights are random, drawn from a seeded ``torch.Generator`` at the JAX
 package's init scales (real checkpoints are not in the repository), so the
 run shows the serving path, its memory and its speed, not model quality.
 An enc-dec model (whisper) gets one block of (encoder_seq, d_model) frame
 embeddings per request, standard normal from ``--seed``, in place of the
-audio frontend.
+audio frontend. An SSM or hybrid model also reports the conv/state bytes
+a slot holds; an SSM model has no KV cache, so ``--kv-precision`` and
+``--paged`` leave it as it is.
 Without ``--device`` it runs on the GPU, and raises if there is none.
 """
 
@@ -131,7 +137,8 @@ def main(argv=None) -> dict:
                   ttft_mean_s=stats.ttft_mean_s,
                   weight_bytes=engine.weight_bytes(),
                   kv_bytes_per_slot=engine.kv_bytes_per_slot(),
-                  kv_bytes_by_field=engine.kv_bytes_by_field())
+                  kv_bytes_by_field=engine.kv_bytes_by_field(),
+                  state_bytes_by_field=engine.state_bytes_by_field())
     if paged is not None:
         report.update(page_size=paged.page_size,
                       pool_pages=stats.pool_pages_total,

@@ -34,6 +34,21 @@ def decode_positions(pos: torch.Tensor, b: int, s: int) -> torch.Tensor:
     return (pos.to(torch.int32) + step).expand(b, s)
 
 
+def select_snapshot(snaps: torch.Tensor, idx: torch.Tensor,
+                    batch_axis: int = 2) -> torch.Tensor:
+    """Per-slot gather over stacked sequential-state snapshots: ``snaps``
+    holds N checkpoints stacked on a new leading axis, so the slot axis
+    sits at ``batch_axis`` (2 for the usual (N, L, B, ...) state stack);
+    ``idx`` (B,) picks each slot's snapshot in [0, N). Returns the
+    un-stacked layout (slot axis back at ``batch_axis - 1``): the SSM-state
+    rollback of speculative decoding (conv/state cannot be rewound by
+    position arithmetic)."""
+    moved = snaps.movedim(batch_axis, 0)                  # (B, N, ...)
+    out = moved[torch.arange(moved.shape[0], device=snaps.device),
+                idx.long()]                               # (B, ...)
+    return out.movedim(0, batch_axis - 1)
+
+
 # --------------------------------------------------------------------------
 # Initializers (the JAX package's scales; seeded torch.Generator)
 # --------------------------------------------------------------------------

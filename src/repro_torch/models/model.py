@@ -1,7 +1,8 @@
 """Model facade: one interface over the family modules.
 
-The dense family (``transformer``) and the encoder-decoder family
-(``encdec``) are ported. Building a model of another family raises
+The dense family (``transformer``), the encoder-decoder family
+(``encdec``), the SSM family (``ssm_lm``) and the hybrid family
+(``hybrid``) are ported. Building a model of another family (MoE) raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
 
@@ -13,13 +14,12 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import encdec, transformer
+from repro_torch.models import encdec, hybrid, ssm_lm, transformer
 from repro_torch.quant import kvcache as KV
 
-_FAMILIES = {"dense": transformer, "encdec": encdec}
-_TODO = {"moe": "the other families (MoE branch of the transformer)",
-         "ssm": "the other families (ssm.py, ssm_lm.py)",
-         "hybrid": "the other families (hybrid.py)"}
+_FAMILIES = {"dense": transformer, "encdec": encdec, "ssm": ssm_lm,
+             "hybrid": hybrid}
+_TODO = {"moe": "the other families (MoE branch of the transformer)"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,14 +79,18 @@ class Model:
                                               self.cfg, plain=plain)
 
     def spec_verify(self, params, cache, tokens, *, plain: bool = False):
-        """Score a (B, K+1) verify window in one multi-query decode step.
-        Returns (logits (B, K+1, V_pad), snap) for ``spec_commit``."""
+        """Score a (B, K+1) verify window: one multi-query decode step, or
+        (SSM, hybrid) a scan of single-token steps that snapshots the
+        recurrent state. Returns (logits (B, K+1, V_pad), snap) for
+        ``spec_commit``."""
         return self.module.spec_verify(params, cache, tokens, self.cfg,
                                        plain=plain)
 
     def spec_commit(self, snap, committed):
         """Commit ``committed`` (B,) tokens of a verify window; 0 rolls a
-        slot back to its pre-verify cache position."""
+        slot back to its pre-verify cache position (and, SSM and hybrid,
+        copies each slot's selected conv/state snapshot into the cache in
+        place)."""
         return self.module.spec_commit(snap, committed)
 
     # ---- slotted decode (continuous batching) -----------------------------
@@ -97,6 +101,13 @@ class Model:
     @property
     def kv_cache_fields(self) -> tuple:
         return self.module.KV_CACHE_FIELDS
+
+    @property
+    def scans_prompts(self) -> bool:
+        """True for the families whose recurrent state has no multi-token
+        step (SSM, hybrid): a prompt is a scan of single-token decode
+        steps."""
+        return self.cfg.family in ("ssm", "hybrid")
 
     def slotted_cache(self, num_slots: int, max_seq: int, device):
         """init_cache with a (num_slots,) per-slot position vector."""

@@ -10,11 +10,12 @@ a KV-cache precision policy onto the family's cache layout
 ``compile_draft_plan`` derives the self-speculative all-int4 draft from a
 compiled target by the plan's entropy order.
 
-This port compiles the dense, MoE and enc-dec layouts (the enc-dec family
-has two stacks, ``enc_layers`` and ``dec_layers``, under one plan). The
-hybrid row of ``family_layout`` is kept as plain data so its plans have the
-right length; compiling it waits for its model (ROADMAP.md). Persisted
-plan artifacts are still to be ported.
+Every family's layout compiles: dense, MoE and SSM (one layer stack),
+enc-dec (two stacks, ``enc_layers`` and ``dec_layers``, under one plan)
+and hybrid (the Mamba2 stack, cut at shared-attention unit boundaries when
+the plan is mixed so that every segment runs inside one unit, and the
+shared block quantized whole at its own decision). Persisted plan
+artifacts are still to be ported.
 """
 
 from __future__ import annotations
@@ -155,13 +156,10 @@ class CompiledPlan:
 def compile_plan(model, params, plan: QuantPlan, group: int = 128,
                  kv_precision: str = "bf16",
                  kv_group: int = DEFAULT_KV_GROUP) -> CompiledPlan:
-    """Lower ``plan`` onto ``params`` (dense, MoE and enc-dec families):
-    every layer stack becomes a ``SegmentedParams``."""
+    """Lower ``plan`` onto ``params`` for any family: every layer stack
+    becomes a ``SegmentedParams``, every extra block (embedding, hybrid
+    shared block) is quantized whole."""
     cfg = model.cfg
-    if cfg.family not in ("dense", "moe", "encdec"):
-        raise NotImplementedError(
-            f"compile_plan for the {cfg.family!r} family waits for its model "
-            f"port (ROADMAP.md, 'the other families')")
     expected = plan_length(cfg)
     assert len(plan.decisions) == expected, \
         (f"plan has {len(plan.decisions)} decisions; family {cfg.family!r} "

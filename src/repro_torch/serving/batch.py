@@ -13,7 +13,9 @@ silently go stale.
 * ``cache`` is the family's KV cache in the slotted layout (``pos`` is a
   (B,) vector); with a quantized KV plan its K/V fields are KVPages (or
   PagedKV pools on a paged engine) and admission quantizes the prefilled
-  K/V on insert;
+  K/V on insert; an SSM or hybrid cache also holds per-slot conv/state
+  (slot axis 1), which insert overwrites and release leaves to the next
+  insert;
 * ``insert_request`` overwrites one slot with a prefilled request;
   ``commit_tokens`` appends a speculative round's tokens;
   ``release_slot`` drops the slot's active flag.

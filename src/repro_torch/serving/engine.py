@@ -49,6 +49,19 @@ multi-query decode step; admission quantizes the self and cross K/V into
 the slot. The paged pool and speculative decoding are not ported for this
 family, and the engine refuses both for it.
 
+SSM (mamba2) and hybrid (zamba2) models prefill by scanning single-token
+decode steps over the prompt, as the reference does: their recurrent
+conv/state has no multi-token step. On the card the step is replayed from
+a CUDA graph over a persistent batch=1 cache (``graphs.PromptStep``),
+which agrees with the eager scan to the bit, also on an engine whose
+decode chunks run eagerly (``cuda_graphs=False``). Their conv/state live dense
+per slot beside the K/V fields; a hybrid engine's K/V (one entry per
+shared-attention site) may be quantized or paged, and on a prefix hit its
+matched pages are mapped while the prompt is still prefilled in full (the
+conv/state need every token). Their speculative rounds verify by a scan
+that snapshots conv/state (``Model.spec_verify``) and propose in two
+passes on a cache clone.
+
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"`` (the
 tests do, and then every kernel's plain version runs). With no GPU and no
 explicit CPU request it raises; it never falls back to the CPU.
@@ -76,7 +89,7 @@ from repro_torch.quant.kvcache import (DEFAULT_KV_GROUP, KVPlan,
                                        quantize_model_cache)
 from repro_torch.serving import batch as B
 from repro_torch.serving import sampling as S
-from repro_torch.serving.graphs import ChunkGraphs
+from repro_torch.serving.graphs import ChunkGraphs, PromptStep
 from repro_torch.serving.pool import (OutOfPages, PagedConfig, PoolSession,
                                       PrefixMatch)
 from repro_torch.serving.quantized import apply_plan_to_params
@@ -149,6 +162,9 @@ class ServeEngine:
         # CPU); a capture that fails raises
         self.graphs = (ChunkGraphs() if cuda_graphs
                        and self.device.type == "cuda" else None)
+        # an SSM / hybrid prompt scan replays its single-token step from a
+        # graph of its own on the card
+        self.prompt_graph = self.device.type == "cuda"
         self.model = model
         self.cfg = model.cfg
         if self.cfg.family == "encdec" and (spec is not None or paged):
@@ -169,6 +185,7 @@ class ServeEngine:
                               if self.paged is not None else ())
         self.pool: Optional[PoolSession] = None  # built by init_decode_state
         self._page_bytes = 0.0
+        self._prompt_step: Optional[PromptStep] = None  # built at first use
         if plan is not None:
             params = apply_plan_to_params(model, params, plan, group)
         self.params = params
@@ -181,8 +198,12 @@ class ServeEngine:
     # -- quantized KV cache ----------------------------------------------------
     def _kv_cuts(self) -> tuple:
         """Page boundaries = the segment boundaries of the weight stack the
-        cache follows (the decoder's for enc-dec)."""
-        key = "dec_layers" if self.cfg.family == "encdec" else "layers"
+        cache follows (the decoder's for enc-dec). A hybrid cache follows
+        the shared block's one decision over its sites: no cuts."""
+        key = {"dense": "layers", "moe": "layers",
+               "encdec": "dec_layers"}.get(self.cfg.family)
+        if key is None:
+            return ()
         return tuple(lo for _, lo, _ in
                      segment_slices(self.params[key])[1:])
 
@@ -214,6 +235,8 @@ class ServeEngine:
                 toks, torch.as_tensor(frames, device=self.device))
         if frames is not None:
             raise ValueError("frames only apply to enc-dec models")
+        if self.model.scans_prompts:
+            return self._scan_prompt(toks)
         logits, cache = self.model.module.apply(
             self.params, toks, self.cfg, return_cache=True, last_only=True)
         shape = cache.k.shape[:2] + (self.max_seq,) + cache.k.shape[3:]
@@ -231,6 +254,27 @@ class ServeEngine:
         (cache at pos + s, last logits (B, V_pad))."""
         logits, cache = self.model.decode_step(self.params, cache, toks)
         return cache, logits[:, -1]
+
+    def _prompt_graph(self) -> PromptStep:
+        """The captured single-token prompt step (built at first use)."""
+        if self._prompt_step is None:
+            self._prompt_step = PromptStep(self.model, self.params,
+                                           self.max_seq, self.device)
+        return self._prompt_step
+
+    def _scan_prompt(self, toks: torch.Tensor, eager: bool = False):
+        """SSM / hybrid prefill: scan single-token decode steps over the
+        prompt from a fresh cache (the reference's ``_prefill_scan``). On
+        the card a batch=1 prompt replays the captured step, unless
+        ``eager``. Returns (cache at pos P, last logits (B, V_pad))."""
+        if self.prompt_graph and not eager and toks.shape[0] == 1:
+            return self._prompt_graph().run(toks)
+        cache = self.model.init_cache(toks.shape[0], self.max_seq,
+                                      self.device)
+        for j in range(toks.shape[1]):
+            logits, cache = self.model.decode_step(self.params, cache,
+                                                   toks[:, j:j + 1])
+        return cache, logits[:, 0]
 
     def _prefill_encdec(self, toks: torch.Tensor, frames: torch.Tensor):
         """Enc-dec prefill: encode the frames, compute every decoder
@@ -258,12 +302,15 @@ class ServeEngine:
         the prompt against the pool's prefix cache, pinning the matched
         pages; on a hit, and given ``state`` (which holds the pool), it
         reads the shared K/V back from the pool and runs the model over the
-        suffix only."""
+        suffix only. A hybrid model prefills the whole prompt (its
+        conv/state need every token) while the hit's pages are still
+        mapped at insert."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         match = None
         if self.pool is not None and self.pool.prefix is not None:
             match = self.pool.match(prompt)
-            if match.hit > 0 and state is not None:
+            if (match.hit > 0 and state is not None
+                    and not self.model.scans_prompts):
                 cache, logits = self._seed_prefill(prompt, match, state)
                 return Prefill(prompt=prompt, cache=cache,
                                last_logits=logits, match=match)
@@ -311,20 +358,24 @@ class ServeEngine:
         return runs
 
     def _paged_cache(self, num_slots: int, pool_pages: int):
-        """Slotted family cache with the paged fields as empty pools (the
-        dense fields are shaped on the meta device, never allocated)."""
+        """Slotted family cache with the paged fields as empty pools (their
+        dense layout is shaped on the meta device, never allocated) and
+        every other field (pos; a hybrid's conv/state) zeroed on the
+        device."""
         proto = self.model.slotted_cache(num_slots, self.max_seq, "meta")
         group = (self.kv_plan.group if self.kv_plan is not None
                  else DEFAULT_KV_GROUP)
         reps = {}
-        for name in self._paged_fields:
-            raw = getattr(proto, name)
-            reps[name] = PG.init_pool_field(
-                raw, self._pool_runs(raw), num_pages=pool_pages,
-                page_size=self.paged.page_size, num_slots=num_slots,
-                group=group, device=self.device)
-        return proto._replace(pos=torch.zeros((num_slots,), dtype=torch.int32,
-                                              device=self.device), **reps)
+        for name, raw in zip(proto._fields, proto):
+            if name in self._paged_fields:
+                reps[name] = PG.init_pool_field(
+                    raw, self._pool_runs(raw), num_pages=pool_pages,
+                    page_size=self.paged.page_size, num_slots=num_slots,
+                    group=group, device=self.device)
+            else:
+                reps[name] = torch.zeros(raw.shape, dtype=raw.dtype,
+                                         device=self.device)
+        return proto._replace(**reps)
 
     def init_decode_state(self, num_slots: int, seed: int = 0
                           ) -> B.DecodeState:
@@ -567,6 +618,8 @@ class ServeEngine:
             # only rows an insert overwrites (or the dump page) and leaves
             # tokens, lengths and done flags as they are.
             self.decode_chunk(state, chunk)
+        if self.prompt_graph and self.model.scans_prompts:
+            self._prompt_graph()       # captured before the first admission
         clock, admissions, generated, requeues = 0, 0, 0, 0
         occupancy: list[float] = []
         gaps: list[float] = []
@@ -691,6 +744,16 @@ class ServeEngine:
     def kv_bytes_per_slot(self) -> float:
         """Attention-cache bytes one decode slot holds, all fields."""
         return float(sum(self.kv_bytes_by_field().values()))
+
+    def state_bytes_by_field(self) -> dict:
+        """Recurrent-state bytes one decode slot holds per cache field (an
+        SSM or hybrid slot's conv and f32 state, every Mamba2 layer; empty
+        for the attention families): they do not grow with the sequence
+        and are not KV, so they are counted apart."""
+        cache = self.model.slotted_cache(1, self.max_seq, "meta")
+        return {name: float(getattr(cache, name).numel()
+                            * getattr(cache, name).element_size())
+                for name in ("conv", "state") if name in cache._fields}
 
     def kv_bytes_allocated(self, num_slots: int = 1) -> float:
         """Attention-cache bytes held right now. A dense engine reserves

@@ -133,3 +133,42 @@ class ChunkGraphs:
                                    generators=(state.gen,),
                                    make_graph=self.make_graph)
         return outputs
+
+
+class PromptStep:
+    """The prompt scan of the SSM and hybrid families from a CUDA graph:
+    one single-token decode step over a persistent batch=1 cache, captured
+    once and replayed for every prompt token (the recurrent state has no
+    multi-token step, so a prompt is a scan of single-token steps, as in
+    the reference's prefill). ``run`` zeroes the cache in place, replays
+    the step once per token and returns copies of the cache and of the
+    last logits; the step and the eager scan launch the same kernels on
+    the same values, so they agree to the bit. ``make_graph`` and
+    ``warm_run`` are replaced by stubs in the CPU tests."""
+
+    def __init__(self, model, params, max_seq: int, device,
+                 make_graph: Callable = cuda_graph,
+                 warm_run: Callable = _side_stream_run):
+        import torch
+        self.cache = model.init_cache(1, max_seq, device)
+        self.tok = torch.zeros((1, 1), dtype=torch.long, device=device)
+        self.logits = torch.zeros((1, model.cfg.padded_vocab),
+                                  dtype=torch.float32, device=device)
+
+        def body():
+            logits, cache = model.decode_step(params, self.cache, self.tok)
+            self.cache.pos.copy_(cache.pos)
+            self.logits.copy_(logits[:, 0])
+
+        warm_run(body)
+        self.step = capture(body, make_graph=make_graph)
+
+    def run(self, toks) -> tuple:
+        """toks (1, P) -> (batch=1 cache at pos P, last logits (1, V_pad))."""
+        for t in self.cache:
+            t.zero_()
+        for j in range(toks.shape[1]):
+            self.tok.copy_(toks[:, j:j + 1])
+            self.step.replay()
+        return (type(self.cache)(*(t.clone() for t in self.cache)),
+                self.logits.clone())

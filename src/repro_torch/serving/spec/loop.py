@@ -13,9 +13,10 @@ One round, over every slot at once:
    instead (no draft model runs), and q is the one-hot of the copied
    tokens.
 2. **Verify.** The target scores the (K+1)-token window ``[pending,
-   x_1..x_K]`` in one multi-query decode step (``Model.spec_verify``),
-   giving the target distribution p_i at every draft position plus the
-   bonus position.
+   x_1..x_K]`` (``Model.spec_verify``: one multi-query decode step, or for
+   the SSM and hybrid families a scan of single-token steps that snapshots
+   conv/state after each), giving the target distribution p_i at every
+   draft position plus the bonus position.
 3. **Accept.** Greedy slots accept the longest prefix with ``x_i ==
    argmax p_i`` (token-identical to the non-spec engine by construction);
    sampling slots run speculative rejection sampling: accept with
@@ -24,6 +25,9 @@ One round, over every slot at once:
    p_{K+1} when all K are accepted. A live slot commits 1 to K+1 tokens.
 4. **Rollback.** ``Model.spec_commit`` moves each slot's cache position to
    its committed length; the rows past it stay in memory, masked invalid.
+   The SSM and hybrid families also copy each slot's conv/state snapshot
+   at that length into the cache, in place. Those families have no fused
+   propose: their draft runs ``decode_step`` on a cache clone.
 
 Invariant between rounds (per slot): ``cache.pos == lengths - 1``, and the
 pending token ``tokens[lengths - 1]`` has no cache row yet; the next
