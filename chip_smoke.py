@@ -14,9 +14,15 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    before each call): the kernel, its plain version, and a PyTorch
    yardstick that the port itself never calls. The matmul kernels at
    llama3.2-3b's and whisper-medium's shapes, qmatmul and qkv also within
-   QMATMUL_F32 of the f32 dequantized product, equal to the bit over two
-   calls, with the launch each shape gets (grid, blocks per SM), and
-   refusing a weight group other than 128; decode attention in its forms
+   QMATMUL_F32 of the f32 dequantized product, the fused MLP (swiglu and
+   gelu) within QMLP_F32 of the MLP in f32 (``fused_mlp_f32``: weights
+   dequantized to f32, the hidden kept in f32), each equal to the bit over
+   two calls, with the launch each shape gets (grid, cluster, blocks per
+   SM; the MLP's partial-buffer bytes), qmatmul refusing a weight group
+   other than 128; the fused MLP's yardstick is the composition of its
+   cuBLAS products and elementwise steps on the weights dequantized to
+   bf16 (4 calls for swiglu, 3 for gelu), not one call; decode attention
+   in its forms
    (attention_cases; each also within relative L2 ATTN_REL_L2 of its
    plain version): one
    query per slot, the speculative verify window (qs = K+1 queries, causal
@@ -32,7 +38,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    group 64) in every form and precision, dense and paged, a group of 80
    at hd 80 and int4 at an odd Hkv (3 heads of 64); the refusals of what
    the kernel has no copy for (attn_refusals); the matmul kernels at
-   zamba2's and mamba2's shapes at M = 1 and 4 (RECURRENT_SHAPES). The
+   zamba2's and mamba2's shapes at M = 1 and 4 (RECURRENT_SHAPES; every
+   fused-MLP case is in qmlp_cases). The
    entropy kernel (within 1e-3 * max(1, |H|) and 1e-5 absolute, at the
    weight scale and the reference test's, with a weighted ragged tail) and
    the int8 quantize kernel (payload and scales equal to the bit).
@@ -65,9 +72,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    the bit, and tokens and logprobs identical to phase 4's dense run; one
    decode step's device time paged against dense); a shared-prefix stream
    (8 x (256 common + 32 own tokens)) from an 11-page pool, which must hit
-   the prefix 7 times, requeue at least once, leak nothing and have a mean
-   TTFT below the same stream without sharing (a hit's suffix is one
-   multi-query step), beside that stream and dense; phase
+   the prefix 7 times, score each hit's suffix in one multi-query step,
+   requeue at least once, leak nothing and take less device time a hit's
+   prefill (median, torch.profiler) than a prefill of the same stream
+   without sharing (wall times and mean TTFTs readings, beside dense); phase
    4b's model-draft speculative serve over the pool (tokens identical).
 5. analysis: ``analyze_blocks`` over every matrix of llama3.2-3b FULL (197
    matrices) and of whisper-medium FULL through the entropy kernel
@@ -84,9 +92,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    versions at the same limit, each decoder layer's cross-attention output
    too (with the slots' cross caches rotated, a planted fault that limit
    must catch), and timed eager and from a CUDA graph.
-4e. zamba2-2.7b FULL (54 Mamba2 layers, d_model 2560, one shared
-   attention + MLP block at 9 sites, hd 80, vocab 32000) from seeded
-   random weights, and 4f. mamba2-780m FULL (48 layers, d_model 1536,
+4e. zamba2-2.7b at full width, 36 of its 54 layers (RECURRENT_LAYERS;
+   d_model 2560, one shared attention + MLP block at 6 of its 9 sites, hd
+   80, vocab 32000) from seeded random weights, and 4f. mamba2-780m FULL (48 layers, d_model 1536,
    vocab 50280), each after its phase 5 analysis (kernel against stream
    mode): phase 4's 8 prompts, each prefilled as a scan of single-token
    steps (replayed from a CUDA graph on a graph engine), 32 new tokens,
@@ -106,7 +114,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    The kernels of ZAMBA_PATH and MAMBA_PATH must launch there.
 6. a JSON line naming each kernel, then the device line last. Every
    kernel's launch count must have risen on the serve and analysis paths,
-   except the int8 quantize kernel, which no path runs.
+   except the int8 quantize kernel, which no path runs. No single PyTorch
+   call computes the fused MLP: its entries have library_ms null and the
+   composition's time as library_composition_ms.
+
+Each phase prints its seconds on a line of its own (``phase <name>:``),
+also when it fails.
 
 ``--quick`` skips the timings and the lm_head shape (a short first call
 after a kernel change); it checks the same M values as the full run.
@@ -139,6 +152,19 @@ PAGE = 64                       # tokens per page of the paged KV pool
 
 def log(*a):
     print(*a, flush=True)
+
+
+@contextlib.contextmanager
+def phase(report: dict, name: str):
+    """Prints the seconds the phase ``name`` took on a line of its own,
+    also when it raises, and keeps them in report["phase_seconds"]."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        seconds = report.setdefault("phase_seconds", {})
+        seconds[name] = time.perf_counter() - t0
+        log(f"phase {name}: {seconds[name]:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -621,15 +647,7 @@ def check_kernels(torch, timer, rows: list) -> dict:
     shapes = {"wq": (3072, d), "wk/wv": (1024, d), "gate/up": (ff, d),
               "down": (d, ff), "lm_head": (vocab, d),
               "whisper wo": (1024, 1024)}
-    # The M values the main path gives the matmul kernels, each kernel
-    # instantiation among them: decode runs every slot (M = 4, the MT = 4
-    # kernel; 1-3 are the MT = 1, 2 kernels and a masked MT = 4 tile), a
-    # prefill's head runs M = 1, and prefill runs M = the prompt length in
-    # 8-row tiles: 8, 256, and a serve prompt whose last tile is partial;
-    # a speculative verify runs every slot's K+1 window (M = 20).
-    lens = [len(p) for p in serve_prompts(vocab)]
-    ragged = next(n for n in lens if n % 8)
-    ms_list = (1, 2, 3, SLOTS, 8, SLOTS * (SPEC_K + 1), 256, ragged)
+    ms_list = matmul_ms()
     worst = {k: 0.0 for k in KERNEL_SOURCES}
 
     def weight(n, k):
@@ -657,35 +675,58 @@ def check_kernels(torch, timer, rows: list) -> dict:
                     "whisper wq|wk|wv 3072x1024": ((1024, 1024, 1024),
                                                    1024)}, ms_list)
     qmatmul_refusals()
-    check_qmlp(*mm, {"swiglu 3072->8192->3072": (ff, d)}, ms_list)
+    for form, label, mlp_ff, mlp_d, ms in qmlp_cases():
+        check_qmlp(*mm, {label: (mlp_ff, mlp_d)}, ms, form=form)
     # zamba2's and mamba2's, at the M their paths give the kernels: M = 4
     # for a decode step of 4 slots (a verify window and a two-pass draft
     # step too, each a scan of single-token steps), M = 1 for a prompt
     # token (a prompt is a scan of single-token steps)
     check_qmatmul(*mm, RECURRENT_SHAPES["qmatmul"], (1, SLOTS))
     check_qkv(*mm, RECURRENT_SHAPES["qkv"], (1, SLOTS))
-    check_qmlp(*mm, RECURRENT_SHAPES["qmlp"], (1, SLOTS))
 
     # decode attention in every form (attention_cases)
     for case in attention_cases(torch):
         add(attn_case(torch, timer, compare, case))
         del case
     attn_refusals()
-    check_whisper_kernels(torch, timer, gen, compare, add)
     check_entropy_quantize(torch, timer, gen, rows, worst, add)
     return worst
 
 
+def matmul_ms() -> tuple:
+    """The M values the main path gives the matmul kernels, each kernel
+    instantiation among them: decode runs every slot (M = 4, the MT = 4
+    kernel; 1-3 are the MT = 1, 2 kernels and a masked MT = 4 tile), a
+    prefill's head runs M = 1, and prefill runs M = the prompt length in
+    8-row tiles: 8, 256, and a serve prompt whose last tile is partial; a
+    speculative verify runs every slot's K+1 window (M = 20)."""
+    lens = [len(p) for p in serve_prompts(128256)]
+    ragged = next(n for n in lens if n % 8)
+    return (1, 2, 3, SLOTS, 8, SLOTS * (SPEC_K + 1), 256, ragged)
+
+
+def qmlp_cases() -> list:
+    """(form, label, d_ff, d_model, M values) of every fused-MLP case:
+    llama3.2-3b's swiglu at every M of ``matmul_ms``; zamba2's shared
+    swiglu MLP at 1 (a prompt token: prompts are scans of single-token
+    steps) and SLOTS (a decode step; verify windows and draft steps are
+    scans too); whisper-medium's gelu at 1 (the batch-1 prefill steps),
+    SLOTS and 1500 (the encoder, one request's frames)."""
+    return [("swiglu", "swiglu 3072->8192->3072", 8192, 3072, matmul_ms()),
+            ("swiglu", "zamba2 swiglu 2560->10240->2560", 10240, 2560,
+             (1, SLOTS)),
+            ("gelu", "gelu 1024->4096->1024", 4096, 1024, (1, SLOTS, 1500))]
+
+
 # zamba2-2.7b's and mamba2-780m's matrices (N, K) by kernel: the Mamba2
 # products and the heads through qmatmul, zamba2's shared block through
-# qkv and the swiglu qmlp (d_model 2560 -> d_ff 10240)
+# qkv (its swiglu MLP is in qmlp_cases)
 RECURRENT_SHAPES = {
     "qmatmul": {"zamba2 w_in": (10368, 2560), "zamba2 w_out": (2560, 5120),
                 "zamba2 wo": (2560, 2560), "zamba2 lm_head": (32000, 2560),
                 "mamba2 w_in": (6448, 1536), "mamba2 w_out": (1536, 3072),
                 "mamba2 lm_head": (50432, 1536)},
     "qkv": {"zamba2 wq|wk|wv 7680x2560": ((2560, 2560, 2560), 2560)},
-    "qmlp": {"zamba2 swiglu 2560->10240->2560": (10240, 2560)},
 }
 
 
@@ -769,27 +810,67 @@ def check_qkv(torch, timer, weight, act, compare, add, cases: dict,
 
 
 def check_qmlp(torch, timer, weight, act, compare, add, cases: dict,
-               ms_list) -> None:
-    """The fused SwiGLU MLP, ``cases`` label -> (d_ff, d_model), against
-    its plain version, timed with its bound (no single library call)."""
+               ms_list, form: str = "swiglu") -> None:
+    """The fused MLP in one form (``form`` swiglu or gelu), ``cases`` label
+    -> (d_ff, d_model), at every precision and M of ``ms_list``: against
+    its plain version, within QMLP_F32 of ``fused_mlp_f32`` and equal to
+    the bit over two calls (at M = SLOTS and the verify window's M with f32
+    x too), with its launch plan and partial-buffer bytes;
+    timed beside the bound and, as ``library_composition_ms`` (no single
+    library call computes it: ``library_ms`` is None), the composition of
+    cuBLAS products and elementwise steps on the weights dequantized to
+    bf16 (swiglu: x Wg^T, x Wu^T, silu(.) *, . Wd^T; gelu: gelu(x Wu^T),
+    . Wd^T)."""
+    import torch.nn.functional as F
     from repro_torch.kernels.qmatmul import ops as QM
-    from repro_torch.quant.quantize import quantize
+    from repro_torch.quant.quantize import dequantize, quantize
+    gelu = form == "gelu"
+    kernel = "qmlp_gelu" if gelu else "qmlp"
     for label, (ff, d) in cases.items():
         for prec in MATMUL_PRECISIONS:
-            wg, wu = (quantize(weight(ff, d), prec) for _ in range(2))
-            wdn = quantize(weight(d, ff), prec)
+            wg = None if gelu else quantize(weight(ff, d), prec)
+            wu, wdn = quantize(weight(ff, d), prec), quantize(weight(d, ff),
+                                                              prec)
+            ws = [w for w in (wg, wu, wdn) if w is not None]
+            bf = [dequantize(w, torch.bfloat16) for w in ws]
+
+            def library():
+                if gelu:
+                    h = F.gelu(x @ bf[0].t(), approximate="tanh")
+                    return h @ bf[1].t()
+                return (F.silu(x @ bf[0].t()) * (x @ bf[1].t())) @ bf[2].t()
+
             for m in ms_list:
                 x = act(m, d)
                 got = QM.qmlp_cuda(x, wg, wu, wdn)
-                want = QM.fused_mlp_plain(x, wg, wu, wdn).float()
-                compare("qmlp", [got], [want])
-                row = dict(kernel="qmlp", shape=label, precision=prec, m=m,
-                           err=float((got - want).abs().max()))
+                want = QM.fused_mlp_plain(x, wg, wu, wdn, act=form).float()
+                compare(kernel, [got], [want])
+                exact = QM.fused_mlp_f32(x, wg, wu, wdn, act=form)
+                row = dict(kernel=kernel, shape=label, precision=prec, m=m,
+                           err=float((got - want).abs().max()),
+                           **matmul_exactness(
+                               torch, kernel, [got], [exact],
+                               lambda: [QM.qmlp_cuda(x, wg, wu, wdn)],
+                               QMLP_F32),
+                           plan=qmlp_plan(m, d, ff, d, prec, gelu))
+                del exact
+                if m in (SLOTS, SLOTS * (SPEC_K + 1)):
+                    # f32 x (8-row chunks) at a decode and a verify M
+                    x32 = x.float()
+                    exact = QM.fused_mlp_f32(x32, wg, wu, wdn, act=form)
+                    row["f32_x"] = matmul_exactness(
+                        torch, f"{kernel} f32 x",
+                        [QM.qmlp_cuda(x32, wg, wu, wdn)], [exact],
+                        lambda: [QM.qmlp_cuda(x32, wg, wu, wdn)], QMLP_F32)
+                    del exact
+                if not QUICK:
+                    row["library_composition_ms"] = timer.ms(library)
                 add(_timed(row, timer, lambda: QM.qmlp_cuda(x, wg, wu, wdn),
-                           lambda: QM.fused_mlp_plain(x, wg, wu, wdn), None,
-                           m * d * 2 + sum(map(qbytes, (wg, wu, wdn)))
-                           + m * d * 4, 2.0 * m * 3 * ff * d))
-            del wg, wu, wdn
+                           lambda: QM.fused_mlp_plain(x, wg, wu, wdn,
+                                                      act=form),
+                           None, m * d * 2 + sum(map(qbytes, ws))
+                           + m * d * 4, 2.0 * m * len(ws) * ff * d))
+            del wg, wu, wdn, ws, bf
 
 
 def attn_refusals() -> None:
@@ -826,17 +907,28 @@ def attn_refusals() -> None:
 QMATMUL_F32 = 1e-5
 
 
-def matmul_exactness(torch, kernel: str, got: list, exact: list,
-                     again) -> dict:
-    """The qmatmul / qkv checks beyond the plain version: within
-    QMATMUL_F32 of the f32 dequantized product, and a second call equal to
-    the first to the bit (no atomics, a fixed summation order)."""
+# Limit on the largest absolute difference of a fused MLP output (both
+# forms) from ``fused_mlp_f32``: x and the weights dequantized in f32 and
+# the hidden h kept in f32, as the TPU kernel computes it. The kernel
+# rounds nothing but h, which it multiplies as two bf16 parts (within
+# 2^-16 of h relative), so the rest is the order of the f32 sums. PERF.md
+# gives the readings that place it (every row of a run, and the faults
+# that scripts/qmlp_gate_mutants.py plants).
+QMLP_F32 = 2e-5
+
+
+def matmul_exactness(torch, kernel: str, got: list, exact: list, again,
+                     limit: float = QMATMUL_F32) -> dict:
+    """The qmatmul / qkv / qmlp checks beyond the plain version: within
+    ``limit`` of the product in f32 (QMATMUL_F32 for the matmuls, QMLP_F32
+    for the fused MLP), and a second call equal to the first to the bit (no
+    atomics, a fixed summation order)."""
     err = max(float((g - e).abs().max()) for g, e in zip(got, exact))
     second = again()
     torch.cuda.synchronize()
-    if not err <= QMATMUL_F32:
-        raise AssertionError(f"{kernel}: {err} from the f32 dequantized "
-                             f"product (limit {QMATMUL_F32})")
+    if not err <= limit:
+        raise AssertionError(f"{kernel}: {err} from the product in f32 "
+                             f"(limit {limit})")
     if not all(torch.equal(a, b) for a, b in zip(got, second)):
         raise AssertionError(f"{kernel}: two calls on the same inputs differ")
     return dict(err_f32=err, bit_identical_twice=True)
@@ -852,10 +944,30 @@ def qmatmul_plan(n: int, m: int, k: int, prec: str) -> dict:
     build.check(build.library("qmatmul").repro_qmatmul_plan(
         n, m, k, int(prec == "int4"), 1, out), "qmatmul plan")
     gx, gy, threads, smem, per_sm, rows = list(out)
-    sms = 132
+    import torch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     return dict(grid=[gx, gy], threads=threads, smem=smem, rows=rows,
                 blocks_per_sm_max=per_sm,
                 blocks_in_flight_per_sm=min(per_sm, (gx * gy) / sms))
+
+
+def qmlp_plan(m: int, k: int, ff: int, d: int, prec: str,
+              gelu: bool) -> dict:
+    """The launch csrc/qmlp.cu picks for an MLP of width k -> ff -> d at m
+    rows of bf16 x: grid, cluster, threads, shared memory, blocks and
+    clusters the device holds at once, its SMs, x rows a chunk, and the
+    partial buffer the wrapper allocates (parts, m, d) f32."""
+    import ctypes
+    from repro_torch.kernels import build
+    out = (ctypes.c_int * 10)()
+    build.check(build.library("qmlp").repro_qmlp_plan(
+        m, k, ff, 1, int(prec == "int4"), int(gelu), out), "qmlp plan")
+    gx, gy, cluster, threads, smem, per_sm, clusters, sms, rows, parts = \
+        list(out)
+    return dict(grid=[gx, gy], cluster=cluster, threads=threads, smem=smem,
+                blocks_per_sm_max=per_sm, clusters_max=clusters, sms=sms,
+                rows_a_chunk=rows, parts=parts,
+                partial_bytes=parts * m * d * 4)
 
 
 def qmatmul_refusals() -> None:
@@ -871,40 +983,6 @@ def qmatmul_refusals() -> None:
         if err == 0:
             raise AssertionError(f"qmatmul took group {group}, x {x}, w {w}")
     log("qmatmul refuses groups 64 and 256 and unaligned x or weights")
-
-
-def check_whisper_kernels(torch, timer, gen, compare, add) -> None:
-    """The whisper-medium path's MLP shapes: the gelu form of the fused
-    MLP (1024 -> 4096 -> 1024) at every M it runs (1: the batch-1 prefill
-    steps; SLOTS: a decode step; 1500: the encoder, one request's frames)
-    in every precision. Its attention shapes are in ``attention_cases``."""
-    from repro_torch.kernels.qmatmul import ops as QM
-    from repro_torch.quant.quantize import quantize
-    d, ff, s_enc = 1024, 4096, 1500
-    for prec in ("int8", "int4", "ternary"):
-        wu = quantize((torch.randn((ff, d), generator=gen, device="cuda")
-                       / d ** 0.5).to(torch.bfloat16), prec)
-        wdn = quantize((torch.randn((d, ff), generator=gen, device="cuda")
-                        / ff ** 0.5).to(torch.bfloat16), prec)
-        for m in (1, SLOTS, s_enc):
-            x = (torch.randn((m, d), generator=gen, device="cuda") * 0.5
-                 ).to(torch.bfloat16)
-            got = QM.qmlp_cuda(x, None, wu, wdn)
-            want = QM.fused_mlp_plain(x, None, wu, wdn, act="gelu").float()
-            compare("qmlp_gelu", [got], [want])
-            row = dict(kernel="qmlp_gelu", shape="gelu 1024->4096->1024",
-                       precision=prec, m=m,
-                       err=float((got - want).abs().max()))
-            if not QUICK:
-                row["ms"] = timer.ms(lambda: QM.qmlp_cuda(x, None, wu, wdn))
-                row["plain_ms"] = timer.ms(
-                    lambda: QM.fused_mlp_plain(x, None, wu, wdn, act="gelu"))
-                row["library_ms"] = None
-                row["bound_ms"], row["bound_by"] = bound_ms(
-                    m * d * 2 + qbytes(wu) + qbytes(wdn) + m * d * 4,
-                    2.0 * m * 2 * ff * d)
-            add(row)
-        del wu, wdn
 
 
 # entropy: the largest error the reference's own test allows, relative to
@@ -1126,12 +1204,11 @@ def rel_l2(a, b) -> float:
 def patched_plain(torch, mode: str):
     """The plain versions changed for the logit readings below, and only
     there. ``"unrounded"``: without the bf16 roundings the kernels do not
-    make (quantized weights dequantized to f32, not bf16; the SwiGLU hidden
-    kept in f32, not rounded to x's dtype after silu and after the
-    product). ``"reordered"``: the same arithmetic as the plain versions,
+    make (quantized weights dequantized to f32, not bf16; the MLP's hidden
+    kept in f32, not rounded to x's dtype: ``ops.fused_mlp_f32``).
+    ``"reordered"``: the same arithmetic as the plain versions,
     but each quantized product summed over K in two halves, so only the
     order of the f32 additions changes."""
-    import torch.nn.functional as F
     from repro_torch.kernels.qmatmul import ops as QM
     from repro_torch.models import mlp as MLP
     from repro_torch.quant.quantize import dequantize
@@ -1146,12 +1223,10 @@ def patched_plain(torch, mode: str):
         return x[:, :h] @ wd[:, :h].t() + x[:, h:] @ wd[:, h:].t()
 
     def fused_mlp_f32(x, wg, wu, wd, act="swiglu", plain=False):
-        if not (plain and act == "swiglu"
-                and QM._mega_eligible((wg, wu, wd))):
+        if not (plain and QM._mega_eligible(
+                [w for w in (wg, wu, wd) if w is not None])):
             return saved[1](x, wg, wu, wd, act=act, plain=plain)
-        g = QM.qdot(x, wg, out_dtype=torch.float32, plain=True)
-        u = QM.qdot(x, wu, out_dtype=torch.float32, plain=True)
-        return QM.qdot(F.silu(g) * u, wd, out_dtype=x.dtype, plain=True)
+        return QM.fused_mlp_f32(x, wg, wu, wd, act).to(x.dtype)
 
     if mode == "unrounded":
         QM.qmatmul_plain, MLP.fused_mlp = qmatmul_f32, fused_mlp_f32
@@ -1231,155 +1306,166 @@ def serve_full_width(torch, build, report: dict, smoke: bool = False,
     from repro_torch.serving.quantized import explicit_plan, plan_for_variant
     from repro_torch.serving.scheduler import Request
 
-    cfg = get_config("llama3.2-3b", smoke=smoke)   # FULL: 28L, d_model 3072
-    model = build_model(cfg)
-    gen = torch.Generator(device=device).manual_seed(0)
-    t0 = time.perf_counter()
-    params = model.init(gen, device)
-    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
-    sync()
-    log(f"serve: {cfg.name} FULL {cfg.num_layers}L d_model {cfg.d_model} "
-        f"{cfg.num_heads}H/{cfg.num_kv_heads}KV d_ff {cfg.d_ff} vocab "
-        f"{cfg.vocab_size} {cfg.dtype}; random init "
-        f"{time.perf_counter() - t0:.1f} s")
-    prompts = serve_prompts(cfg.vocab_size)
+    with phase(report, "4 llama serve"):   # with the model's init and plans
+        cfg = get_config("llama3.2-3b", smoke=smoke)   # FULL: 28L, 3072 wide
+        model = build_model(cfg)
+        gen = torch.Generator(device=device).manual_seed(0)
+        t0 = time.perf_counter()
+        params = model.init(gen, device)
+        sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+        sync()
+        log(f"serve: {cfg.name} FULL {cfg.num_layers}L d_model {cfg.d_model} "
+            f"{cfg.num_heads}H/{cfg.num_kv_heads}KV d_ff {cfg.d_ff} vocab "
+            f"{cfg.vocab_size} {cfg.dtype}; random init "
+            f"{time.perf_counter() - t0:.1f} s")
+        prompts = serve_prompts(cfg.vocab_size)
 
-    def requests():
-        return [Request(rid=i, prompt=p, max_new_tokens=32)
-                for i, p in enumerate(prompts)]
+        def requests():
+            return [Request(rid=i, prompt=p, max_new_tokens=32)
+                    for i, p in enumerate(prompts)]
 
-    t0 = time.perf_counter()
-    ewq = plan_for_variant(model, params, "4bit/8bit")
-    sync()
-    log(f"serve: EWQ analysis on the card ({time.perf_counter() - t0:.1f} s): "
-        f"4bit/8bit plan counts {ewq.counts()} "
-        f"precisions {ewq.precisions()}")
-    tiers = ["raw", "int8", "int4", "ternary"]
-    n = cfg.num_layers
-    layers = [tiers[i * len(tiers) // n] for i in range(n)]
-    explicit = explicit_plan(cfg, layers, embed_precision="int8")
-    log(f"serve: explicit plan counts {explicit.counts()} (int8 embedding)")
+        t0 = time.perf_counter()
+        ewq = plan_for_variant(model, params, "4bit/8bit")
+        sync()
+        log(f"serve: EWQ analysis on the card "
+            f"({time.perf_counter() - t0:.1f} s): "
+            f"4bit/8bit plan counts {ewq.counts()} "
+            f"precisions {ewq.precisions()}")
+        tiers = ["raw", "int8", "int4", "ternary"]
+        n = cfg.num_layers
+        layers = [tiers[i * len(tiers) // n] for i in range(n)]
+        explicit = explicit_plan(cfg, layers, embed_precision="int8")
+        log(f"serve: explicit plan counts {explicit.counts()} "
+            "(int8 embedding)")
 
-    launches = {k: 0 for k in build.LAUNCHES}
-    runs = []
-    engine = fault_outs = None
-    # the EWQ run twice: replayed from CUDA graphs (the engine's default on
-    # the card), then eagerly (cuda_graphs=False), held equal to the bit
-    for label, plan, kv, graphs in (
-            ("ewq-4bit/8bit", ewq, "int8", True),
-            ("ewq-4bit/8bit", ewq, "int8", False),
-            ("explicit-all-precisions", explicit, "int4", True)):
-        engine = None                          # free the previous engine
-        fresh_memory(torch, device)
-        engine = ServeEngine(model, params, max_seq=1024, plan=plan,
-                             kv_precision=kv, device=device,
-                             cuda_graphs=graphs)
-        build.reset_launches()                 # main path: counts from 0
-        (outs, stats), peak, serve_peak = serve_peaks(
-            torch, device, lambda: engine.serve(requests(), num_slots=SLOTS,
-                                                chunk=CHUNK))
-        counts = dict(build.LAUNCHES)
-        for k, v in counts.items():
-            launches[k] += v
-        for o in outs:
-            gen_toks = o.generated
-            if (len(gen_toks) != 32 or gen_toks.min() < 0
-                    or gen_toks.max() >= cfg.vocab_size
-                    or not np.all(np.isfinite(o.logprobs))):
-                raise AssertionError(f"{label}: bad output for request "
-                                     f"{o.rid}: {gen_toks}")
-        run = dict(run=label, kv=kv, cuda_graphs=engine.graphs is not None,
-                   requests=len(outs),
-                   generated=stats.generated_tokens,
-                   tokens_per_s=stats.tokens_per_s,
-                   ttft_mean_s=stats.ttft_mean_s,
-                   tpot_p50_s=stats.tpot_p50_s,
-                   decode_chunk_p50_s=stats.decode_gap_p50_s,
-                   wall_s=stats.wall_s,
-                   weight_bytes=engine.weight_bytes(),
-                   kv_bytes_per_slot=engine.kv_bytes_per_slot(),
-                   max_memory_allocated=peak,
-                   serve_max_memory_allocated=serve_peak,
-                   launches=counts,
-                   chunk=chunk_readings(torch, build, engine, prompts,
-                                        device))
-        # the graph engine also serves under the planted stale-buffer fault
-        # and serves sampled requests; the eager engine (built after the
-        # graph engine is freed, so each peak is its own) serves the same
-        # sampled requests
-        sampled = sampled_serve(torch, engine, prompts)
-        log("serve: " + json.dumps(run))
-        runs.append(run)
-        if kv == "int8" and graphs:
-            base_outs = outs                   # the EWQ non-spec tokens
-            base_sampled = sampled
-            fault_outs = (stale_buffer_serve(torch, engine, requests())
-                          if device == "cuda" else None)
-        elif kv == "int8":
-            require_same(label, base_outs, outs, logprobs=True)
-            run["identical_to_graph_run"] = True
-            if fault_outs is not None:
-                run["planted_fault"] = stale_buffer_caught(fault_outs, outs)
-            run["sampled"] = sampled_agreement(base_sampled, sampled)
-    # first decode step through the kernels against the plain versions, on
-    # the explicit plan's params and an identical int4 cache
-    eng = engine
-    state = eng.init_decode_state(SLOTS)
-    for slot in range(SLOTS):
-        eng.insert(state, slot, eng.prefill_request(prompts[slot]), 32)
-    toks = torch.argmax(state.last_logits[:, :cfg.vocab_size], -1)[:, None]
+        launches = {k: 0 for k in build.LAUNCHES}
+        runs = []
+        engine = fault_outs = None
+        # the EWQ run twice: replayed from CUDA graphs (the engine's default on
+        # the card), then eagerly (cuda_graphs=False), held equal to the bit
+        for label, plan, kv, graphs in (
+                ("ewq-4bit/8bit", ewq, "int8", True),
+                ("ewq-4bit/8bit", ewq, "int8", False),
+                ("explicit-all-precisions", explicit, "int4", True)):
+            engine = None                          # free the previous engine
+            fresh_memory(torch, device)
+            engine = ServeEngine(model, params, max_seq=1024, plan=plan,
+                                 kv_precision=kv, device=device,
+                                 cuda_graphs=graphs)
+            build.reset_launches()                 # main path: counts from 0
+            (outs, stats), peak, serve_peak = serve_peaks(
+                torch, device, lambda: engine.serve(
+                    requests(), num_slots=SLOTS, chunk=CHUNK))
+            counts = dict(build.LAUNCHES)
+            for k, v in counts.items():
+                launches[k] += v
+            for o in outs:
+                gen_toks = o.generated
+                if (len(gen_toks) != 32 or gen_toks.min() < 0
+                        or gen_toks.max() >= cfg.vocab_size
+                        or not np.all(np.isfinite(o.logprobs))):
+                    raise AssertionError(f"{label}: bad output for request "
+                                         f"{o.rid}: {gen_toks}")
+            run = dict(run=label, kv=kv, cuda_graphs=engine.graphs is not None,
+                       requests=len(outs),
+                       generated=stats.generated_tokens,
+                       tokens_per_s=stats.tokens_per_s,
+                       ttft_mean_s=stats.ttft_mean_s,
+                       tpot_p50_s=stats.tpot_p50_s,
+                       decode_chunk_p50_s=stats.decode_gap_p50_s,
+                       wall_s=stats.wall_s,
+                       weight_bytes=engine.weight_bytes(),
+                       kv_bytes_per_slot=engine.kv_bytes_per_slot(),
+                       max_memory_allocated=peak,
+                       serve_max_memory_allocated=serve_peak,
+                       launches=counts,
+                       chunk=chunk_readings(torch, build, engine, prompts,
+                                            device))
+            # the graph engine also serves under the planted stale-buffer fault
+            # and serves sampled requests; the eager engine (built after the
+            # graph engine is freed, so each peak is its own) serves the same
+            # sampled requests
+            sampled = sampled_serve(torch, engine, prompts)
+            log("serve: " + json.dumps(run))
+            runs.append(run)
+            if kv == "int8" and graphs:
+                base_outs = outs                   # the EWQ non-spec tokens
+                base_sampled = sampled
+                fault_outs = (stale_buffer_serve(torch, engine, requests())
+                              if device == "cuda" else None)
+            elif kv == "int8":
+                require_same(label, base_outs, outs, logprobs=True)
+                run["identical_to_graph_run"] = True
+                if fault_outs is not None:
+                    run["planted_fault"] = stale_buffer_caught(fault_outs,
+                                                               outs)
+                run["sampled"] = sampled_agreement(base_sampled, sampled)
+        # first decode step through the kernels against the plain versions, on
+        # the explicit plan's params and an identical int4 cache
+        eng = engine
+        state = eng.init_decode_state(SLOTS)
+        for slot in range(SLOTS):
+            eng.insert(state, slot, eng.prefill_request(prompts[slot]), 32)
+        toks = torch.argmax(state.last_logits[:, :cfg.vocab_size], -1)[:, None]
 
-    def step_logits(params, plain=False):
-        logits, _ = model.decode_step(params, clone_cache(state.cache),
-                                      toks, plain=plain)
-        return logits.float()
+        def step_logits(params, plain=False):
+            logits, _ = model.decode_step(params, clone_cache(state.cache),
+                                          toks, plain=plain)
+            return logits.float()
 
-    k_logits, p_logits = step_logits(eng.params), step_logits(eng.params, True)
-    if not bool(torch.isfinite(k_logits).all()):
-        raise AssertionError("non-finite logits through the kernels")
-    rel = rel_l2(k_logits, p_logits)
-    agree = float((k_logits.argmax(-1) == p_logits.argmax(-1)).float().mean())
-    err = float((k_logits - p_logits).abs().max())
-    with patched_plain(torch, "unrounded"):
-        rel_unrounded = rel_l2(k_logits, step_logits(eng.params, True))
-    with patched_plain(torch, "reordered"):
-        rel_reordered = rel_l2(step_logits(eng.params, True), p_logits)
-    rel_fault = rel_l2(step_logits(swap_nibbles_one_layer(torch, eng.params)),
-                       p_logits)
-    log(f"serve: first decode step, kernels vs plain versions: relative L2 "
-        f"{rel:.4g} (limit {LOGIT_REL_L2}), max abs diff {err:.4g} of max "
-        f"|logit| {float(p_logits.abs().max()):.4g}, greedy agreement "
-        f"{agree:.2f}")
-    log(f"serve: the limit's readings: kernels vs plain versions without "
-        f"their bf16 roundings {rel_unrounded:.4g}; plain versions with "
-        f"their f32 sums reordered vs plain versions {rel_reordered:.4g}; "
-        f"kernels with one int4 layer's nibbles swapped vs plain versions "
-        f"{rel_fault:.4g}")
-    if rel > LOGIT_REL_L2:
-        raise AssertionError(f"decode logits differ: relative L2 {rel}")
-    if rel_fault <= LOGIT_REL_L2:
-        raise AssertionError(f"the logit limit {LOGIT_REL_L2} misses a "
-                             f"planted fault (relative L2 {rel_fault})")
+        k_logits = step_logits(eng.params)
+        p_logits = step_logits(eng.params, True)
+        if not bool(torch.isfinite(k_logits).all()):
+            raise AssertionError("non-finite logits through the kernels")
+        rel = rel_l2(k_logits, p_logits)
+        agree = float((k_logits.argmax(-1) == p_logits.argmax(-1)).float()
+                      .mean())
+        err = float((k_logits - p_logits).abs().max())
+        with patched_plain(torch, "unrounded"):
+            rel_unrounded = rel_l2(k_logits, step_logits(eng.params, True))
+        with patched_plain(torch, "reordered"):
+            rel_reordered = rel_l2(step_logits(eng.params, True), p_logits)
+        rel_fault = rel_l2(
+            step_logits(swap_nibbles_one_layer(torch, eng.params)), p_logits)
+        log(f"serve: first decode step, kernels vs plain versions: relative "
+            f"L2 {rel:.4g} (limit {LOGIT_REL_L2}), max abs diff {err:.4g} of "
+            f"max |logit| {float(p_logits.abs().max()):.4g}, greedy agreement "
+            f"{agree:.2f}")
+        log(f"serve: the limit's readings: kernels vs plain versions without "
+            f"their bf16 roundings {rel_unrounded:.4g}; plain versions with "
+            f"their f32 sums reordered vs plain versions {rel_reordered:.4g}; "
+            f"kernels with one int4 layer's nibbles swapped vs plain versions "
+            f"{rel_fault:.4g}")
+        if rel > LOGIT_REL_L2:
+            raise AssertionError(f"decode logits differ: relative L2 {rel}")
+        if rel_fault <= LOGIT_REL_L2:
+            raise AssertionError(f"the logit limit {LOGIT_REL_L2} misses a "
+                                 f"planted fault (relative L2 {rel_fault})")
 
-    report.update(runs=runs, launches=launches, logit_rel_l2=rel,
-                  logit_rel_l2_unrounded=rel_unrounded,
-                  logit_rel_l2_reordered=rel_reordered,
-                  logit_rel_l2_planted_fault=rel_fault,
-                  logit_max_abs_diff=err, greedy_agreement=agree,
-                  ewq_counts=ewq.counts())
-    if device == "cuda":
-        decode_step_times(torch, model, eng, state, toks, report)
-    eng = engine = state = None
-    spec_launches, spec_outs = serve_speculative(
-        torch, build, report, model, params, ewq, prompts, base_outs, device)
+        report.update(runs=runs, launches=launches, logit_rel_l2=rel,
+                      logit_rel_l2_unrounded=rel_unrounded,
+                      logit_rel_l2_reordered=rel_reordered,
+                      logit_rel_l2_planted_fault=rel_fault,
+                      logit_max_abs_diff=err, greedy_agreement=agree,
+                      ewq_counts=ewq.counts())
+        if device == "cuda":
+            decode_step_times(torch, model, eng, state, toks, report)
+        eng = engine = state = None
+    with phase(report, "4b llama spec"):
+        spec_launches, spec_outs = serve_speculative(
+            torch, build, report, model, params, ewq, prompts, base_outs,
+            device)
     for k, v in spec_launches.items():
         launches[k] += v
-    paged_launches = serve_paged(torch, build, report, model, params, ewq,
-                                 prompts, base_outs, spec_outs, device)
+    with phase(report, "4c llama paged"):
+        paged_launches = serve_paged(torch, build, report, model, params,
+                                     ewq, prompts, base_outs, spec_outs,
+                                     device)
     for k, v in paged_launches.items():
         launches[k] += v
-    _, entropy_launches = analyze_model(torch, build, report, model, params,
-                                        device)
+    with phase(report, "5 llama analysis"):
+        _, entropy_launches = analyze_model(torch, build, report, model,
+                                            params, device)
     launches["entropy"] += entropy_launches
     for k in LLAMA_PATH:
         if launches[k] <= 0 and device == "cuda":
@@ -1793,10 +1879,22 @@ def serve_paged(torch, build, report: dict, model, params, plan, prompts,
     stream = [np.concatenate([prefix, rng.randint(0, cfg.vocab_size,
                                                   size=(32,))])
               .astype(np.int32) for _ in range(8)]
-    seng = ServeEngine(model, peng.params, max_seq=1024, kv_precision="int8",
-                       device=device,
-                       paged=PagedConfig(page_size=PAGE, pool_pages=11))
-    s_outs, s_stats, s_run = serve(seng, stream, "paged-shared-prefix-11")
+
+    def stream_serve(share: bool, label: str):
+        """The stream on a fresh engine: with sharing from an 11-page
+        pool, or without from a 20-page pool; with its prefills
+        (``prefill_times``)."""
+        eng = ServeEngine(model, peng.params, max_seq=1024,
+                          kv_precision="int8", device=device,
+                          paged=PagedConfig(page_size=PAGE,
+                                            pool_pages=11 if share else 20,
+                                            prefix_sharing=share))
+        with prefill_times(torch, device) as prefills:
+            got = serve(eng, stream, label)
+        return eng, got, prefills
+
+    seng, (s_outs, s_stats, s_run), s_pre = stream_serve(
+        True, "paged-shared-prefix-11")
     pool = seng.pool
     checks = {
         "prefix_hits == 7": s_stats.prefix_hits == 7,
@@ -1812,17 +1910,34 @@ def serve_paged(torch, build, report: dict, model, params, plan, prompts,
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"shared-prefix stream: {failed} ({s_run})")
-    n_outs, _, n_run = serve(
-        ServeEngine(model, peng.params, max_seq=1024, kv_precision="int8",
-                    device=device,
-                    paged=PagedConfig(page_size=PAGE, pool_pages=20,
-                                      prefix_sharing=False)),
-        stream, "paged-no-sharing-20")
+    seng = pool = None
+    # Sharing must cut a hit's prefill: its 32-token suffix scored in ONE
+    # multi-query step over the shared rows, against the whole 288-token
+    # prompt without sharing. The check holds each hit to one step of its
+    # suffix, and the median device time of the 7 hits' prefills (the
+    # kernels and copies the profiler traces) below the median of the same
+    # prompts' prefills without sharing. Wall times and mean TTFTs are
+    # readings: an eager prompt step's wall time is set by the host's
+    # dispatch, and the streams' mean TTFTs (queueing and the 11-page
+    # pool's requeues in them) differ by less than one serve's spread
+    # (PERF.md §6).
+    _, (n_outs, _, n_run), n_pre = stream_serve(False, "paged-no-sharing-20")
     d_outs, _, d_run = serve(dense, stream, "dense-shared-prefix-stream")
+    hits = [r for r in s_pre if r["hit"] > 0]
+
+    def median(recs, key):
+        return float(np.median([r[key] for r in recs])) if recs else None
+
+    prefill = {f"{key}_{arm}": median(recs, key)
+               for key in (("device_ms", "wall_ms") if device == "cuda"
+                           else ())
+               for arm, recs in (("hit", hits), ("no_sharing", n_pre))}
     readings.update(
         stream_kv_bytes_peak=s_stats.kv_bytes_peak,
         stream_dense_reservation=SLOTS * dense.kv_bytes_per_slot(),
         stream_flushed_prefix_pages=flushed,
+        stream_prefills_sharing=s_pre, stream_prefills_no_sharing=n_pre,
+        stream_prefill_median=prefill,
         stream_ttft_mean_s_sharing=s_run["ttft_mean_s"],
         stream_ttft_mean_s_no_sharing=n_run["ttft_mean_s"],
         stream_ttft_mean_s_dense=d_run["ttft_mean_s"],
@@ -1830,16 +1945,25 @@ def serve_paged(torch, build, report: dict, model, params, plan, prompts,
             [np.mean(o.generated == d.generated)
              for o, d in zip(s_outs, d_outs)])),
         stream_no_sharing_identical_to_dense=same(n_outs, d_outs, True))
-    if device == "cuda" and not s_run["ttft_mean_s"] < n_run["ttft_mean_s"]:
+    not_one_step = [r for r in hits
+                    if r["steps"] != [len(stream[0]) - r["hit"]]]
+    if len(hits) < 7 or not_one_step:
+        raise AssertionError(f"shared-prefix stream: {len(hits)} prefix-hit "
+                             f"prefills (want 7); not one step of the "
+                             f"suffix: {not_one_step}")
+    if device == "cuda" and not (
+            0 < prefill["device_ms_hit"] < prefill["device_ms_no_sharing"]):
         raise AssertionError(
-            f"shared-prefix stream: mean TTFT with sharing "
-            f"{s_run['ttft_mean_s']} s is not below the stream without "
-            f"sharing ({n_run['ttft_mean_s']} s)")
+            f"shared-prefix stream: the median device time of a prefix "
+            f"hit's prefill {prefill['device_ms_hit']} ms is not below that "
+            f"of a prefill without sharing "
+            f"({prefill['device_ms_no_sharing']} ms), or none was traced")
     log(f"paged: shared-prefix stream: {json.dumps(checks)}; KV bytes at "
         f"peak {readings['stream_kv_bytes_peak']:.0f} against the dense "
-        f"reservation {readings['stream_dense_reservation']:.0f}; mean TTFT "
-        f"{s_run['ttft_mean_s']:.4f} s with sharing, "
-        f"{n_run['ttft_mean_s']:.4f} s without (20 pages), "
+        f"reservation {readings['stream_dense_reservation']:.0f}; each hit "
+        f"one step of 32 tokens; median prefill (hit / without sharing) "
+        f"{json.dumps(prefill)}; mean TTFT {s_run['ttft_mean_s']:.4f} s "
+        f"with sharing, {n_run['ttft_mean_s']:.4f} s without (20 pages), "
         f"{d_run['ttft_mean_s']:.4f} s dense; greedy agreement with the "
         f"dense serve {readings['stream_greedy_agreement_with_dense']:.4f}")
     seng = dense = peng = None
@@ -2083,11 +2207,19 @@ def recurrent_run(torch, build, model, params, label: str, plan, kv: str,
     return engine, outs, run, counts
 
 
+# Depth of the FULL configs phases 4e/4f serve, where cut: zamba2-2.7b's
+# 54 layers (the shared block at 9 sites) take 36 (6 sites), every width
+# as published. At 54 the whole smoke ran 770 s on one H100, its eight
+# zamba2 serves (prompts scanned token by token) 351 s of it.
+RECURRENT_LAYERS = {"zamba2-2.7b": 36}
+
+
 def serve_recurrent(torch, build, report: dict, arch: str,
                     smoke: bool = False, device: str = "cuda") -> dict:
-    """Phases 5 and 4e (zamba2-2.7b FULL: 54 Mamba2 layers, d_model 2560,
-    one shared attention + MLP block at 9 sites, 32 heads of hd 80, vocab
-    32000) or 4f (mamba2-780m FULL: 48 layers, d_model 1536, vocab 50280)
+    """Phases 5 and 4e (zamba2-2.7b at full width, its depth cut to
+    RECURRENT_LAYERS: 36 Mamba2 layers, d_model 2560, one shared attention
+    + MLP block at 6 sites, 32 heads of hd 80, vocab 32000) or 4f
+    (mamba2-780m FULL: 48 layers, d_model 1536, vocab 50280)
     from seeded random weights, max_seq 1024, 4 slots, chunk 8, phase 4's
     8 prompts of 64-256 tokens (each prefilled as a scan of single-token
     steps, replayed from a CUDA graph on a graph engine), 32 new tokens
@@ -2112,6 +2244,8 @@ def serve_recurrent(torch, build, report: dict, arch: str,
     from repro_torch.serving.spec import SpecConfig
 
     cfg = get_config(arch, smoke=smoke)
+    if not smoke and arch in RECURRENT_LAYERS:
+        cfg = dataclasses.replace(cfg, num_layers=RECURRENT_LAYERS[arch])
     hybrid = cfg.family == "hybrid"
     model = build_model(cfg)
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
@@ -2497,6 +2631,54 @@ def whisper_run(torch, build, model, engine, label: str, kv: str, plan,
 
 
 @contextlib.contextmanager
+def prefill_times(torch, device: str):
+    """Records, in a list it yields, every ``ServeEngine.prefill_request``
+    made inside the block: the prompt's prefix hit (tokens) and the tokens
+    of each multi-query step it ran (a hit's suffix); on the card also its
+    device ms (the kernels and copies torch.profiler traces in it: the
+    device's work, without the host's dispatch) and its wall ms (the
+    device synchronized before and after, the profiler on)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving.engine import ServeEngine
+    saved_request = ServeEngine.prefill_request
+    saved_step = ServeEngine._prefill_step
+    records, steps = [], []
+
+    def step(self, toks, cache):
+        steps.append(int(toks.shape[1]))
+        return saved_step(self, toks, cache)
+
+    def request(self, prompt, state=None, **kw):
+        steps.clear()
+        if device != "cuda":
+            out = saved_request(self, prompt, state, **kw)
+        else:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                out = saved_request(self, prompt, state, **kw)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        rec = dict(hit=0 if out.match is None else int(out.match.hit),
+                   steps=list(steps))
+        if device == "cuda":
+            rec.update(device_ms=sum(
+                e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == DeviceType.CUDA) / 1e3,
+                wall_ms=wall * 1e3)
+        records.append(rec)
+        return out
+
+    ServeEngine.prefill_request, ServeEngine._prefill_step = request, step
+    try:
+        yield records
+    finally:
+        ServeEngine.prefill_request = saved_request
+        ServeEngine._prefill_step = saved_step
+
+
+@contextlib.contextmanager
 def token_scan_prefill():
     """The prompt prefill as single-token steps, for the TTFT reading
     it is compared with: one single-token decode step per prompt token in
@@ -2565,37 +2747,44 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
 
-    # -- phase 1: device ------------------------------------------------------
-    name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    log(f"device: {name} | torch {torch.__version__} cuda {torch.version.cuda}")
-    log("tf32: off for matmul and cudnn (f32 products run in full f32)")
+    # -- phase 1: device ----------------------------------------------------
+    t_run = time.perf_counter()
+    report: dict = {}
+    with phase(report, "1 device"):
+        name = torch.cuda.get_device_name(0)
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0]
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        log(f"device: {name} | torch {torch.__version__} cuda "
+            f"{torch.version.cuda}")
+        log("tf32: off for matmul and cudnn (f32 products run in full f32)")
 
-    # -- phase 2: build ---------------------------------------------------------
-    t0 = time.perf_counter()
-    build.build_all()
-    log(f"build: {time.perf_counter() - t0:.1f} s ({build.BUILD_INFO})")
-    ptxas = {src: build.ptxas_report(src) for src in build.SOURCES}
-    for src, kernels in ptxas.items():
-        for k in kernels:
-            log(f"ptxas {src}: {k.get('registers')} registers, "
-                f"{k.get('smem_bytes')} bytes static smem, spill stores "
-                f"{k.get('spill_stores')} loads {k.get('spill_loads')} bytes: "
-                f"{k['kernel']}")
+    # -- phase 2: build -----------------------------------------------------
+    with phase(report, "2 build"):
+        t0 = time.perf_counter()
+        build.build_all()
+        log(f"build: {time.perf_counter() - t0:.1f} s ({build.BUILD_INFO})")
+        ptxas = {src: build.ptxas_report(src) for src in build.SOURCES}
+        for src, kernels in ptxas.items():
+            for k in kernels:
+                log(f"ptxas {src}: {k.get('registers')} registers, "
+                    f"{k.get('smem_bytes')} bytes static smem, spill stores "
+                    f"{k.get('spill_stores')} loads {k.get('spill_loads')} "
+                    f"bytes: {k['kernel']}")
 
-    # -- phase 3: kernels -------------------------------------------------------
-    timer = Timer(torch)
-    rows: list = []
-    worst = check_kernels(torch, timer, rows)
-    log(f"kernels: all within rtol=atol=2e-2 of their plain versions, "
-        f"decode attention within relative L2 {ATTN_REL_L2}; max abs err "
-        f"{worst}")
-    report: dict = {"device": name, "nvidia_smi": smi, "rows": rows,
-                    "build": dict(build.BUILD_INFO), "ptxas": ptxas}
+    # -- phase 3: kernels ---------------------------------------------------
+    with phase(report, "3 kernels"):
+        timer = Timer(torch)
+        rows: list = []
+        worst = check_kernels(torch, timer, rows)
+        log(f"kernels: all within rtol=atol=2e-2 of their plain versions, "
+            f"decode attention within relative L2 {ATTN_REL_L2}; max abs "
+            f"err {worst}")
+    report.update(device=name, nvidia_smi=smi, rows=rows,
+                  build=dict(build.BUILD_INFO), ptxas=ptxas)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     out_file = out_dir / "chip_smoke.json"
@@ -2605,16 +2794,18 @@ def main() -> int:
     launches = serve_full_width(torch, build, report)
     out_file.write_text(json.dumps(report, indent=1))
 
-    # -- phases 5 and 4d: whisper-medium at full width -------------------------
+    # -- phases 5 and 4d: whisper-medium at full width ---------------------
     torch.cuda.empty_cache()
-    for k, v in serve_whisper(torch, build, report).items():
-        launches[k] += v
+    with phase(report, "5+4d whisper-medium"):
+        for k, v in serve_whisper(torch, build, report).items():
+            launches[k] += v
     out_file.write_text(json.dumps(report, indent=1))
     # -- phases 5, 4e and 4f: zamba2-2.7b and mamba2-780m at full width -----
-    for arch, path in (("zamba2-2.7b", ZAMBA_PATH),
-                       ("mamba2-780m", MAMBA_PATH)):
+    for arch, path, label in (("zamba2-2.7b", ZAMBA_PATH, "5+4e"),
+                              ("mamba2-780m", MAMBA_PATH, "5+4f")):
         torch.cuda.empty_cache()
-        got = serve_recurrent(torch, build, report, arch)
+        with phase(report, f"{label} {arch}"):
+            got = serve_recurrent(torch, build, report, arch)
         for k in path:
             if got[k] <= 0:
                 raise AssertionError(f"kernel {k} never launched on "
@@ -2634,13 +2825,20 @@ def main() -> int:
         row = next(r for r in rows if r["kernel"] == kname
                    and r["shape"] == shape and r["precision"] == prec
                    and r["m"] == m)
-        kernels.append({
+        entry = {
             "name": kname, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[kname],
             "max_abs_err": worst[kname], "ms": row.get("ms"),
             "plain_ms": row.get("plain_ms"), "bound_ms": row.get("bound_ms"),
             "bound_by": row.get("bound_by"),
-            "library_ms": row.get("library_ms")})
+            "library_ms": row.get("library_ms")}
+        if "library_composition_ms" in row:
+            entry["library_composition_ms"] = row["library_composition_ms"]
+        kernels.append(entry)
+    seconds = report["phase_seconds"]
+    log(f"run: {time.perf_counter() - t_run:.1f} s, by phase "
+        f"{json.dumps({k: round(v, 1) for k, v in seconds.items()})}")
+    out_file.write_text(json.dumps(report, indent=1))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

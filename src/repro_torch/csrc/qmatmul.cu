@@ -66,7 +66,6 @@ namespace {
 constexpr int kGroup = 128;        // the weight group the kernel takes
 constexpr int kWarps = 8;          // warps of a block (at most), splitting K
 constexpr int kRowsX = 8;          // x rows an MMA tile holds
-constexpr int kSMs = 132;          // SMs of an H100 SXM
 constexpr int kSmemMax = 200 * 1024;
 constexpr int kDepth = 3;          // items a warp has loaded: 1 used + 2 ahead
 
@@ -76,72 +75,6 @@ struct Segs {
   float* y0; float* y1; float* y2;
   int n0, n1, n2;
 };
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
-                   : "memory");
-}
-
-// D += A * B for one m16n8k16 tile: A 16x16 bf16 (row), B 16x8 bf16 (col),
-// D 16x8 f32. A's rows 8-15 (registers a1, a3) are zero here.
-__device__ __forceinline__ void mma(float (&d)[4], uint32_t a0, uint32_t a2,
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
-}
-
-// 16 weight bytes (an L1 no-allocate load measured the same).
-__device__ __forceinline__ uint4 ldg16(const int8_t* p) {
-  return __ldg(reinterpret_cast<const uint4*>(p));
-}
-
-__device__ __forceinline__ uint32_t word(const uint4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
-// Byte b of ``u`` (an unsigned level) as the float 2^23 + u[b].
-__device__ __forceinline__ float magic(uint32_t u, int b) {
-  return __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + b));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// The B registers of MMA i (0..7) of a group: elements 4i .. 4i + 3 of the
-// lane's 32 weight elements (int8: two 16-byte chunks; int4: one), as two
-// bf16x2 words of exact levels. int4: low nibble = even element.
-template <bool PACKED>
-__device__ __forceinline__ void weights_of(const uint4 (&w)[2], int i,
-                                           uint32_t& b0, uint32_t& b1) {
-  if (PACKED) {
-    const uint32_t u = word(w[0], i >> 1) ^ 0x88888888u;  // n -> n + 8
-    const uint32_t lo = u & 0x0F0F0F0Fu, hi = (u >> 4) & 0x0F0F0F0Fu;
-    const int b = 2 * (i & 1);
-    b0 = pack_bf16(magic(lo, b) - 8388616.0f, magic(hi, b) - 8388616.0f);
-    b1 = pack_bf16(magic(lo, b + 1) - 8388616.0f,
-                   magic(hi, b + 1) - 8388616.0f);
-  } else {
-    const uint32_t u = word(w[i >> 2], i & 3) ^ 0x80808080u;  // b -> b + 128
-    b0 = pack_bf16(magic(u, 0) - 8388736.0f, magic(u, 1) - 8388736.0f);
-    b1 = pack_bf16(magic(u, 2) - 8388736.0f, magic(u, 3) - 8388736.0f);
-  }
-}
-
-// Where logical 16-byte slot s of a staged x row lies: bit 1 of the slot
-// flipped in every other run of 8, so that the 8 lanes of a phase (two x
-// rows, four lanes each) hit 8 different bank quads.
-__device__ __forceinline__ int swz(int s) { return s ^ (((s >> 3) & 1) << 1); }
 
 // Row n of the concatenated outputs: its weight row, scales, output
 // column and output row stride.
@@ -385,14 +318,15 @@ qmma_kernel(const XT* __restrict__ x, int M, int K, int RB, int TT,
 // multiplies at once (NT), warps a block (S, dividing the groups), x rows a
 // block (TT: 8, fewer when 8 rows of K do not fit), grid and dynamic
 // shared memory (the block's x rows, then two buffers of the warps'
-// partials). Blocks are as many as the SMs hold at once (``per_sm`` each),
-// fewer when the tiles are fewer; each loops over its tiles.
+// partials). Blocks are as many as the device's SMs hold at once
+// (``capacity``: blocks an SM holds times the SMs), fewer when the tiles
+// are fewer; each loops over its tiles.
 struct Plan {
   int RB, NT, S, TT, ntiles, gx, gy;
   size_t smem;
 };
 
-Plan plan_of(int N, int M, int K, int x_bf16, int per_sm) {
+Plan plan_of(int N, int M, int K, int x_bf16, int capacity) {
   Plan p;
   p.NT = N >= 16384 ? 2 : 1;
   p.RB = 8 * p.NT;
@@ -400,7 +334,7 @@ Plan plan_of(int N, int M, int K, int x_bf16, int per_sm) {
   p.S = N > 4096 ? kWarps / 2 : kWarps;
   while (ngroups % p.S) --p.S;
   p.ntiles = (N + p.RB - 1) / p.RB;
-  p.gx = per_sm > 0 && p.ntiles > per_sm * kSMs ? per_sm * kSMs : p.ntiles;
+  p.gx = capacity > 0 && p.ntiles > capacity ? capacity : p.ntiles;
   const size_t slots = (size_t)K * (x_bf16 ? 2 : 4) / 16 + 1;
   const size_t red = 2 * (size_t)p.S * 32 * p.NT * 2 * 4;
   p.TT = kRowsX;
@@ -453,14 +387,19 @@ int blocks_per_sm(const void* kern, int threads, size_t smem, int* per_sm) {
   return 0;
 }
 
-// The plan of a launch, with the SMs' capacity for its kernel.
+// The plan of a launch, with the capacity of the device's SMs for its
+// kernel.
 int full_plan(int N, int M, int K, int x_bf16, int packed, Plan* p) {
   *p = plan_of(N, M, K, x_bf16, 0);
-  int per_sm = 0;
-  const int err = blocks_per_sm(kernel_for(x_bf16, packed, p->NT),
-                                p->S * 32, p->smem, &per_sm);
+  int per_sm = 0, dev = 0, sms = 0;
+  int err = blocks_per_sm(kernel_for(x_bf16, packed, p->NT), p->S * 32,
+                          p->smem, &per_sm);
+  if (!err) err = (int)cudaGetDevice(&dev);
+  if (!err)
+    err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev);
   if (err) return err;
-  *p = plan_of(N, M, K, x_bf16, per_sm);
+  *p = plan_of(N, M, K, x_bf16, per_sm * sms);
   return 0;
 }
 

@@ -65,7 +65,8 @@ _SIGNATURES = {
         "repro_qmatmul_plan": [_I, _I, _I, _I, _I, _P],
     },
     "qmlp": {
-        "repro_qmlp_tiles": [_I],
+        "repro_qmlp_parts": [_I],
+        "repro_qmlp_plan": [_I, _I, _I, _I, _I, _I, _P],
         "repro_qmlp": [_P, _I, _I, _I, _I, _I, _I, _I, _I,
                        _P, _P, _P, _P, _P, _P, _P, _P, _P],
     },

@@ -16,6 +16,10 @@ Every quantized path has two implementations side by side:
   ``fused_mlp_plain`` the ``qdot`` sequence of the MLP, with silu (or
   gelu) rounded to x's dtype before it multiplies u (or the down weight).
 
+``fused_mlp_f32`` is the MLP as the TPU kernel computes it (weights
+dequantized in f32, the hidden kept in f32): a reference for the fused
+kernel's checks, which nothing on the serve path calls.
+
 A tensor on the CPU takes the plain version. ``plain=True`` asks for the
 plain version on the GPU too, which is how a run compares the two.
 """
@@ -63,11 +67,29 @@ def fused_mlp_plain(x: torch.Tensor, w_gate, w_up, w_down,
     return fused_mlp(x, w_gate, w_up, w_down, act, plain=True)
 
 
+def fused_mlp_f32(x: torch.Tensor, w_gate: Optional[QTensor], w_up: QTensor,
+                  w_down: QTensor, act: str = "swiglu") -> torch.Tensor:
+    """The quantized MLP as ``qmlp_pallas`` computes it: x in f32, every
+    weight dequantized to f32 (levels times scales, exact), the hidden
+    h = silu(x Wg^T) * (x Wu^T), or gelu_tanh(x Wu^T) without a gate, kept
+    in f32. (..., K) -> (..., D) f32."""
+    lead, k = x.shape[:-1], x.shape[-1]
+    xf = x.reshape(-1, k).float()
+    u = xf @ dequantize(w_up, torch.float32).t()
+    if act == "gelu":
+        h = F.gelu(u, approximate="tanh")
+    else:
+        h = F.silu(xf @ dequantize(w_gate, torch.float32).t()) * u
+    y = h @ dequantize(w_down, torch.float32).t()
+    return y.reshape(*lead, y.shape[-1])
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernel wrappers
 # ---------------------------------------------------------------------------
 
-# the weight group csrc/qmatmul.cu takes (every plan's default)
+# the weight group csrc/qmatmul.cu and csrc/qmlp.cu take (every plan's
+# default)
 KERNEL_GROUP = 128
 
 
@@ -158,24 +180,25 @@ def qmlp_cuda(x2d: torch.Tensor, w_gate: Optional[QTensor], w_up: QTensor,
               w_down: QTensor) -> torch.Tensor:
     """Fused MLP kernel: (M, K) -> (M, D) f32, SwiGLU with a gate weight,
     GeLU (tanh form) with ``w_gate=None``; the (M, FF) hidden never reaches
-    device memory (only (FF / 64, M, D) f32 partials)."""
-    _check_x(x2d, "qmlp")
+    device memory (only (parts, M, D) f32 partials, a part per 512 FF
+    rows, as the C side reports)."""
+    x2d = _check_x(x2d, "qmlp")
     m, k = x2d.shape
     gelu = w_gate is None
     ws = (w_up, w_down) if gelu else (w_gate, w_up, w_down)
-    ff = _check_w(w_up, k, x2d.device, "qmlp up")
-    if not gelu and _check_w(w_gate, k, x2d.device, "qmlp gate") != ff:
+    ff = _check_w(w_up, k, x2d.device, "qmlp up", KERNEL_GROUP)
+    if not gelu and _check_w(w_gate, k, x2d.device, "qmlp gate",
+                             KERNEL_GROUP) != ff:
         raise ValueError("qmlp: gate and up must have the same rows")
-    d = _check_w(w_down, ff, x2d.device, "qmlp down")
+    d = _check_w(w_down, ff, x2d.device, "qmlp down", KERNEL_GROUP)
     if len({(w.precision, w.group) for w in ws}) != 1:
         raise ValueError("qmlp: the weights must share precision/group")
     out = torch.empty((m, d), dtype=torch.float32, device=x2d.device)
     if m == 0:
         return out
     lib = build.library("qmlp")
-    tiles = lib.repro_qmlp_tiles(ff)
-    partial = torch.empty((tiles, m, d), dtype=torch.float32,
-                          device=x2d.device)
+    partial = torch.empty((lib.repro_qmlp_parts(ff), m, d),
+                          dtype=torch.float32, device=x2d.device)
     name = "qmlp_gelu" if gelu else "qmlp"
     build.LAUNCHES[name] += 1
     build.check(lib.repro_qmlp(
