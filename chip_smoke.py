@@ -41,8 +41,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    zamba2's and mamba2's shapes at M = 1 and 4 (RECURRENT_SHAPES; every
    fused-MLP case is in qmlp_cases). The
    entropy kernel (within 1e-3 * max(1, |H|) and 1e-5 absolute, at the
-   weight scale and the reference test's, with a weighted ragged tail) and
-   the int8 quantize kernel (payload and scales equal to the bit).
+   weight scale and the reference test's, with a weighted ragged tail),
+   one array a launch and grouped (llama3.2-3b's embedding and one layer's
+   matrices and the ragged vector in one launch, each H equal to the bit
+   to its single launch and over two launches), and the int8 quantize
+   kernel (payload and scales equal to the bit; groups of 128 and 64, and
+   its warp-per-group path: a group of 24, a view off 16-byte alignment).
 4. serve: llama3.2-3b FULL (28 layers, d_model 3072) from seeded random
    weights, EWQ-planned on the card and served with int8 KV, then an
    explicit raw/int8/int4/ternary plan served with int4 KV. Every serve
@@ -79,10 +83,13 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    4b's model-draft speculative serve over the pool (tokens identical).
 5. analysis: ``analyze_blocks`` over every matrix of llama3.2-3b FULL (197
    matrices) and of whisper-medium FULL through the entropy kernel
-   (mode="kernel") and in plain tensor ops (mode="stream"), both timed;
-   entropies within 1e-3 * max(1, |H|) and 1e-5, plan decisions equal
-   wherever a block is farther from the thresholds than the measured
-   difference.
+   (mode="kernel": one grouped launch a model) and in plain tensor ops
+   (mode="stream"), timed in turns with a loop of single-matrix launches
+   and a float() each (the per-matrix path); one launch, entropies
+   equal to the loop's to the bit and within 1e-3 * max(1, |H|) and 1e-5
+   of stream mode's, plan decisions equal wherever a block is farther from
+   the thresholds than the measured difference; the model's bytes and
+   bound beside the seconds.
 4d. whisper serve: whisper-medium FULL (24 + 24 layers, d_model 1024)
    from seeded random weights, planned 4bit/8bit from phase 5's
    kernel-mode entropies, serves 8 requests with seeded frames at 4
@@ -107,10 +114,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    equal-memory paged pool with prefix sharing (equal to the dense serve)
    and speculatively (k = 4, int4 self-draft and ngram draft, each from
    graphs and eagerly, equal to the bit). One decode step through the
-   kernels against the plain versions (LOGIT_REL_L2), and one Mamba2
-   layer's int4 w_in nibble-swapped, which the limit must catch. Each run
-   reports tokens/s, TTFT, a chunk's device and wall ms and launches per
-   step, weight bytes, KV and conv/state bytes a slot and peak memory.
+   kernels against the plain versions (LOGIT_REL_L2), the plain versions
+   with their f32 sums reordered (the limit's floor, a reading), and one
+   Mamba2 layer's int4 w_in nibble-swapped, which the limit must catch.
+   Each run reports tokens/s, TTFT, a chunk's device and wall ms and
+   launches per step, weight bytes, KV and conv/state bytes a slot and
+   peak memory.
    The kernels of ZAMBA_PATH and MAMBA_PATH must launch there.
 6. a JSON line naming each kernel, then the device line last. Every
    kernel's launch count must have risen on the serve and analysis paths,
@@ -1032,17 +1041,63 @@ def entropy_fault(got: float, want: float):
     return None
 
 
+# the grouped case: llama3.2-3b's block 0 (the 128256 x 3072 embedding)
+# and one layer's seven matrices in bf16 at the weight scale, and the
+# ragged f32 vector, in one entropy_many launch
+ENTROPY_GROUP = (("embed 128256x3072", (128256, 3072)),
+                 ("wq 3072x3072", (3072, 3072)),
+                 ("wk 1024x3072", (1024, 3072)),
+                 ("wv 1024x3072", (1024, 3072)),
+                 ("wo 3072x3072", (3072, 3072)),
+                 ("gate 8192x3072", (8192, 3072)),
+                 ("up 8192x3072", (8192, 3072)),
+                 ("down 3072x8192", (3072, 8192)))
+
+
+def entropy_group_inputs(torch, gen, device: str = "cuda") -> list:
+    """(label, w) of the grouped case: ENTROPY_GROUP in bf16, then a
+    1000003-element f32 vector whose ragged tail is ENTROPY_TAIL."""
+    out = [(label, (torch.randn(dims, generator=gen, device=device)
+                    * dims[-1] ** -0.5).to(torch.bfloat16))
+           for label, dims in ENTROPY_GROUP]
+    v = torch.randn((1000003,), generator=gen, device=device) * 1000003 ** -0.5
+    v[-(v.numel() % 4):] = ENTROPY_TAIL
+    return out + [("1000003 f32 tail", v)]
+
+
+def entropy_group_check(torch, EN, group: list) -> list:
+    """The grouped launch over ``group`` against its plain version (each H
+    through ``entropy_fault``), against each array's single-array launch
+    and against a second grouped launch (both to the bit). Returns one dict
+    per array: label, H (grouped, plain), error, fault or None, and whether
+    it equals its single launch and the second grouped launch."""
+    ws = [w for _, w in group]
+    got = EN.entropy_many(ws).tolist()
+    again = EN.entropy_many(ws).tolist()
+    want = EN.entropy_many_plain(ws).tolist()
+    alone = [float(EN.entropy_cuda(w)) for w in ws]
+    return [dict(case=label, h=g, h_plain=p, err=abs(g - p),
+                 fault=entropy_fault(g, p), equal_single=g == a,
+                 equal_twice=g == b)
+            for (label, _), g, p, a, b in zip(group, got, want, alone, again)]
+
+
 def check_entropy_quantize(torch, timer, gen, rows, worst, add) -> None:
     """The entropy kernel (ENTROPY_CASES: llama3.2-3b's 3072x8192 MLP
     weight and whisper-medium's padded 51968x1024 embedding in bf16, as the
     analysis reads them, and an odd-sized f32 vector whose ragged tail
-    carries weight; at the weight scale and at the reference test's)
-    within ENTROPY_TOL * max(1, |H|) and ENTROPY_ABS of its plain version,
-    with the gap log(n) - H of both reported; the int8 quantize kernel on a
-    3072x8192 bf16 and a 1024x4096 f32 weight, payload and f32 scales equal
-    to the plain version's to the bit. The yardsticks:
-    ``Categorical(logits=w).entropy()`` for the entropy (one PyTorch call,
-    the same function); none for quantize."""
+    carries weight; at the weight scale and at the reference test's), each
+    a launch of one array, within ENTROPY_TOL * max(1, |H|) and ENTROPY_ABS
+    of its plain version, with the gap log(n) - H of both reported; the
+    grouped case (ENTROPY_GROUP and the ragged vector in one launch), each
+    H within the same limits and equal to the bit to its single launch and
+    over two launches; the int8 quantize kernel on a 3072x8192 bf16 and a
+    1024x4096 f32 weight at group 128, a bf16 weight at group 64, and two
+    that take its warp-per-group path (group 24; a view one element off
+    16-byte alignment), payload and f32 scales equal to the plain
+    version's to the bit. The yardsticks: ``Categorical(logits=w)
+    .entropy()`` for the entropy (one PyTorch call, the same function;
+    none for a list); none for quantize."""
     import math
     from repro_torch.kernels.entropy import ops as EN
     from repro_torch.kernels.quantize import ops as QZ
@@ -1069,19 +1124,49 @@ def check_entropy_quantize(torch, timer, gen, rows, worst, add) -> None:
                 lambda: EN.matrix_entropy(w, plain=True))
             row["library_ms"] = timer.ms(lambda: cat(
                 logits=flat.float(), validate_args=False).entropy())
+            # one read of the same bytes by PyTorch's own reduction: what
+            # a stream of them reads under this timing (a reading, not
+            # the function)
+            row["stream_ms"] = timer.ms(
+                lambda: torch.sum(w, dtype=torch.float32))
             row["bound_ms"], row["bound_by"] = bound_ms(
                 n * w.element_size() + 4, 6.0 * n, F32_FLOPS)
         add(row)
         del w
-    for shape, (n, k), dtype in (("3072x8192 bf16 group128", (3072, 8192),
-                                  torch.bfloat16),
-                                 ("1024x4096 f32 group128", (1024, 4096),
-                                  torch.float32)):
-        w = (torch.randn((n, k), generator=gen, device="cuda") * 0.02
-             ).to(dtype)
-        w[0, :128] = 0                              # a zero group
-        q, sc = QZ.quantize_int8_cuda(w)
-        qp, sp = QZ.quantize_int8(w, plain=True)
+    group = entropy_group_inputs(torch, gen)
+    checks = entropy_group_check(torch, EN, group)
+    for c in checks:
+        worst["entropy"] = max(worst["entropy"], c["err"])
+        if c["fault"] or not (c["equal_single"] and c["equal_twice"]):
+            raise AssertionError(f"entropy grouped case: {c}")
+    ws = [w for _, w in group]
+    n = sum(w.numel() for w in ws)
+    row = dict(kernel="entropy", shape=f"grouped {len(ws)} arrays",
+               precision="bfloat16+float32", m=None, arrays=checks,
+               err=max(c["err"] for c in checks))
+    if not QUICK:
+        row["ms"] = timer.ms(lambda: EN.entropy_many(ws))
+        row["plain_ms"] = timer.ms(lambda: EN.entropy_many_plain(ws))
+        row["library_ms"] = None
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            sum(w.numel() * w.element_size() for w in ws) + 4 * len(ws),
+            6.0 * n, F32_FLOPS)
+    add(row)
+    del group, ws, checks
+    base = torch.randn((3072 * 8192 + 8,), generator=gen, device="cuda")
+    for shape, (n, k), dtype, group, offset in (
+            ("3072x8192 bf16 group128", (3072, 8192), torch.bfloat16, 128,
+             0),
+            ("1024x4096 f32 group128", (1024, 4096), torch.float32, 128, 0),
+            ("3072x8192 bf16 group64", (3072, 8192), torch.bfloat16, 64, 0),
+            ("1024x3072 bf16 group24", (1024, 3072), torch.bfloat16, 24, 0),
+            ("3072x8192 bf16 group128 offset1", (3072, 8192),
+             torch.bfloat16, 128, 1)):
+        flat = (base * 0.02).to(dtype)
+        w = flat[offset:offset + n * k].view(n, k)  # offset 1: 2 bytes off
+        w[0, :group] = 0                            # a zero group
+        q, sc = QZ.quantize_int8_cuda(w, group)
+        qp, sp = QZ.quantize_int8(w, group, plain=True)
         torch.cuda.synchronize()
         if not (torch.equal(q, qp) and torch.equal(sc, sp)):
             raise AssertionError(
@@ -1090,17 +1175,19 @@ def check_entropy_quantize(torch, timer, gen, rows, worst, add) -> None:
                 "the plain version")
         row = dict(kernel="quantize_int8", shape=shape,
                    precision=str(dtype).replace("torch.", ""), m=None,
-                   err=0.0, bit_exact=True)
+                   err=0.0, bit_exact=True,
+                   aligned=w.data_ptr() % 16 == 0)
         if not QUICK:
-            row["ms"] = timer.ms(lambda: QZ.quantize_int8_cuda(w))
+            row["ms"] = timer.ms(lambda: QZ.quantize_int8_cuda(w, group))
             row["plain_ms"] = timer.ms(
-                lambda: QZ.quantize_int8(w, plain=True))
+                lambda: QZ.quantize_int8(w, group, plain=True))
             row["library_ms"] = None
             row["bound_ms"], row["bound_by"] = bound_ms(
-                n * k * w.element_size() + n * k + n * (k // 128) * 4,
+                n * k * w.element_size() + n * k + n * (k // group) * 4,
                 5.0 * n * k, F32_FLOPS)
         add(row)
-        del w, q, sc, qp, sp
+        del flat, w, q, sc, qp, sp
+    del base
 
 
 # ---------------------------------------------------------------------------
@@ -2066,30 +2153,58 @@ def spec_readings(torch, model, eng, prompts, device: str) -> dict:
 def analyze_model(torch, build, report: dict, model, params,
                   device: str) -> tuple:
     """Phase 5 for one model: ``analyze_blocks`` over every block in
-    mode="kernel" (the entropy kernel, one call per matrix) and in
-    mode="stream" (plain tensor ops), each timed; the per-matrix entropies
-    of the two within ENTROPY_TOL * max(1, |H|) and ENTROPY_ABS; the
-    4bit/8bit plans of both (the plan ``plan_model(variant="4bit/8bit",
-    mode=...)`` gives), equal on every block whose distance to the plan's
-    thresholds exceeds the largest difference measured between the two
-    (random blocks of one shape have nearly equal entropies, so a block on
-    a threshold may fall either way). Returns (the kernel-mode entropies, entropy launches)."""
+    mode="kernel" (every matrix in one grouped entropy launch, read back
+    once) and in mode="stream" (plain tensor ops), and the per-matrix path
+    the analysis took before its launch was grouped
+    (``block_entropy_from_matrices`` over each block: one single-array
+    launch, whose table is a kernel parameter, and one ``float()`` a
+    matrix), in turns (kernel, loop, stream, kernel, loop), each timed.
+    Kernel mode
+    must launch the kernel once; its entropies must equal the loop's to
+    the bit and be
+    within ENTROPY_TOL * max(1, |H|) and ENTROPY_ABS of stream mode's; the
+    4bit/8bit plans of both modes (the plan ``plan_model(variant=
+    "4bit/8bit", mode=...)`` gives) must be equal on every block whose
+    distance to the plan's thresholds exceeds the largest difference
+    measured between the two (random blocks of one shape have nearly
+    equal entropies, so a block on a threshold may fall either way). The
+    model's matrix bytes over HBM_BYTES_PER_S are the analysis's bound;
+    the grouped launch's device time alone (``kernel_device_s``, median
+    of 3) stands beside it. Returns (the kernel-mode entropies, entropy
+    launches)."""
+    from repro_torch.core import entropy as E
     from repro_torch.core import policy
     from repro_torch.core.planner import analyze
     cfg = model.cfg
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     blocks = model.block_params(params)
+
+    def loop():     # the per-matrix path, one launch and float() a matrix
+        return [[h for h, _ in E.block_entropy_from_matrices(
+            E.flatten_block_params(blk), mode="kernel")[2].values()]
+            for blk in blocks]
+
     timed = {}
-    for mode in ("kernel", "stream", "kernel"):
+    for mode in ("kernel", "loop", "stream", "kernel", "loop"):
         sync()
         build.reset_launches()
         t0 = time.perf_counter()
-        ents = analyze(blocks, mode=mode)
+        ents = loop() if mode == "loop" else analyze(blocks, mode=mode)
         sync()
         timed.setdefault(mode, []).append((time.perf_counter() - t0, ents))
         if mode == "kernel":
             launches = build.LAUNCHES["entropy"]
     ek, es = timed["kernel"][-1][1], timed["stream"][0][1]
+    if device == "cuda" and launches != 1:
+        raise AssertionError(f"{cfg.name}: kernel mode launched the entropy "
+                             f"kernel {launches} times, not once")
+    looped = timed["loop"][-1][1]
+    for bk, hl in zip(ek, looped):
+        hk = [h for h, _ in bk.per_matrix.values()]
+        if hk != hl:
+            raise AssertionError(f"{cfg.name} block {bk.block_index}: "
+                                 f"grouped entropies {hk} are not the "
+                                 f"single launches' {hl}")
     n_mats = sum(len(b.per_matrix) for b in ek)
     nbytes = sum(t.numel() * t.element_size()
                  for blk in blocks for t in _matrices(blk))
@@ -2119,9 +2234,31 @@ def analyze_model(torch, build, report: dict, model, params,
                     f"margin {margin} > {slack}")
         elif dk.precision != ds.precision:
             differ.append(dk.block_index)
+    kernel_s = [t for t, _ in timed["kernel"]]
+    loop_s = [t for t, _ in timed["loop"]]
+    device_s = None
+    if device == "cuda":
+        # the grouped launch's own device time: the host's checks and
+        # table are hidden behind a sleep queued ahead of it
+        from repro_torch.kernels.entropy import ops as EN
+        flat = [t for blk in blocks for t in _matrices(blk)]
+        reads = []
+        for _ in range(3):
+            torch.cuda._sleep(4_000_000)
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            EN.entropies(flat)
+            e.record()
+            e.synchronize()
+            reads.append(s.elapsed_time(e) / 1e3)
+        device_s = sorted(reads)[1]
+        del flat
     out = dict(model=cfg.name, blocks=len(ek), matrices=n_mats,
-               bytes=nbytes, entropy_launches=launches,
-               kernel_s=[t for t, _ in timed["kernel"]],
+               bytes=nbytes, bound_s=nbytes / HBM_BYTES_PER_S,
+               entropy_launches=launches, kernel_s=kernel_s,
+               kernel_device_s=device_s,
+               loop_s=loop_s, kernel_over_loop=min(kernel_s) / min(loop_s),
                stream_s=timed["stream"][0][0],
                max_matrix_abs_diff=mat_err, max_block_abs_diff=blk_err,
                threshold=pk.threshold, mu=pk.mu, sigma=pk.sigma,
@@ -2233,8 +2370,10 @@ def serve_recurrent(torch, build, report: dict, arch: str,
     the int4 self-draft and the ngram draft, each from CUDA graphs and
     eagerly (equal to the bit). Then, on the explicit engine, one decode
     step through the kernels against the plain versions (LOGIT_REL_L2),
-    and the planted fault the limit must catch: one Mamba2 layer's int4
-    ``w_in`` nibble-swapped. Returns the launches of the phases."""
+    the plain versions with their f32 sums reordered against themselves (a
+    reading of the limit's floor), and the planted fault the limit must
+    catch: one Mamba2 layer's int4 ``w_in`` nibble-swapped. Returns the
+    launches of the phases."""
     from repro_torch.configs.registry import get_config
     from repro_torch.core import policy
     from repro_torch.models.model import build as build_model
@@ -2333,12 +2472,16 @@ def serve_recurrent(torch, build, report: dict, arch: str,
         raise AssertionError(f"{cfg.name}: non-finite logits through the "
                              "kernels")
     rel = rel_l2(k_logits, p_logits)
+    with patched_plain(torch, "reordered"):
+        rel_reordered = rel_l2(step_logits(engine.params, True), p_logits)
     rel_fault = rel_l2(step_logits(swap_nibbles_one_layer(
         torch, engine.params, leaf="w_in")), p_logits)
     agree = float((k_logits.argmax(-1) == p_logits.argmax(-1)).float().mean())
     log(f"{cfg.name}: first decode step, kernels vs plain versions: relative "
         f"L2 {rel:.4g} (limit {LOGIT_REL_L2}), greedy agreement {agree:.2f}; "
-        f"one Mamba2 layer's int4 w_in nibble-swapped: {rel_fault:.4g}")
+        f"plain versions with their f32 sums reordered vs plain versions "
+        f"{rel_reordered:.4g}; one Mamba2 layer's int4 w_in nibble-swapped: "
+        f"{rel_fault:.4g}")
     if rel > LOGIT_REL_L2:
         raise AssertionError(f"{cfg.name}: decode logits differ: relative L2 "
                              f"{rel}")
@@ -2356,6 +2499,7 @@ def serve_recurrent(torch, build, report: dict, arch: str,
             f"ms (CUDA graph replay)")
     report.setdefault("recurrent", {})[cfg.name] = dict(
         runs=runs, ewq_counts=ewq.counts(), logit_rel_l2=rel,
+        logit_rel_l2_reordered=rel_reordered,
         logit_rel_l2_planted_fault=rel_fault, greedy_agreement=agree,
         decode_step=step, prompt_graph_check=prompt_check,
         launches=launches)

@@ -5,17 +5,23 @@
 For each fault below (and once without one) the script copies
 ``src/repro_torch`` into a temporary directory, plants the fault in the
 copy's ``csrc/entropy.cu``, and in a fresh process builds that copy's
-kernel and runs it over chip_smoke.py's entropy cases (``entropy_inputs``)
-against the plain version, through chip_smoke.py's own gate
-(``entropy_fault``). It prints one JSON line per fault: the largest error
-and, per case, what the gate said. It exits non-zero if the unchanged
-kernel fails a case or a faulty one passes every case. The repo itself is
-never changed.
+kernel and runs it over chip_smoke.py's entropy cases (``entropy_inputs``,
+each a launch of one array) and its grouped case (``entropy_group_inputs``
+in one launch, ``entropy_group_check``) against the plain version, through
+chip_smoke.py's own gate (``entropy_fault``). It prints one JSON line per
+fault: the largest error and, per case, what the gate said (and for the
+grouped case whether each H equals its single launch and a second grouped
+launch). It exits non-zero if the unchanged kernel fails a case or an
+equality, or a faulty one passes every case. The repo itself is never
+changed.
 
 Faults:
-  drop_partial  the final pass merges all but the last pass-1 partial;
-  drop_tail     pass 1 skips the elements past its last 16-byte load;
-  drop_sz       the final pass writes m + log Z, without the - S/Z term.
+  drop_partial     pass 2 merges all but the last tile partial of an array;
+  drop_tail        pass 1 skips the elements past a tile's last 16-byte
+                   load;
+  drop_sz          pass 2 writes m + log Z, without the - S/Z term;
+  merge_neighbour  pass 2 merges the first tile of the next array into an
+                   array's partials (only a grouped launch can show it).
 """
 
 from __future__ import annotations
@@ -32,12 +38,15 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 FAULTS = {
     "none": None,
-    "drop_partial": ("for (int i = threadIdx.x; i < nparts; i += kThreads)",
-                     "for (int i = threadIdx.x; i < nparts - 1; "
-                     "i += kThreads)"),
-    "drop_tail": ("tail = nv * kPer;", "tail = n;"),
-    "drop_sz": ("out[0] = (st.m + logf(st.z)) - st.s / st.z;",
-                "out[0] = st.m + logf(st.z);"),
+    "drop_partial": ("const int end = begin + run < hi ? begin + run : hi;",
+                     "const int end = begin + run < hi - 1 ? begin + run "
+                     ": hi - 1;"),
+    "drop_tail": ("tail = nv * kPer;", "tail = cnt;"),
+    "drop_sz": ("out[a] = (st.m + logf(st.z)) - st.s / st.z;",
+                "out[a] = st.m + logf(st.z);"),
+    "merge_neighbour": ("const int hi = tab.first[a + 1];",
+                        "const int hi = tab.first[a + 1] + "
+                        "(a + 1 < (int)gridDim.x);"),
 }
 
 # run in the child process, with the copy's src/ first on sys.path
@@ -53,6 +62,10 @@ for label, w in C.entropy_inputs(torch, gen):
     want = float(EN.matrix_entropy(w, plain=True))
     cases.append(dict(case=label, err=abs(got - want),
                       fault=C.entropy_fault(got, want)))
+for c in C.entropy_group_check(torch, EN, C.entropy_group_inputs(torch, gen)):
+    cases.append(dict(case="grouped " + c["case"], err=c["err"],
+                      fault=c["fault"], equal_single=c["equal_single"],
+                      equal_twice=c["equal_twice"]))
 print(json.dumps(cases))
 """
 
@@ -81,8 +94,11 @@ def run(fault: str, edit) -> dict:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     caught = [c["case"] for c in cases if c["fault"]]
+    unequal = [c["case"] for c in cases
+               if not (c.get("equal_single", True)
+                       and c.get("equal_twice", True))]
     return dict(fault=fault, max_err=max(c["err"] for c in cases),
-                caught_in=caught, cases=cases)
+                caught_in=caught, unequal_in=unequal, cases=cases)
 
 
 def main() -> int:
@@ -97,7 +113,8 @@ def main() -> int:
     for fault, edit in FAULTS.items():
         res = run(fault, edit)
         print(json.dumps(res), flush=True)
-        if (fault == "none") == bool(res["caught_in"]):
+        if (fault == "none") == bool(res["caught_in"]) or (
+                fault == "none" and res["unequal_in"]):
             ok = False
             print(f"{fault}: the gate {'failed' if fault == 'none' else 'passed'}"
                   " where it should not", flush=True)

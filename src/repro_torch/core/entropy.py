@@ -14,9 +14,11 @@ and for a block containing matrices {W_i}:
 * ``mode="stream"`` - the closed form H = lse(w) - E_p[w] with an online
   (chunked) logsumexp and weighted sum; eps = 0.
 * ``mode="kernel"`` - the closed form through the entropy kernel
-  (``kernels/entropy``): on the GPU the kernel reads the matrix once, in
-  place; a CPU tensor takes its plain version (``entropy_ref``'s
-  arithmetic). eps = 0.
+  (``kernels/entropy``): ``analyze_blocks`` hands every matrix of every
+  block to one grouped kernel launch on the GPU (one read of each matrix,
+  in place, and one read-back of all entropies; the host names and sorts
+  the matrices while the card reads them); CPU tensors take the plain
+  version (``entropy_ref``'s arithmetic). eps = 0.
 
 Matrices are analyzed on whatever device they live on, in f32.
 """
@@ -24,11 +26,13 @@ Matrices are analyzed on whatever device they live on, in f32.
 from __future__ import annotations
 
 import dataclasses
+from collections import abc
 from typing import Any, Mapping, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.kernels.entropy.ops import entropies as kernel_entropies
 from repro_torch.kernels.entropy.ops import matrix_entropy as kernel_entropy
 
 DEFAULT_EPS = 0.01
@@ -81,20 +85,20 @@ class BlockEntropy:
     per_matrix: dict[str, tuple[float, int]]  # name -> (H, size)
 
 
-def block_entropy_from_matrices(
-    mats: Mapping[str, torch.Tensor], *, mode: str = "paper",
-    eps: float = DEFAULT_EPS,
-) -> tuple[float, int, dict[str, tuple[float, int]]]:
-    """Size-weighted block entropy over the >= 2-D (Linear / Embedding)
-    matrices; vectors (norm scales, biases) are excluded."""
+def _block_matrices(mats: Mapping[str, torch.Tensor]) -> list:
+    """The >= 2-D (Linear / Embedding) matrices of a block by sorted name;
+    vectors (norm scales, biases) are excluded."""
+    return [(name, w) for name, w in sorted(mats.items()) if w.ndim >= 2]
+
+
+def _weighted(sized: Sequence, hs: Sequence[float]
+              ) -> tuple[float, int, dict[str, tuple[float, int]]]:
+    """(block entropy, parameters, name -> (H, size)) of a block's
+    (name, size) matrices and their entropies."""
     per: dict[str, tuple[float, int]] = {}
     total = 0
     acc = 0.0
-    for name, w in sorted(mats.items()):
-        if w.ndim < 2:
-            continue
-        size = int(np.prod(tuple(w.shape)))
-        h = float(matrix_entropy(w, mode=mode, eps=eps))
+    for (name, size), h in zip(sized, hs):
         per[name] = (h, size)
         total += size
         acc += h * size
@@ -103,26 +107,89 @@ def block_entropy_from_matrices(
     return acc / total, total, per
 
 
+def block_entropy_from_matrices(
+    mats: Mapping[str, torch.Tensor], *, mode: str = "paper",
+    eps: float = DEFAULT_EPS,
+) -> tuple[float, int, dict[str, tuple[float, int]]]:
+    """Size-weighted block entropy over the >= 2-D (Linear / Embedding)
+    matrices; vectors (norm scales, biases) are excluded."""
+    named = _block_matrices(mats)
+    return _weighted([(name, w.numel()) for name, w in named],
+                     [float(matrix_entropy(w, mode=mode, eps=eps))
+                      for _, w in named])
+
+
 def flatten_block_params(tree: Any, prefix: str = "") -> dict[str, Any]:
     """Flatten a nested param dict into {dotted_name: tensor}."""
     out: dict[str, Any] = {}
-    if isinstance(tree, Mapping):
-        for k, v in tree.items():
-            out.update(flatten_block_params(v, f"{prefix}{k}."))
-    else:
-        out[prefix[:-1]] = tree
+    _flatten_into(out, tree, prefix)
     return out
+
+
+def _flatten_into(out: dict, tree: Any, prefix: str) -> None:
+    # a tensor is tested first: the Mapping check is slow on a non-mapping
+    if isinstance(tree, torch.Tensor) or not isinstance(tree, abc.Mapping):
+        out[prefix[:-1]] = tree
+        return
+    for k, v in tree.items():
+        _flatten_into(out, v, f"{prefix}{k}.")
+
+
+def _matrices_into(out: list, tree: Any) -> None:
+    # flatten_block_params's walk without the names: the >= 2-D leaves in
+    # its order
+    if isinstance(tree, torch.Tensor) or not isinstance(tree, abc.Mapping):
+        if tree.ndim >= 2:
+            out.append(tree)
+        return
+    for v in tree.values():
+        _matrices_into(out, v)
+
+
+def _kernel_mode(blocks: Sequence) -> tuple[list, list]:
+    """Kernel mode over all blocks: every matrix in one ``kernels/entropy``
+    call, launched before the host names and sorts the matrices (on the GPU
+    that work then overlaps the card's read), read back at once. Returns
+    per block its (name, size) matrices by sorted name and their entropies.
+    An array's entropy does not depend on its place in the launch, so each
+    equals the per-matrix path's."""
+    flat: list = []
+    for blk in blocks:
+        _matrices_into(flat, blk)
+    hs = kernel_entropies(flat) if flat else None   # on the GPU: launched
+    walked = [[(name, w.numel()) for name, w in
+               flatten_block_params(blk).items() if w.ndim >= 2]
+              for blk in blocks]
+    if sum(map(len, walked)) != len(flat):
+        raise ValueError("entropy: two matrices of a block share a name")
+    it = iter(hs.tolist() if flat else [])
+    sized, hss = [], []
+    for items in walked:
+        pairs = sorted(zip(items, [next(it) for _ in items]),
+                       key=lambda p: p[0][0])
+        sized.append([s for s, _ in pairs])
+        hss.append([h for _, h in pairs])
+    return sized, hss
 
 
 def analyze_blocks(
     blocks: Sequence[Mapping[str, torch.Tensor]], *, mode: str = "paper",
     eps: float = DEFAULT_EPS, first_exec_index: int = 2,
 ) -> list[BlockEntropy]:
-    """Per-block entropy for a sequence of block param dicts."""
+    """Per-block entropy for a sequence of block param dicts. In kernel
+    mode every matrix of every block goes to one ``kernels/entropy`` call
+    (one launch on the GPU), read back at once; each block's weighting is
+    the per-matrix path's arithmetic on the same entropies."""
+    if mode == "kernel":
+        sized, hss = _kernel_mode(blocks)
+    else:
+        named = [_block_matrices(flatten_block_params(blk)) for blk in blocks]
+        sized = [[(name, w.numel()) for name, w in mats] for mats in named]
+        hss = [[float(matrix_entropy(w, mode=mode, eps=eps)) for _, w in mats]
+               for mats in named]
     out = []
-    for i, blk in enumerate(blocks):
-        mats = flatten_block_params(blk)
-        h, n, per = block_entropy_from_matrices(mats, mode=mode, eps=eps)
+    for i, (mats, hs) in enumerate(zip(sized, hss)):
+        h, n, per = _weighted(mats, hs)
         out.append(BlockEntropy(block_index=i, exec_index=first_exec_index + i,
                                 entropy=h, num_parameters=n, per_matrix=per))
     return out

@@ -70,6 +70,20 @@ __device__ __forceinline__ uint32_t word(const uint4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
+// Element j of a 16-byte vector of T (4 f32 or 8 bf16), as f32.
+template <typename T>
+__device__ __forceinline__ float vec_elem(const uint4& u, int j);
+template <>
+__device__ __forceinline__ float vec_elem<float>(const uint4& u, int j) {
+  return __uint_as_float(word(u, j));
+}
+template <>
+__device__ __forceinline__ float vec_elem<__nv_bfloat16>(const uint4& u,
+                                                         int j) {
+  const uint32_t w = word(u, j >> 1);
+  return __uint_as_float((j & 1) ? (w & 0xffff0000u) : (w << 16));
+}
+
 // Byte b of ``u`` (an unsigned level) as the float 2^23 + u[b].
 __device__ __forceinline__ float magic(uint32_t u, int b) {
   return __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + b));

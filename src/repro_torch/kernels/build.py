@@ -77,8 +77,7 @@ _SIGNATURES = {
                               _I, _I, _I, _I, _I, _I, _I, _I, _P],
     },
     "entropy": {
-        "repro_entropy_parts": [_L],
-        "repro_entropy": [_P, _I, _L, _I, _I, _P, _P, _P],
+        "repro_entropy_many": [_P, _I, _I, _I, _P, _P, _P],
     },
     "quantize": {
         "repro_quantize_int8": [_P, _I, _I, _I, _I, _P, _P, _P],

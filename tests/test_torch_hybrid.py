@@ -279,9 +279,12 @@ def test_paged_serve_with_prefix_hit_matches_reference(trained):
 def test_spec_serve_matches_reference(trained, source):
     """k = 3, two-pass propose (the family has no fused one); the greedy
     tokens are the non-spec engine's."""
-    teng, touts, stats, _ = _serve_both(
+    teng, touts, stats, jstats = _serve_both(
         trained, spec=dict(k=3, draft_source=source))
     assert stats.spec_rounds > 0
+    assert ((stats.draft_proposed, stats.draft_accepted, stats.spec_rounds)
+            == (jstats.draft_proposed, jstats.draft_accepted,
+                jstats.spec_rounds))
     assert not teng.model.supports_fused_propose
     _, plain, _, _ = _serve_both(trained)
     for s, p in zip(touts, plain):

@@ -297,6 +297,9 @@ def test_greedy_spec_serve_matches_reference(trained_dense, baseline, draft,
                                    atol=1e-2)
         np.testing.assert_allclose(t.logprobs, base.logprobs, atol=1e-4)
     assert stats.draft_proposed > 0
+    assert ((stats.draft_proposed, stats.draft_accepted, stats.spec_rounds)
+            == (jstats.draft_proposed, jstats.draft_accepted,
+                jstats.spec_rounds))
     assert 0.0 <= stats.acceptance_rate <= 1.0
     assert stats.tokens_per_round >= 1.0
     if draft == "ngram":

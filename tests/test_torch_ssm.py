@@ -12,6 +12,11 @@ on numpy-seeded inputs and the mamba2 SMOKE config (2 layers, d_model 128):
   and a mixed vector: the port's commit of the reference's snapshots
   equals the reference's commit to the bit, and the port's own verify and
   commit equal ``committed`` of its own decode steps to the bit;
+* speculative serving on a briefly trained fixture (untrained weights
+  have greedy near-ties) with the ngram draft and the int4 self-draft:
+  greedy tokens, logprobs within 1e-2 and the draft counts
+  (``draft_proposed``, ``draft_accepted``, ``spec_rounds``) equal to the
+  JAX engine's, the tokens equal to the port's non-spec engine's;
 * the plan compiler on the SSM layout and the bridge round trip.
 """
 
@@ -23,13 +28,18 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs.base import RunConfig
 from repro.configs.registry import get_config as jget_config
 from repro.models import ssm as JS
 from repro.models import ssm_lm as JLM
 from repro.models.common import select_snapshot as jselect_snapshot
 from repro.models.model import build as jbuild
 from repro.quant.compiler import compile_plan as jcompile_plan
+from repro.serving.engine import ServeEngine as JServeEngine
 from repro.serving.quantized import explicit_plan as jexplicit_plan
+from repro.serving.scheduler import Request as JRequest
+from repro.serving.spec import SpecConfig as JSpecConfig
+from repro.train.loop import train
 from repro_torch.bridge import from_jax
 from repro_torch.configs.registry import get_config
 from repro_torch.models import ssm as TS
@@ -38,7 +48,10 @@ from repro_torch.models.common import select_snapshot
 from repro_torch.models.model import build
 from repro_torch.quant.apply import SegmentedParams
 from repro_torch.quant.qtypes import QTensor
+from repro_torch.serving.engine import ServeEngine
 from repro_torch.serving.quantized import explicit_plan
+from repro_torch.serving.scheduler import Request
+from repro_torch.serving.spec import SpecConfig
 
 torch.set_num_threads(2)
 
@@ -246,6 +259,62 @@ def test_spec_verify_and_commit_match_reference(mamba, committed):
         if c[b] == 0:
             assert torch.equal(mine.state[:, b], start.state[:, b])
     np.testing.assert_array_equal(mine.pos.numpy(), start.pos.numpy() + c)
+
+
+# ---------------------------------------------------------------------------
+# speculative serving on a trained fixture
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def trained():
+    """The SSM SMOKE model trained briefly (f32, 30 steps, lr 3e-3, batch
+    8, seq 16), as tests/test_torch_hybrid.py trains its fixture."""
+    jcfg, tcfg = _cfgs()
+    run = RunConfig(steps=30, learning_rate=3e-3, warmup_steps=3,
+                    remat=False)
+    res = train(jcfg, run, batch=8, seq=16)
+    return jcfg, tcfg, res["model"], res["params"], build(tcfg), from_jax(
+        _np(res["params"]), device="cpu")
+
+
+def _serve_requests(cfg):
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(n,)).astype(np.int32)
+               for n in (9, 12, 10, 14)]
+    return ([JRequest(rid=i, prompt=p, max_new_tokens=8, arrival_step=2 * i)
+             for i, p in enumerate(prompts)],
+            [Request(rid=i, prompt=p, max_new_tokens=8, arrival_step=2 * i)
+             for i, p in enumerate(prompts)])
+
+
+@pytest.mark.parametrize("source", ["ngram", "model"])
+def test_spec_serve_matches_reference(trained, source):
+    """k = 3, int8 KV (the family has none: conv/state only), two-pass
+    propose: tokens, logprobs and the draft counts of the JAX spec engine;
+    tokens of the port's non-spec engine."""
+    jcfg, tcfg, jmodel, jparams, tmodel, tparams = trained
+    spec = dict(k=3, draft_source=source)
+    jeng = JServeEngine(jmodel, jparams, max_seq=40, kv_precision="int8",
+                        autotune=False, spec=JSpecConfig(**spec))
+    teng = ServeEngine(tmodel, tparams, max_seq=40, kv_precision="int8",
+                       device="cpu", spec=SpecConfig(**spec))
+    jreqs, treqs = _serve_requests(jcfg)
+    jouts, jstats = jeng.serve(jreqs, num_slots=2, chunk=3)
+    touts, stats = teng.serve(treqs, num_slots=2, chunk=3)
+    assert [o.rid for o in touts] == [o.rid for o in jouts]
+    for t, j in zip(touts, jouts):
+        np.testing.assert_array_equal(t.tokens, np.asarray(j.tokens))
+        np.testing.assert_allclose(t.logprobs, np.asarray(j.logprobs),
+                                   atol=1e-2)
+    assert stats.spec_rounds > 0 and stats.draft_proposed > 0
+    assert ((stats.draft_proposed, stats.draft_accepted, stats.spec_rounds)
+            == (jstats.draft_proposed, jstats.draft_accepted,
+                jstats.spec_rounds))
+    plain, _ = ServeEngine(tmodel, tparams, max_seq=40, kv_precision="int8",
+                           device="cpu").serve(_serve_requests(jcfg)[1],
+                                               num_slots=2, chunk=3)
+    for s, p in zip(touts, plain):
+        np.testing.assert_array_equal(s.tokens, p.tokens)
 
 
 def test_compile_plan_on_ssm_layout_matches_reference(mamba):
