@@ -11,8 +11,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 3. kernels: each hand-written kernel against its plain PyTorch version at
    the full-width shapes of the main paths (rtol = atol = 2e-2 on bf16
    inputs), timed with CUDA events (median of 20 after warm-up, L2 flushed
-   before each call): the kernel, its plain version, and a PyTorch
-   yardstick that the port itself never calls. The matmul kernels at
+   before each call): the kernel, its plain version (only at the row each
+   kernel reports on the kernels line: HEADLINE; PERF.md keeps the other
+   shapes' plain times from earlier runs), and a PyTorch yardstick that
+   the port itself never calls. The matmul kernels at
    llama3.2-3b's and whisper-medium's shapes, qmatmul and qkv also within
    QMATMUL_F32 of the f32 dequantized product, the fused MLP (swiglu and
    gelu) within QMLP_F32 of the MLP in f32 (``fused_mlp_f32``: weights
@@ -94,8 +96,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    from seeded random weights, planned 4bit/8bit from phase 5's
    kernel-mode entropies, serves 8 requests with seeded frames at 4
    slots, int8 self and cross KV, from CUDA graphs, then eagerly (equal to
-   the bit), then eagerly with every prompt run as single-token steps (the
-   TTFT before prompts became one step); one decode step held to the plain
+   the bit); one decode step held to the plain
    versions at the same limit, each decoder layer's cross-attention output
    too (with the slots' cross caches rotated, a planted fault that limit
    must catch), and timed eager and from a CUDA graph.
@@ -119,8 +120,36 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    Mamba2 layer's int4 w_in nibble-swapped, which the limit must catch.
    Each run reports tokens/s, TTFT, a chunk's device and wall ms and
    launches per step, weight bytes, KV and conv/state bytes a slot and
-   peak memory.
+   peak memory. The shortest prompt scanned in chunks of 32 through the
+   captured step (``begin_prefill`` + ``advance_prefill``) must equal the
+   whole-prompt graph scan to the bit, cache and logits.
    The kernels of ZAMBA_PATH and MAMBA_PATH must launch there.
+4g. (after llama's phase 5) plan artifacts and the serve session on
+   llama3.2-3b FULL, reusing phase 4's EWQ plan, prompts and outputs and
+   phase 4b's int4 self-draft, no second analysis. Artifact: the plan
+   compiled with int8 KV and the draft stamped, saved into a temporary
+   directory outside the repository (refused when the free disk space is
+   under twice the weight bytes), cold-booted once with
+   ``ServeEngine.from_artifact`` and SpecConfig(k=4): the plan, KV plan
+   and weight bytes of the in-memory engine, every leaf equal to the bit
+   on the card, a re-derived draft equal to the stamp, and phase 4's 8
+   requests served from graphs over the booted leaves (a non-spec engine
+   on them) with tokens and logprobs equal to the bit to phase 4's EWQ
+   serve; bytes on disk, save and cold-boot seconds beside the analysis +
+   compile seconds an engine without an artifact pays.
+   Chunked prefill (prefill_chunk=64, int8 KV): phase 4's requests from
+   graphs and eagerly (equal to the bit), ``prefill_chunks`` equal to
+   sum ceil(P / 64); on a 256-token and a 111-token prompt, the chunked
+   prefill's last logits and K/V rows [0, P) of every layer within
+   LOGIT_REL_L2 of the whole-prompt prefill's, and a planted fault (each
+   chunk on a fresh cache, its positions restarting at 0) outside it; the
+   share of tokens equal to phase 4's serve and the decode gap (max, p95)
+   while a 768-token prompt arrives, with prefill_chunk=128 and without
+   (readings). SLO: a paged stream of 8 with SLOConfig(preempt=True),
+   priorities 0 and 1, one cancel_at_step, one deadline_steps and one
+   queue_timeout_steps on the decode-step clock: the finish reasons and
+   preemption / timeout / cancel counts the stream dictates, graph and
+   eager serves equal to the bit, no page leaked after either.
 6. a JSON line naming each kernel, then the device line last. Every
    kernel's launch count must have risen on the serve and analysis paths,
    except the int8 quantize kernel, which no path runs. No single PyTorch
@@ -586,7 +615,7 @@ def attn_case(torch, timer, compare, c: dict) -> dict:
         return row
     row["ms"] = timer.ms(lambda: DA.decode_attn_cuda(q, kp, vp, valid,
                                                       causal, fq))
-    row["plain_ms"] = timer.ms(lambda: DA.decode_attention_plain(
+    row["plain_ms"] = plain_ms(timer, row, lambda: DA.decode_attention_plain(
         q, kp, vp, valid, causal, fq))
     pos = torch.arange(S, device=dev)
     mask = pos[None, None, :] < cache_lim[:, :, None]     # (B, s, S)
@@ -742,11 +771,24 @@ RECURRENT_SHAPES = {
 MATMUL_PRECISIONS = ("int8", "int4", "ternary")
 
 
+def headline(row: dict) -> bool:
+    """Is ``row`` the row its kernel reports on the kernels line
+    (HEADLINE)? Only there is the plain version timed: the other shapes'
+    plain times are in PERF.md from earlier runs, and no check reads
+    them."""
+    return HEADLINE.get(row["kernel"]) == (row["shape"], row["precision"],
+                                           row["m"])
+
+
+def plain_ms(timer, row: dict, plain):
+    return timer.ms(plain) if headline(row) else None
+
+
 def _timed(row, timer, fn, plain, library, nbytes, flops):
     """A matmul row's timings and bound (skipped by --quick)."""
     if not QUICK:
         row["ms"] = timer.ms(fn)
-        row["plain_ms"] = timer.ms(plain)
+        row["plain_ms"] = plain_ms(timer, row, plain)
         row["library_ms"] = None if library is None else timer.ms(library)
         row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops)
     return row
@@ -1120,8 +1162,8 @@ def check_entropy_quantize(torch, timer, gen, rows, worst, add) -> None:
             flat = w.reshape(-1)
             cat = torch.distributions.Categorical
             row["ms"] = timer.ms(lambda: EN.entropy_cuda(w))
-            row["plain_ms"] = timer.ms(
-                lambda: EN.matrix_entropy(w, plain=True))
+            row["plain_ms"] = plain_ms(
+                timer, row, lambda: EN.matrix_entropy(w, plain=True))
             row["library_ms"] = timer.ms(lambda: cat(
                 logits=flat.float(), validate_args=False).entropy())
             # one read of the same bytes by PyTorch's own reduction: what
@@ -1146,7 +1188,8 @@ def check_entropy_quantize(torch, timer, gen, rows, worst, add) -> None:
                err=max(c["err"] for c in checks))
     if not QUICK:
         row["ms"] = timer.ms(lambda: EN.entropy_many(ws))
-        row["plain_ms"] = timer.ms(lambda: EN.entropy_many_plain(ws))
+        row["plain_ms"] = plain_ms(timer, row,
+                                   lambda: EN.entropy_many_plain(ws))
         row["library_ms"] = None
         row["bound_ms"], row["bound_by"] = bound_ms(
             sum(w.numel() * w.element_size() for w in ws) + 4 * len(ws),
@@ -1179,8 +1222,8 @@ def check_entropy_quantize(torch, timer, gen, rows, worst, add) -> None:
                    aligned=w.data_ptr() % 16 == 0)
         if not QUICK:
             row["ms"] = timer.ms(lambda: QZ.quantize_int8_cuda(w, group))
-            row["plain_ms"] = timer.ms(
-                lambda: QZ.quantize_int8(w, group, plain=True))
+            row["plain_ms"] = plain_ms(
+                timer, row, lambda: QZ.quantize_int8(w, group, plain=True))
             row["library_ms"] = None
             row["bound_ms"], row["bound_by"] = bound_ms(
                 n * k * w.element_size() + n * k + n * (k // group) * 4,
@@ -1539,7 +1582,7 @@ def serve_full_width(torch, build, report: dict, smoke: bool = False,
             decode_step_times(torch, model, eng, state, toks, report)
         eng = engine = state = None
     with phase(report, "4b llama spec"):
-        spec_launches, spec_outs = serve_speculative(
+        spec_launches, spec_outs, draft_stamp = serve_speculative(
             torch, build, report, model, params, ewq, prompts, base_outs,
             device)
     for k, v in spec_launches.items():
@@ -1554,6 +1597,12 @@ def serve_full_width(torch, build, report: dict, smoke: bool = False,
         _, entropy_launches = analyze_model(torch, build, report, model,
                                             params, device)
     launches["entropy"] += entropy_launches
+    with phase(report, "4g llama artifact + session"):
+        session_launches = serve_artifact_session(
+            torch, build, report, model, params, ewq, prompts, base_outs,
+            draft_stamp, min(report["analysis"][-1]["kernel_s"]), device)
+    for k, v in session_launches.items():
+        launches[k] += v
     for k in LLAMA_PATH:
         if launches[k] <= 0 and device == "cuda":
             raise AssertionError(f"kernel {k} never launched on llama's "
@@ -1773,7 +1822,9 @@ def serve_speculative(torch, build, report: dict, model, params, plan,
     """Phase 4b: the EWQ plan with int8 KV served speculatively
     (SpecConfig(k=4)), with the int4 self-draft (fused propose) and with
     the ngram draft; then the window, step and propose readings on the
-    model-draft engine. Returns the launches of both serves."""
+    model-draft engine. Returns the launches of both serves, the
+    model-draft serve's outputs and its draft's stamp
+    (``DraftPlan.to_manifest()``)."""
     import numpy as np
     from repro_torch.serving.engine import ServeEngine
     from repro_torch.serving.scheduler import Request
@@ -1843,13 +1894,14 @@ def serve_speculative(torch, build, report: dict, model, params, plan,
             graph_outs = outs
             if source == "model":
                 model_outs = outs
+                draft_stamp = engine._ensure_draft().to_manifest()
                 report["spec_readings"] = spec_readings(torch, model, engine,
                                                         prompts, device)
         else:
             require_same(label, graph_outs, outs, logprobs=True)
             run["identical_to_graph_run"] = True
     report["spec_runs"] = runs
-    return launches, model_outs
+    return launches, model_outs, draft_stamp
 
 
 def serve_paged(torch, build, report: dict, model, params, plan, prompts,
@@ -2144,6 +2196,360 @@ def spec_readings(torch, model, eng, prompts, device: str) -> dict:
             f"fault (relative L2 {readings['window_noncausal_fault']})")
     return readings
 
+
+
+# ---------------------------------------------------------------------------
+# phase 4g: plan artifacts and the serve session (chunked prefill, SLO)
+# ---------------------------------------------------------------------------
+
+# the kernels every llama serve of phase 4g must launch (decode attention
+# over the pool in its paged serve)
+SESSION_PATH = ("qmatmul", "qkv", "qmlp", "decode_attn")
+SESSION_PAGED_PATH = ("qmatmul", "qkv", "qmlp", "decode_attn_paged")
+PREFILL_CHUNK = 64      # prompt tokens per chunk of 4g's chunked serve
+LONG_PROMPT = 768       # the prompt that arrives while others decode
+
+
+def _counted(build, launches: dict, label: str, fn, device: str,
+             path=SESSION_PATH):
+    """``fn()`` with every launch count set to 0 just before it and read
+    just after, added to ``launches``; on the card each kernel of ``path``
+    must have launched."""
+    build.reset_launches()
+    out = fn()
+    counts = dict(build.LAUNCHES)
+    for k, v in counts.items():
+        launches[k] += v
+    missing = [k for k in path if counts[k] <= 0]
+    if missing and device == "cuda":
+        raise AssertionError(f"{label}: kernels {missing} never launched")
+    return out
+
+
+def same_leaves(torch, got, want) -> int:
+    """Two parameter trees with the same leaf keys, every leaf (a QTensor's
+    payload and scales) equal to the bit with its dtype; returns the count
+    of leaves."""
+    from repro_torch.checkpoint.ckpt import flatten_with_paths
+    from repro_torch.quant.qtypes import QTensor
+    g, w = dict(flatten_with_paths(got)), dict(flatten_with_paths(want))
+    if g.keys() != w.keys():
+        raise AssertionError(f"artifact leaf keys differ: "
+                             f"{sorted(set(g) ^ set(w))[:8]}")
+    for key, b in w.items():
+        a = g[key]
+        pairs = ([(a.data, b.data), (a.scale, b.scale)]
+                 if isinstance(b, QTensor) else [(a, b)])
+        if isinstance(b, QTensor) and (a.precision, tuple(a.shape)) != (
+                b.precision, tuple(b.shape)):
+            raise AssertionError(f"artifact leaf {key}: {a.precision} "
+                                 f"{a.shape} against {b.precision} {b.shape}")
+        for x, y in pairs:
+            if x.dtype != y.dtype or x.device != y.device \
+                    or not torch.equal(x, y):
+                raise AssertionError(f"artifact leaf {key} differs from "
+                                     "the in-memory engine's")
+    return len(w)
+
+
+def chunked_prefill_readings(torch, engine, prompt, chunk: int) -> dict:
+    """One prompt prefilled in ``chunk``-token chunks (``begin_prefill`` +
+    ``advance_prefill``: each chunk one multi-query step over the cache so
+    far) against the whole-prompt prefill (``prefill_request``: the full
+    forward): relative L2 of the last logits and of the K/V rows [0, P) of
+    every layer. The same two readings for a planted fault: each chunk
+    run on a fresh cache, so its positions restart at 0."""
+    toks = engine._tokens(prompt[None])
+    p = int(prompt.size)
+    whole = engine.prefill_request(prompt)
+    task = engine.begin_prefill(prompt)
+    chunks = 0
+    while not task.done:
+        engine.advance_prefill(task, chunk)
+        chunks += 1
+
+    def kv(k, v):
+        return torch.cat([k[:, :, :p].float().flatten(),
+                          v[:, :, :p].float().flatten()])
+
+    want_kv = kv(whole.cache.k, whole.cache.v)
+    ks, vs = [], []
+    for lo in range(0, p, chunk):
+        hi = min(p, lo + chunk)
+        fresh = engine.model.init_cache(1, engine.max_seq, engine.device)
+        cache, fault_logits = engine._prefill_step(toks[:, lo:hi], fresh)
+        ks.append(cache.k[:, :, :hi - lo])
+        vs.append(cache.v[:, :, :hi - lo])
+    fault_kv = kv(torch.cat(ks, dim=2), torch.cat(vs, dim=2))
+    return dict(tokens=p, chunk=chunk, chunks=chunks,
+                logits_rel_l2=rel_l2(task.last_logits, whole.last_logits),
+                kv_rel_l2=rel_l2(kv(task.cache.k, task.cache.v), want_kv),
+                fault_logits_rel_l2=rel_l2(fault_logits, whole.last_logits),
+                fault_kv_rel_l2=rel_l2(fault_kv, want_kv))
+
+
+def slo_stream(prompts) -> tuple:
+    """Phase 4g's SLO stream on the decode-step clock (4 slots, chunks of
+    CHUNK = 8 steps, 32 new tokens unless said): rids 0-3 (priority 1)
+    take the slots at step 0; rid 0 is cancelled at step 16 (partial
+    tokens kept), rid 1 hits its 24-step deadline while decoding; rid 6
+    (priority 1, queued behind them) times out at step 8; rids 4 and 5
+    (priority 0, 16 new tokens) arrive at step 8: rid 4 preempts the most
+    recently admitted lowest-priority slot (rid 3, which requeues and
+    prefills again), rid 5 takes rid 0's slot at step 16; rid 7 waits its
+    turn. Returns (requests, the finish reasons, the counts)."""
+    from repro_torch.serving.scheduler import Request
+    kw = [dict(cancel_at_step=16), dict(deadline_steps=24), {}, {},
+          dict(priority=0, arrival_step=8, max_new_tokens=16),
+          dict(priority=0, arrival_step=8, max_new_tokens=16),
+          dict(queue_timeout_steps=8), {}]
+    reqs = [Request(rid=i, prompt=prompts[i], **{"max_new_tokens": 32,
+                                                "priority": 1, **k})
+            for i, k in enumerate(kw)]
+    reasons = {0: "cancelled", 1: "deadline", 2: "length", 3: "length",
+               4: "length", 5: "length", 6: "timeout", 7: "length"}
+    counts = dict(preemptions=1, timeouts=1, cancelled=1)
+    return reqs, reasons, counts
+
+
+def serve_artifact_session(torch, build, report: dict, model, params, plan,
+                           prompts, base_outs, draft_stamp, analysis_s: float,
+                           device: str) -> dict:
+    """Phase 4g (see the module docstring): the artifact round trip, the
+    chunked-prefill serve and its readings, the decode gap while a long
+    prompt arrives, and the SLO stream. Returns the launches of its serves
+    (each serve's counts set to 0 just before it)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from repro_torch.quant.compiler import compile_plan, save_artifact
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.pool import PagedConfig
+    from repro_torch.serving.scheduler import Request, SLOConfig
+    from repro_torch.serving.session import ServeSession
+    from repro_torch.serving.spec import SpecConfig
+    cfg = model.cfg
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    launches = {k: 0 for k in build.LAUNCHES}
+    out: dict = {}
+
+    def requests(max_new: int = 32):
+        return [Request(rid=i, prompt=p, max_new_tokens=max_new)
+                for i, p in enumerate(prompts)]
+
+    # -- the artifact ---------------------------------------------------------
+    fresh_memory(torch, device)
+    t0 = time.perf_counter()
+    compiled = compile_plan(model, params, plan, kv_precision="int8")
+    sync()
+    compile_s = time.perf_counter() - t0
+    compiled.draft = draft_stamp
+    mem = ServeEngine(model, compiled.params, max_seq=1024,
+                      kv_precision=compiled.kv_plan, device=device)
+    mem.plan = plan
+    d = tempfile.mkdtemp(prefix="ewq_artifact_")
+    try:
+        need = 2 * mem.weight_bytes()
+        free = shutil.disk_usage(d).free
+        if free < need:
+            raise RuntimeError(
+                f"artifact: {free} bytes free under {d}, under twice the "
+                f"plan's weight bytes ({need:.0f}); the artifact cannot be "
+                "written")
+        t0 = time.perf_counter()
+        save_artifact(d, compiled)
+        save_s = time.perf_counter() - t0
+        disk = sum(f.stat().st_size for f in pathlib.Path(d).rglob("*")
+                   if f.is_file())
+        fresh_memory(torch, device)
+        t0 = time.perf_counter()
+        art = ServeEngine.from_artifact(model, d, max_seq=1024,
+                                        device=device,
+                                        spec=SpecConfig(k=SPEC_K))
+        sync()
+        boot_s = time.perf_counter() - t0
+        if art.plan.to_json() != plan.to_json():
+            raise AssertionError("artifact: the booted plan differs")
+        if art.kv_plan != mem.kv_plan:
+            raise AssertionError(f"artifact: KV plan {art.kv_plan} against "
+                                 f"{mem.kv_plan}")
+        if art.weight_bytes() != mem.weight_bytes():
+            raise AssertionError(f"artifact: weight bytes "
+                                 f"{art.weight_bytes()} against "
+                                 f"{mem.weight_bytes()}")
+        leaves = same_leaves(torch, art.params, mem.params)
+        draft = art._ensure_draft()
+        if (list(draft.precisions) != draft_stamp["precisions"]
+                or float(draft.overhead_bytes)
+                != draft_stamp["overhead_bytes"]):
+            raise AssertionError(
+                f"artifact: re-derived draft {list(draft.precisions)} "
+                f"{draft.overhead_bytes} against the stamp {draft_stamp}")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    draft = mem = None
+    booted = ServeEngine(model, art.params, max_seq=1024,
+                         kv_precision=art.kv_plan, device=device)
+    art = None
+    outs, stats = _counted(
+        build, launches, "artifact serve",
+        lambda: booted.serve(requests(), num_slots=SLOTS, chunk=CHUNK),
+        device)
+    if not same_outputs(outs, base_outs, logprobs=True):
+        raise AssertionError("artifact: the cold-booted leaves' tokens or "
+                             "logprobs differ from phase 4's EWQ serve")
+    weight_bytes = booted.weight_bytes()
+    booted = None
+    out["artifact"] = dict(
+        bytes_on_disk=disk, weight_bytes=weight_bytes, leaves=leaves,
+        save_s=save_s, cold_boot_s=boot_s,
+        analysis_s=analysis_s, compile_s=compile_s,
+        no_artifact_s=analysis_s + compile_s,
+        serve_tokens_per_s=stats.tokens_per_s,
+        serve_ttft_mean_s=stats.ttft_mean_s,
+        identical_to_phase_4=True, draft_equal_to_stamp=True)
+    log("artifact: " + json.dumps(out["artifact"]))
+
+    # -- chunked prefill ----------------------------------------------------------
+    runs = {}
+    for graphs in (True, False):
+        eng = None
+        fresh_memory(torch, device)
+        eng = ServeEngine(model, compiled.params, max_seq=1024,
+                          kv_precision=compiled.kv_plan, device=device,
+                          cuda_graphs=graphs, prefill_chunk=PREFILL_CHUNK)
+        outs, stats = _counted(
+            build, launches, "chunked serve",
+            lambda: eng.serve(requests(), num_slots=SLOTS, chunk=CHUNK),
+            device)
+        want = sum(-(-int(p.size) // PREFILL_CHUNK) for p in prompts)
+        if stats.prefill_chunks != want:
+            raise AssertionError(f"chunked serve: {stats.prefill_chunks} "
+                                 f"prefill chunks, not {want}")
+        for o in outs:
+            if (len(o.generated) != 32 or o.generated.min() < 0
+                    or o.generated.max() >= cfg.vocab_size
+                    or not np.all(np.isfinite(o.logprobs))):
+                raise AssertionError(f"chunked serve: bad output for "
+                                     f"request {o.rid}: {o.generated}")
+        runs[graphs] = (outs, stats)
+    require_same("chunked prefill", runs[True][0], runs[False][0],
+                 logprobs=True)
+    outs, stats = runs[True]
+    share = float(np.mean([np.mean(o.generated == b.generated)
+                           for o, b in zip(outs, base_outs)]))
+    readings = [chunked_prefill_readings(torch, eng, prompts[i],
+                                         PREFILL_CHUNK) for i in (3, 1)]
+    for r in readings:
+        if r["logits_rel_l2"] > LOGIT_REL_L2 or r["kv_rel_l2"] > LOGIT_REL_L2:
+            raise AssertionError(f"chunked prefill against the whole "
+                                 f"prompt's: {r} (limit {LOGIT_REL_L2})")
+        if max(r["fault_logits_rel_l2"], r["fault_kv_rel_l2"]) \
+                <= LOGIT_REL_L2:
+            raise AssertionError(f"the limit {LOGIT_REL_L2} misses the "
+                                 f"planted fault: {r}")
+    eng = None
+    out["chunked"] = dict(
+        prefill_chunk=PREFILL_CHUNK, prefill_chunks=stats.prefill_chunks,
+        tokens_per_s=stats.tokens_per_s, ttft_mean_s=stats.ttft_mean_s,
+        ttft_p95_s=stats.ttft_p95_s, tpot_p50_s=stats.tpot_p50_s,
+        eager_tokens_per_s=runs[False][1].tokens_per_s,
+        eager_ttft_mean_s=runs[False][1].ttft_mean_s,
+        identical_to_eager=True, token_share_equal_to_phase_4=share,
+        prefill_readings=readings)
+    log("chunked prefill: " + json.dumps(out["chunked"]))
+
+    # the decode gap while a long prompt arrives, chunked and whole; the
+    # first decoding tick also prefills the three short prompts, so the
+    # gaps after it are read apart, beside the long prompt's prefill
+    # alone (whole, and chunk by chunk)
+    rng = np.random.RandomState(7)
+    long_prompt = rng.randint(0, cfg.vocab_size,
+                              size=(LONG_PROMPT,)).astype(np.int32)
+    gap = {}
+    for pc in (128, None):
+        eng = None
+        fresh_memory(torch, device)
+        eng = ServeEngine(model, compiled.params, max_seq=1024,
+                          kv_precision=compiled.kv_plan, device=device)
+        reqs = [Request(rid=i, prompt=prompts[6 + i % 2], max_new_tokens=64)
+                for i in range(3)]
+        reqs.append(Request(rid=3, prompt=long_prompt, max_new_tokens=8,
+                            arrival_step=16))
+        sess = ServeSession(eng, reqs, num_slots=SLOTS, chunk=CHUNK,
+                            prefill_chunk=pc)
+        _, st = _counted(build, launches, "decode-gap serve", sess.run,
+                         device)
+        sync()
+        t0 = time.perf_counter()
+        if pc is None:
+            eng.prefill_request(long_prompt)
+            sync()
+            prefill_s = [time.perf_counter() - t0]
+        else:
+            task, prefill_s = eng.begin_prefill(long_prompt), []
+            while not task.done:
+                eng.advance_prefill(task, pc)
+                sync()
+                prefill_s.append(time.perf_counter() - t0)
+                t0 = time.perf_counter()
+        gap["chunked_128" if pc else "whole"] = dict(
+            decode_gap_max_s=st.decode_gap_max_s,
+            decode_gap_p95_s=st.decode_gap_p95_s,
+            decode_gap_p50_s=st.decode_gap_p50_s,
+            gap_max_after_first_tick_s=max(sess.gaps[1:]),
+            prefill_chunks=st.prefill_chunks, ttft_p95_s=st.ttft_p95_s,
+            long_prompt_prefill_s=prefill_s)
+        sess = task = None
+    eng = None
+    out["decode_gap"] = gap
+    log("decode gap while a 768-token prompt arrives: " + json.dumps(gap))
+
+    # -- SLO scheduling ------------------------------------------------------------
+    slo_runs = {}
+    for graphs in (True, False):
+        eng = None
+        fresh_memory(torch, device)
+        eng = ServeEngine(model, compiled.params, max_seq=1024,
+                          kv_precision=compiled.kv_plan, device=device,
+                          cuda_graphs=graphs,
+                          paged=PagedConfig(page_size=PAGE))
+        reqs, reasons, counts = slo_stream(prompts)
+        outs, stats = _counted(
+            build, launches, "SLO serve",
+            lambda: eng.serve(reqs, num_slots=SLOTS, chunk=CHUNK,
+                              slo=SLOConfig(preempt=True)), device,
+            SESSION_PAGED_PATH)
+        eng.pool.check_invariants()
+        got = {o.rid: o.finish_reason for o in outs}
+        got_counts = dict(preemptions=stats.preemptions,
+                          timeouts=stats.timeouts, cancelled=stats.cancelled)
+        if got != reasons or got_counts != counts:
+            raise AssertionError(f"SLO stream: reasons {got} counts "
+                                 f"{got_counts}, the stream dictates "
+                                 f"{reasons} {counts}")
+        slo_runs[graphs] = (outs, stats)
+    eng = None
+    require_same("SLO stream", slo_runs[True][0], slo_runs[False][0],
+                 logprobs=True)
+    outs, stats = slo_runs[True]
+    victim = next(o for o in outs if o.preempted)
+    out["slo"] = dict(
+        reasons={o.rid: o.finish_reason for o in outs},
+        preemptions=stats.preemptions, timeouts=stats.timeouts,
+        cancelled=stats.cancelled, identical_to_eager=True,
+        no_page_leaked=True, preempted_rid=victim.rid,
+        preempted_equal_to_unpreempted=bool(np.array_equal(
+            victim.tokens, base_outs[victim.rid].tokens)),
+        preempted_token_share=float(np.mean(
+            victim.generated == base_outs[victim.rid].generated)),
+        queue_delay_p50_s=stats.queue_delay_p50_s,
+        queue_delay_p95_s=stats.queue_delay_p95_s,
+        ttft_p95_s=stats.ttft_p95_s, tokens_per_s=stats.tokens_per_s)
+    log("SLO stream: " + json.dumps(out["slo"]))
+    report["session"] = out
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2506,10 +2912,13 @@ def serve_recurrent(torch, build, report: dict, arch: str,
     return launches
 
 
-def prompt_graph_check(torch, engine, prompt) -> dict:
+def prompt_graph_check(torch, engine, prompt, chunk: int = 32) -> dict:
     """A prompt scanned through the captured prompt step against the same
-    prompt scanned eagerly: the cache (conv, state and K/V) and the last
-    logits must be equal to the bit."""
+    prompt scanned eagerly, and against the prompt prefilled in chunks of
+    ``chunk`` tokens through the step (``begin_prefill`` +
+    ``advance_prefill``, each chunk starting from the cache so far): the
+    cache (conv, state and K/V) and the last logits must be equal to the
+    bit."""
     sync = (torch.cuda.synchronize if engine.device.type == "cuda"
             else (lambda: None))
     toks = engine._tokens(prompt[None])
@@ -2520,15 +2929,30 @@ def prompt_graph_check(torch, engine, prompt) -> dict:
     e_cache, e_logits = engine._scan_prompt(toks, eager=True)
     sync()
     t2 = time.perf_counter()
-    same = torch.equal(g_logits, e_logits) and all(
-        torch.equal(a, b) for a, b in zip(g_cache, e_cache))
-    if not same:
+    task = engine.begin_prefill(prompt)
+    chunks = 0
+    while not task.done:
+        engine.advance_prefill(task, chunk)
+        chunks += 1
+    sync()
+    t3 = time.perf_counter()
+
+    def same(cache, logits):
+        return torch.equal(g_logits, logits) and all(
+            torch.equal(a, b) for a, b in zip(g_cache, cache))
+
+    if not same(e_cache, e_logits):
         raise AssertionError(f"{engine.cfg.name}: the prompt step replayed "
                              "from its graph differs from the eager scan")
+    if not same(task.cache, task.last_logits):
+        raise AssertionError(f"{engine.cfg.name}: the prompt prefilled in "
+                             f"chunks of {chunk} through the graph differs "
+                             "from the whole-prompt graph scan")
     out = dict(tokens=int(prompt.size), graph_s=t1 - t0, eager_s=t2 - t1,
-               identical=True)
+               identical=True, chunk=chunk, chunks=chunks,
+               chunked_graph_s=t3 - t2, chunked_identical=True)
     log(f"{engine.cfg.name}: prompt scan from its CUDA graph equal to the "
-        f"eager scan to the bit: " + json.dumps(out))
+        f"eager scan and to the chunked scan to the bit: " + json.dumps(out))
     return out
 
 
@@ -2602,37 +3026,31 @@ def serve_whisper(torch, build, report: dict, smoke: bool = False,
              for i in range(cfg.num_layers)]
     explicit = explicit_plan(cfg, stack * 2, embed_precision="int8")
     runs = []
-    # EWQ from CUDA graphs, then eagerly (held equal to the bit), then
-    # eagerly with each prompt run as single-token steps (the TTFT of the
-    # older prefill); the explicit plan from CUDA graphs
+    # EWQ from CUDA graphs, then eagerly (held equal to the bit); the
+    # explicit plan from CUDA graphs
     engine = None
-    for label, plan, kv, graphs, scan in (
-            ("whisper-ewq-4bit/8bit", ewq, "int8", True, False),
-            ("whisper-ewq-4bit/8bit", ewq, "int8", False, False),
-            ("whisper-ewq-4bit/8bit", ewq, "int8", False, True),
-            ("whisper-explicit-all-precisions", explicit, "int4", True,
-             False)):
-        if not scan:
-            engine = None                      # free the previous engine
+    for label, plan, kv, graphs in (
+            ("whisper-ewq-4bit/8bit", ewq, "int8", True),
+            ("whisper-ewq-4bit/8bit", ewq, "int8", False),
+            ("whisper-explicit-all-precisions", explicit, "int4", True)):
+        engine = None                          # free the previous engine
         fresh_memory(torch, device)
-        if not scan:
-            engine = ServeEngine(model, params, max_seq=WHISPER_MAX_SEQ,
-                                 plan=plan, kv_precision=kv, device=device,
-                                 cuda_graphs=graphs)
+        engine = ServeEngine(model, params, max_seq=WHISPER_MAX_SEQ,
+                             plan=plan, kv_precision=kv, device=device,
+                             cuda_graphs=graphs)
         run, counts, outs = whisper_run(torch, build, model, engine, label,
-                                        kv, plan, device,
-                                        readings=graphs, scan=scan)
+                                        kv, plan, device, readings=graphs)
         for k, v in counts.items():
             launches[k] += v
         runs.append(run)
         if kv == "int8" and graphs:
             graph_outs = outs
-        elif kv == "int8" and not scan:
+        elif kv == "int8":
             require_same(label, graph_outs, outs, logprobs=True)
             run["identical_to_graph_run"] = True
     engine = None
-    ttft = {r["prefill"] + (" graphs" if r["cuda_graphs"] else " eager"):
-            r["ttft_mean_s"] for r in runs if r["kv"] == "int8"}
+    ttft = {("graphs" if r["cuda_graphs"] else "eager"): r["ttft_mean_s"]
+            for r in runs if r["kv"] == "int8"}
     log(f"whisper: mean TTFT (EWQ, int8 KV): {json.dumps(ttft)}")
     report["whisper_ttft"] = ttft
     report["whisper_runs"] = runs
@@ -2640,8 +3058,7 @@ def serve_whisper(torch, build, report: dict, smoke: bool = False,
 
 
 def whisper_run(torch, build, model, engine, label: str, kv: str, plan,
-                device: str, readings: bool = True,
-                scan: bool = False) -> tuple:
+                device: str, readings: bool = True) -> tuple:
     """One whisper serve of ``whisper_requests`` and its readings: the
     kernel launches of the encoder for one request and of one decode step;
     that decode step through the kernels against the plain versions, its
@@ -2653,19 +3070,17 @@ def whisper_run(torch, build, model, engine, label: str, kv: str, plan,
     nibbles swapped, a planted fault LOGIT_REL_L2 must catch; the step's
     time eager and from a CUDA graph; one decode chunk's wall and device
     time (``chunk_readings``). ``readings=False`` serves and takes the
-    chunk readings only; ``scan=True`` serves with every prompt run as
-    single-token steps (``token_scan_prefill``). Returns (the run's
-    record, the serve's launches, the outputs)."""
+    chunk readings only. Returns (the run's record, the serve's launches,
+    the outputs)."""
     import numpy as np
     from repro_torch.models import encdec
     from repro_torch.quant.kvcache import clone_cache
     cfg = model.cfg
     reqs = whisper_requests(cfg)
     build.reset_launches()                     # main path: counts from 0
-    with token_scan_prefill() if scan else contextlib.nullcontext():
-        (outs, stats), peak, serve_peak = serve_peaks(
-            torch, device, lambda: engine.serve(reqs, num_slots=SLOTS,
-                                                chunk=CHUNK))
+    (outs, stats), peak, serve_peak = serve_peaks(
+        torch, device, lambda: engine.serve(reqs, num_slots=SLOTS,
+                                            chunk=CHUNK))
     counts = dict(build.LAUNCHES)
     for o in outs:
         if (len(o.generated) != 32 or o.generated.min() < 0
@@ -2675,7 +3090,6 @@ def whisper_run(torch, build, model, engine, label: str, kv: str, plan,
                                  f"{o.generated}")
     by_field = engine.kv_bytes_by_field()
     run = dict(run=label, kv=kv, cuda_graphs=engine.graphs is not None,
-               prefill="token scan" if scan else "one step",
                requests=len(outs),
                generated=stats.generated_tokens,
                tokens_per_s=stats.tokens_per_s,
@@ -2692,11 +3106,10 @@ def whisper_run(torch, build, model, engine, label: str, kv: str, plan,
     for k in WHISPER_PATH:
         if counts[k] <= 0 and device == "cuda":
             raise AssertionError(f"{label}: kernel {k} never launched")
-    if not scan:
-        run["chunk"] = chunk_readings(torch, build, engine,
-                                      [r.prompt for r in reqs], device,
-                                      frames=[r.frames for r in reqs])
-    if scan or not readings:
+    run["chunk"] = chunk_readings(torch, build, engine,
+                                  [r.prompt for r in reqs], device,
+                                  frames=[r.frames for r in reqs])
+    if not readings:
         log("whisper serve: " + json.dumps(run))
         return run, counts, outs
     frames = torch.as_tensor(reqs[0].frames, device=device)[None]
@@ -2820,27 +3233,6 @@ def prefill_times(torch, device: str):
     finally:
         ServeEngine.prefill_request = saved_request
         ServeEngine._prefill_step = saved_step
-
-
-@contextlib.contextmanager
-def token_scan_prefill():
-    """The prompt prefill as single-token steps, for the TTFT reading
-    it is compared with: one single-token decode step per prompt token in
-    place of one multi-query step."""
-    from repro_torch.serving.engine import ServeEngine
-    saved = ServeEngine._prefill_step
-
-    def scan(self, toks, cache):
-        for t in range(toks.shape[1]):
-            logits, cache = self.model.decode_step(self.params, cache,
-                                                   toks[:, t:t + 1])
-        return cache, logits[:, 0]
-
-    ServeEngine._prefill_step = scan
-    try:
-        yield
-    finally:
-        ServeEngine._prefill_step = saved
 
 
 @contextlib.contextmanager

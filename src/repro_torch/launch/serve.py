@@ -13,6 +13,11 @@
         --device cpu           # hybrid (also --paged, --spec-k 4)
     python -m repro_torch.launch.serve --arch mamba2-780m --smoke \
         --device cpu           # SSM (also --spec-k 4)
+    python -m repro_torch.launch.serve --arch llama3.2-3b \
+        --plan-artifact /tmp/llama-ewq   # compile and save; the next run
+                                         # cold-boots from the artifact
+    python -m repro_torch.launch.serve --arch llama3.2-3b --prefill-chunk 64 \
+        --priorities 0,1,1,1 --preempt --arrival-rate 0.5 --poisson
 
 Weights are random, drawn from a seeded ``torch.Generator`` at the JAX
 package's init scales (real checkpoints are not in the repository), so the
@@ -22,6 +27,14 @@ embeddings per request, standard normal from ``--seed``, in place of the
 audio frontend. An SSM or hybrid model also reports the conv/state bytes
 a slot holds; an SSM model has no KV cache, so ``--kv-precision`` and
 ``--paged`` leave it as it is.
+``--plan-artifact DIR`` boots from DIR when it holds a compiled-plan
+artifact (no raw weights, no entropy analysis; the KV plan stamped there is
+the default), and otherwise compiles the plan, stamps the int4 self-draft
+when ``--spec-draft model`` serves, and saves the artifact there.
+``--prefill-chunk`` interleaves prompt prefill between decode chunks;
+``--priorities``, ``--poisson``, ``--ttft-target-ms``, ``--tpot-target-ms``,
+``--preempt``, ``--queue-timeout-steps`` and ``--deadline-steps`` shape the
+stream and its SLO scheduling.
 Without ``--device`` it runs on the GPU, and raises if there is none.
 """
 
@@ -33,12 +46,14 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import ckpt
 from repro_torch.configs.registry import ARCHS, get_config
 from repro_torch.models.model import build
+from repro_torch.quant.compiler import save_artifact
 from repro_torch.serving.engine import ServeEngine, resolve_device
 from repro_torch.serving.pool import PagedConfig
 from repro_torch.serving.quantized import plan_for_variant
-from repro_torch.serving.scheduler import synthetic_stream
+from repro_torch.serving.scheduler import SLOConfig, synthetic_stream
 from repro_torch.serving.spec import SpecConfig
 
 
@@ -51,8 +66,13 @@ def main(argv=None) -> dict:
                              "ternary/4bit"])
     ap.add_argument("--fast", action="store_true",
                     help="FastEWQ metadata plan instead of entropy analysis")
-    ap.add_argument("--kv-precision", default="int8",
-                    choices=["bf16", "int8", "int4", "auto"])
+    ap.add_argument("--kv-precision", default=None,
+                    choices=["bf16", "int8", "int4", "auto"],
+                    help="default: int8, or the policy stamped into "
+                         "--plan-artifact; an explicit value overrides it")
+    ap.add_argument("--plan-artifact", default=None,
+                    help="compiled-plan artifact dir: boot from it when it "
+                         "holds one, else compile the plan and save it there")
     ap.add_argument("--num-requests", type=int, default=8)
     ap.add_argument("--num-slots", type=int, default=4)
     ap.add_argument("--chunk", type=int, default=8)
@@ -84,22 +104,43 @@ def main(argv=None) -> dict:
                     help="overwrite the first N prompt tokens of every "
                          "request with a common prefix (exercises prefix "
                          "sharing)")
+    # chunked prefill and SLO scheduling
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="prefill prompts in N-token chunks between decode "
+                         "chunks instead of whole at admission (0: off)")
+    ap.add_argument("--poisson", action="store_true",
+                    help="seeded exponential inter-arrival gaps with mean "
+                         "1/--arrival-rate (open-loop load) instead of "
+                         "fixed spacing")
+    ap.add_argument("--priorities", default=None,
+                    help="comma-separated priority cycle over the stream "
+                         "(0 = most urgent), e.g. 0,1,1,1")
+    ap.add_argument("--ttft-target-ms", type=float, default=0.0,
+                    help="SLO: queued requests past this bypass the "
+                         "admission gate (0: unset)")
+    ap.add_argument("--tpot-target-ms", type=float, default=0.0,
+                    help="SLO: defer admissions while the rolling decode "
+                         "latency per token exceeds this (0: unset)")
+    ap.add_argument("--preempt", action="store_true",
+                    help="let a strictly-higher-priority waiter evict the "
+                         "lowest-priority decoding slot (it requeues)")
+    ap.add_argument("--queue-timeout-steps", type=int, default=0,
+                    help="drop requests still queued after N decode steps "
+                         "(finish_reason 'timeout'; 0: never)")
+    ap.add_argument("--deadline-steps", type=int, default=0,
+                    help="abort requests, queued or running, N decode "
+                         "steps after arrival (finish_reason 'deadline'; "
+                         "0: never)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="default: cuda; 'cpu' runs the plain versions")
     args = ap.parse_args(argv)
 
+    if args.poisson and not args.arrival_rate:
+        raise SystemExit("--poisson requires --arrival-rate > 0")
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
     model = build(cfg)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(args.seed)
-    params = model.init(gen, device)
-    t0 = time.perf_counter()
-    plan = plan_for_variant(model, params, args.variant, fast=args.fast)
-    if plan is not None:
-        print(f"plan ({args.variant}): {plan.counts()}  "
-              f"[{time.perf_counter() - t0:.2f} s]")
     spec = (SpecConfig(k=args.spec_k, draft_source=args.spec_draft)
             if args.spec_k > 0 else None)
     max_seq = args.max_seq or (args.prompt_len + int(args.max_new * 1.25) + 1
@@ -108,14 +149,60 @@ def main(argv=None) -> dict:
                          pool_pages=args.pool_pages or None,
                          prefix_sharing=not args.no_prefix_sharing)
              if args.paged else None)
-    engine = ServeEngine(model, params, max_seq=max_seq, plan=plan,
-                         kv_precision=args.kv_precision, spec=spec,
-                         paged=paged, device=device)
-    del params
+    kw = dict(max_seq=max_seq, spec=spec, paged=paged, device=device)
+    boot_s = None
+    if args.plan_artifact and ckpt.is_artifact(args.plan_artifact):
+        # cold boot: quantized weights straight from the artifact
+        t0 = time.perf_counter()
+        if args.kv_precision is not None:
+            kw["kv_precision"] = args.kv_precision
+        engine = ServeEngine.from_artifact(model, args.plan_artifact, **kw)
+        boot_s = time.perf_counter() - t0
+        print(f"booted from artifact {args.plan_artifact} in {boot_s:.2f} s")
+    else:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(args.seed)
+        params = model.init(gen, device)
+        t0 = time.perf_counter()
+        plan = plan_for_variant(model, params, args.variant, fast=args.fast)
+        if plan is not None:
+            print(f"plan ({args.variant}): {plan.counts()}  "
+                  f"[{time.perf_counter() - t0:.2f} s]")
+        kv_precision = args.kv_precision or "int8"
+        if plan is not None and args.plan_artifact:
+            compiled = model.compile_plan(params, plan,
+                                          kv_precision=kv_precision)
+            engine = ServeEngine(model, compiled.params,
+                                 kv_precision=compiled.kv_plan or "bf16",
+                                 **kw)
+            engine.plan = plan
+            if spec is not None and spec.draft_source == "model":
+                # stamp the draft so a cold boot re-derives the same one
+                compiled.draft = engine._ensure_draft().to_manifest()
+            path = save_artifact(args.plan_artifact, compiled)
+            print(f"saved compiled plan artifact to {path}")
+        else:
+            engine = ServeEngine(model, params, plan=plan,
+                                 kv_precision=kv_precision, **kw)
+        del params
+    priorities = (tuple(int(p) for p in args.priorities.split(","))
+                  if args.priorities else None)
     reqs = synthetic_stream(args.num_requests, vocab_size=cfg.vocab_size,
                             prompt_len=args.prompt_len,
                             max_new_tokens=args.max_new,
-                            arrival_rate=args.arrival_rate, seed=args.seed)
+                            arrival_rate=args.arrival_rate, seed=args.seed,
+                            poisson=args.poisson, priorities=priorities)
+    for r in reqs:
+        r.queue_timeout_steps = args.queue_timeout_steps or None
+        r.deadline_steps = args.deadline_steps or None
+    slo = None
+    if args.ttft_target_ms or args.tpot_target_ms or args.preempt:
+        slo = SLOConfig(
+            ttft_target_s=(args.ttft_target_ms / 1e3
+                           if args.ttft_target_ms else None),
+            tpot_target_s=(args.tpot_target_ms / 1e3
+                           if args.tpot_target_ms else None),
+            preempt=args.preempt)
     if cfg.family == "encdec":
         rng = np.random.RandomState(args.seed + 2)
         for r in reqs:
@@ -129,16 +216,33 @@ def main(argv=None) -> dict:
         for r in reqs:
             r.prompt[:args.shared_prefix_len] = shared
     outs, stats = engine.serve(reqs, num_slots=args.num_slots,
-                               chunk=args.chunk)
+                               chunk=args.chunk,
+                               prefill_chunk=args.prefill_chunk or None,
+                               slo=slo)
+    reasons: dict = {}
+    for o in outs:
+        reasons[o.finish_reason] = reasons.get(o.finish_reason, 0) + 1
     report = dict(arch=cfg.name, device=str(device), variant=args.variant,
-                  kv_precision=args.kv_precision,
+                  kv_plan=(list(engine.kv_plan.precisions)
+                           if engine.kv_plan is not None else "bf16"),
                   requests=len(outs), generated=stats.generated_tokens,
                   tokens_per_s=stats.tokens_per_s,
                   ttft_mean_s=stats.ttft_mean_s,
+                  ttft_p50_s=stats.ttft_p50_s, ttft_p95_s=stats.ttft_p95_s,
+                  tpot_p50_s=stats.tpot_p50_s, tpot_p95_s=stats.tpot_p95_s,
+                  queue_delay_p50_s=stats.queue_delay_p50_s,
+                  queue_delay_p95_s=stats.queue_delay_p95_s,
+                  decode_gap_p95_s=stats.decode_gap_p95_s,
+                  decode_gap_max_s=stats.decode_gap_max_s,
+                  prefill_chunks=stats.prefill_chunks,
+                  preemptions=stats.preemptions, timeouts=stats.timeouts,
+                  cancelled=stats.cancelled, finish_reasons=reasons,
                   weight_bytes=engine.weight_bytes(),
                   kv_bytes_per_slot=engine.kv_bytes_per_slot(),
                   kv_bytes_by_field=engine.kv_bytes_by_field(),
                   state_bytes_by_field=engine.state_bytes_by_field())
+    if boot_s is not None:
+        report.update(artifact_boot_s=boot_s)
     if paged is not None:
         report.update(page_size=paged.page_size,
                       pool_pages=stats.pool_pages_total,

@@ -14,13 +14,20 @@ Every family's layout compiles: dense, MoE and SSM (one layer stack),
 enc-dec (two stacks, ``enc_layers`` and ``dec_layers``, under one plan)
 and hybrid (the Mamba2 stack, cut at shared-attention unit boundaries when
 the plan is mixed so that every segment runs inside one unit, and the
-shared block quantized whole at its own decision). Persisted plan
-artifacts are still to be ported.
+shared block quantized whole at its own decision).
+
+``save_artifact`` / ``load_artifact`` persist the quantized parameters and
+their manifest as a bootable checkpoint in the JAX package's format
+(``checkpoint/ckpt.py``), so a server cold start skips raw-weight loading
+and entropy analysis (``ServeEngine.from_artifact``, ``launch/serve.py
+--plan-artifact``). The skeleton a load restores into is compiled on the
+meta device: no raw weight is ever materialized.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Any, Optional, Sequence
 
 import torch
@@ -34,6 +41,8 @@ from repro_torch.quant.kvcache import DEFAULT_KV_GROUP, KVPlan
 from repro_torch.quant.qtypes import QTensor
 from repro_torch.quant.quantize import dequantize, quantize
 from repro_torch.tree import tree_map
+
+ARTIFACT_VERSION = 1
 
 # Block decisions at (or below) these precisions already carry
 # int4-or-lower payloads: a self-speculative draft shares them with the
@@ -147,10 +156,37 @@ class CompiledPlan:
     plan: QuantPlan
     params: Any
     kv_plan: Optional[KVPlan] = None
+    # self-speculative draft stamp (DraftPlan.to_manifest()): a cold boot
+    # re-derives the same draft (the derivation is deterministic given the
+    # plan and the params) and checks it against this
+    draft: Optional[dict] = None
+
+    def stack_keys(self) -> list[str]:
+        return [k for k, v in self.params.items()
+                if isinstance(v, SegmentedParams)]
 
     def nbytes_effective(self) -> float:
         return sum(v.nbytes_effective() if isinstance(v, SegmentedParams)
                    else tree_nbytes(v) for v in self.params.values())
+
+    def manifest(self) -> dict:
+        stacks = {key: [{"precision": s.precision, "start": s.start,
+                         "stop": s.stop} for s in self.params[key].segments]
+                  for key in self.stack_keys()}
+        out = {
+            "version": ARTIFACT_VERSION,
+            "family": self.family,
+            "config_name": self.config_name,
+            "group": self.group,
+            "plan": json.loads(self.plan.to_json()),
+            "stacks": stacks,
+            "effective_bytes": float(self.nbytes_effective()),
+        }
+        if self.kv_plan is not None:
+            out["kv_plan"] = self.kv_plan.to_dict()
+        if self.draft is not None:
+            out["draft"] = self.draft
+        return out
 
 
 def compile_plan(model, params, plan: QuantPlan, group: int = 128,
@@ -380,3 +416,77 @@ def compile_draft_plan(model, params, plan: Optional[QuantPlan],
                      shared_blocks=shared, requantized_blocks=requant,
                      overhead_bytes=overhead, group=group,
                      draft_layers=draft_layers)
+
+
+# ---------------------------------------------------------------------------
+# persisted artifacts (compile once, serve many)
+# ---------------------------------------------------------------------------
+
+def validate_manifest(manifest: dict, cfg: ModelConfig) -> None:
+    """Check an artifact manifest against a target model config up front:
+    a ``ValueError`` names the mismatch (family, config, plan length, stack
+    layout, group size) instead of a failure deep in the restore."""
+    def bail(msg):
+        raise ValueError(f"artifact/model mismatch: {msg}")
+
+    if manifest.get("version") != ARTIFACT_VERSION:
+        bail(f"manifest version {manifest.get('version')!r}, this build "
+             f"reads version {ARTIFACT_VERSION}")
+    if manifest["family"] != cfg.family or manifest["config_name"] != cfg.name:
+        bail(f"artifact was compiled for {manifest['config_name']!r} "
+             f"({manifest['family']}); model is {cfg.name!r} ({cfg.family})")
+    expected = plan_length(cfg)
+    got = len(manifest["plan"]["decisions"])
+    if got != expected:
+        bail(f"plan carries {got} block decisions; family {cfg.family!r} "
+             f"config {cfg.name!r} needs {expected} (layer counts differ?)")
+    stacks, _ = family_layout(cfg)
+    want_stacks = {s.key: s.hi - s.lo for s in stacks}
+    got_stacks = manifest.get("stacks", {})
+    if set(got_stacks) != set(want_stacks):
+        bail(f"stack keys {sorted(got_stacks)} != expected "
+             f"{sorted(want_stacks)}")
+    for key, segs in got_stacks.items():
+        covered = sum(s["stop"] - s["start"] for s in segs)
+        if covered != want_stacks[key]:
+            bail(f"stack {key!r} segments cover {covered} layers; config "
+                 f"has {want_stacks[key]}")
+    group = manifest["group"]
+    if not isinstance(group, int) or group < 1:
+        bail(f"group size {group!r} is not a positive integer")
+    # a group that quantizes other leaves than the save-time compile did
+    # (a tampered manifest) shows as a leaf-KIND mismatch between the
+    # rebuilt skeleton and the checkpoint, which ckpt.restore names
+
+
+def save_artifact(directory: str, compiled: CompiledPlan) -> str:
+    """Persist a compiled plan: quantized params checkpoint + manifest.
+    ``autotune`` is ``"untuned"``: the port has no kernel autotuner."""
+    from repro_torch.checkpoint import ckpt
+    manifest = compiled.manifest()
+    manifest["autotune"] = "untuned"
+    return ckpt.save_artifact(directory, compiled.params, manifest)
+
+
+def load_artifact(directory: str, model, *, device=None) -> CompiledPlan:
+    """Boot a CompiledPlan from disk without raw weights or entropy
+    analysis: the manifest's plan is compiled over parameters on the meta
+    device (shapes only, no memory) to rebuild the segmented, quantized
+    skeleton, and the checkpoint's leaves are restored into it, each
+    straight onto ``device`` (None: the GPU)."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.device import resolve_device
+    device = resolve_device(device)
+    manifest = ckpt.load_artifact_manifest(directory)
+    cfg = model.cfg
+    validate_manifest(manifest, cfg)
+    plan = QuantPlan.from_json(json.dumps(manifest["plan"]))
+    group = manifest["group"]
+    meta = model.init(torch.Generator(), "meta")
+    skeleton = compile_plan(model, meta, plan, group).params
+    params = ckpt.restore_artifact(directory, skeleton, device=device)
+    kv_plan = (KVPlan.from_dict(manifest["kv_plan"])
+               if manifest.get("kv_plan") else None)
+    return CompiledPlan(family=cfg.family, config_name=cfg.name, group=group,
+                        plan=plan, params=params, kv_plan=kv_plan,
+                        draft=manifest.get("draft"))

@@ -72,6 +72,10 @@ class KVPlan:
     def to_dict(self) -> dict:
         return {"precisions": list(self.precisions), "group": self.group}
 
+    @staticmethod
+    def from_dict(d: dict) -> "KVPlan":
+        return KVPlan(precisions=tuple(d["precisions"]), group=int(d["group"]))
+
 
 @dataclasses.dataclass
 class KVPage:

@@ -4,9 +4,14 @@ The paper's deployment pipeline, end to end:
   1. pick a QuantPlan (full EWQ on the weights, FastEWQ metadata, or an
      explicit plan) and compile it onto the parameters (quant/compiler.py);
   2. optionally quantize the KV cache (int8 / int4 / entropy-weighted);
-  3. serve: a monolithic prefill per request fills a raw cache, admission
+  3. serve: a prefill per request fills a raw cache (whole, or in
+     ``prefill_chunk``-token slices between decode chunks), admission
      quantizes it into a decode slot, and decode runs over the quantized
      weights and cache through the port's CUDA kernels.
+
+The quantized weights come from an in-memory plan (compiled when the engine
+is built) or from a persisted artifact (``ServeEngine.from_artifact``: a
+cold start with no raw weights and no entropy analysis).
 
 Structure:
   * ``decode_chunk`` runs ``steps`` token steps over every slot: sampling,
@@ -18,9 +23,14 @@ Structure:
     reference's jitted chunk); ``cuda_graphs=False`` runs the same code
     eagerly, the baseline a replay is held against. CPU engines always
     run eagerly.
-  * ``serve`` is continuous batching: between chunks the host-side
-    Scheduler admits queued requests into freed slots and harvests finished
-    ones (one device read per chunk).
+  * ``serve`` is continuous batching (``serving/session.py``): between
+    chunks the host-side Scheduler admits queued requests into freed slots
+    (highest priority first) and harvests finished ones (one device read
+    per chunk). With ``prefill_chunk`` a prompt enters its batch=1 cache
+    one slice per tick (``begin_prefill`` / ``advance_prefill``) while the
+    other slots keep decoding; with ``slo`` admission is TPOT-gated and a
+    higher-priority waiter may preempt a running request. Deadlines, queue
+    timeouts and cancellation hold either way.
   * ``generate`` drains one fixed batch through the same loop.
   * With ``spec=SpecConfig(k=...)`` a chunk runs ``steps`` self-speculative
     draft-propose / target-verify rounds instead of single-token steps
@@ -70,7 +80,6 @@ explicit CPU request it raises; it never falls back to the CPU.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -90,11 +99,10 @@ from repro_torch.quant.kvcache import (DEFAULT_KV_GROUP, KVPlan,
 from repro_torch.serving import batch as B
 from repro_torch.serving import sampling as S
 from repro_torch.serving.graphs import ChunkGraphs, PromptStep
-from repro_torch.serving.pool import (OutOfPages, PagedConfig, PoolSession,
-                                      PrefixMatch)
+from repro_torch.serving.pool import PagedConfig, PoolSession, PrefixMatch
 from repro_torch.serving.quantized import apply_plan_to_params
-from repro_torch.serving.scheduler import Request, RequestOutput, Scheduler
-from repro_torch.serving.spec import SpecConfig, SpecMetrics, make_spec_round
+from repro_torch.serving.scheduler import Request, RequestOutput, SLOConfig
+from repro_torch.serving.spec import SpecConfig, make_spec_round
 
 DEFAULT_CHUNK = 8
 
@@ -116,6 +124,30 @@ class Prefill:
 
 
 @dataclasses.dataclass
+class ChunkedPrefill:
+    """An in-flight chunked prefill: the request holds a reserved slot
+    while its prompt enters the batch=1 prefill cache one
+    ``prefill_chunk``-token slice per serve tick, between decode chunks, so
+    a long prompt never holds up the running slots for its whole prefill.
+    Becomes a plain ``Prefill`` (and is inserted) once ``pos`` covers the
+    prompt."""
+    prompt: np.ndarray           # (P,) int32 host tokens
+    cache: object                # batch=1 family cache, filled to ``pos``
+    last_logits: Optional[torch.Tensor]  # (1, V_pad) after the last chunk
+    pos: int                     # prompt tokens already in the cache
+    match: Optional[PrefixMatch] = None  # pinned prefix-cache match (paged)
+
+    @property
+    def done(self) -> bool:
+        return self.pos >= len(self.prompt)
+
+    def as_prefill(self) -> Prefill:
+        assert self.done and self.last_logits is not None
+        return Prefill(prompt=self.prompt, cache=self.cache,
+                       last_logits=self.last_logits, match=self.match)
+
+
+@dataclasses.dataclass
 class ServeStats:
     """Continuous-batching run statistics (wall clock on the host)."""
     decode_steps: int          # steps executed (chunks * chunk)
@@ -127,8 +159,22 @@ class ServeStats:
     tokens_per_s: float        # generated_tokens / wall_s
     ttft_mean_s: float = 0.0   # admission -> first harvested token
     ttft_p50_s: float = 0.0
+    ttft_p95_s: float = 0.0
     tpot_p50_s: float = 0.0    # per-output-token latency after the first
-    decode_gap_p50_s: float = 0.0   # wall seconds per decode chunk
+    tpot_p95_s: float = 0.0
+    # queueing and SLO scheduling
+    queue_delay_p50_s: float = 0.0  # ready -> dequeue wait, apart from
+    queue_delay_p95_s: float = 0.0  #   ttft (which starts at dequeue)
+    preemptions: int = 0       # restart-style evictions for higher priority
+    timeouts: int = 0          # requests dropped by queue timeout
+    cancelled: int = 0         # requests cancelled (queued or running)
+    prefill_chunks: int = 0    # chunked-prefill advances interleaved
+    # wall seconds from the start of each decoding tick to its harvest (the
+    # tick's admissions and prefill work included: a whole-prompt prefill
+    # of a long prompt shows as a spike in decode_gap_max_s)
+    decode_gap_p50_s: float = 0.0
+    decode_gap_p95_s: float = 0.0
+    decode_gap_max_s: float = 0.0
     # speculative decoding (spec=SpecConfig(...) engines only)
     spec_rounds: int = 0       # draft-propose/verify rounds executed
     draft_proposed: int = 0    # draft tokens proposed to live slots
@@ -143,7 +189,8 @@ class ServeStats:
     prefix_hit_tokens: int = 0     # prompt tokens served from shared pages
     prefix_hit_rate: float = 0.0   # hit tokens / all prompt tokens
     cow_copies: int = 0            # COW boundary pages written privately
-    kv_bytes_peak: float = 0.0     # peak pool bytes referenced
+    kv_bytes_peak: float = 0.0     # peak pool bytes referenced, plus the
+                                   # slots' KV fields outside the pool
     requeues: int = 0              # admissions the pool held back
 
 
@@ -156,7 +203,8 @@ class ServeEngine:
                  eos_id: Optional[int] = None, pad_id: int = 0,
                  kv_precision="bf16", kv_group: Optional[int] = None,
                  spec: Optional[SpecConfig] = None, paged=None, device=None,
-                 cuda_graphs: bool = True):
+                 cuda_graphs: bool = True,
+                 prefill_chunk: Optional[int] = None):
         self.device = resolve_device(device)
         # decode chunks replay from CUDA graphs on the card (never on the
         # CPU); a capture that fails raises
@@ -178,6 +226,14 @@ class ServeEngine:
         self.pad_id = pad_id
         self.spec = spec
         self._draft = None            # compiled at first use
+        self._draft_stamp = None      # artifact manifest "draft"
+        # chunked prefill: serve() splits prompts into prefill_chunk-token
+        # slices scheduled between decode chunks; None keeps the whole-
+        # prompt prefill
+        if prefill_chunk is not None and prefill_chunk < 1:
+            raise ValueError(f"prefill_chunk must be >= 1 or None, got "
+                             f"{prefill_chunk}")
+        self.prefill_chunk = prefill_chunk
         # paged KV pool: True -> defaults, or a PagedConfig
         self.paged = (PagedConfig() if paged is True else paged) or None
         self._paged_fields = (tuple(f for f in model.kv_cache_fields
@@ -194,6 +250,44 @@ class ServeEngine:
         else:
             self.kv_plan = compile_kv_plan(self.cfg, plan, kv_precision,
                                            kv_group or DEFAULT_KV_GROUP)
+
+    @classmethod
+    def from_artifact(cls, model, directory: str, *, max_seq: int,
+                      device=None, **kw) -> "ServeEngine":
+        """Boot from a persisted compiled-plan artifact: the quantized
+        weights are restored straight onto the device, with no raw weight
+        loading, no entropy analysis and no re-quantization
+        (``quant/compiler.load_artifact``). The KV plan stamped at compile
+        time is the default; ``kv_precision="auto"`` is compiled from the
+        stamped plan. On the card an artifact whose weight group the
+        kernels do not take is refused here, before any leaf is read."""
+        from repro_torch.checkpoint import ckpt
+        from repro_torch.kernels.qmatmul.ops import KERNEL_GROUP
+        from repro_torch.quant.compiler import load_artifact
+        device = resolve_device(device)
+        manifest = ckpt.load_artifact_manifest(directory)
+        quantized = any(d["precision"] != "raw"
+                        for d in manifest["plan"]["decisions"])
+        if (device.type == "cuda" and quantized
+                and manifest["group"] != KERNEL_GROUP):
+            raise ValueError(
+                f"artifact {directory!r} holds weights quantized at group "
+                f"{manifest['group']}; the CUDA kernels take group "
+                f"{KERNEL_GROUP} only (ROADMAP.md K1)")
+        compiled = load_artifact(directory, model, device=device)
+        if compiled.kv_plan is not None:
+            kw.setdefault("kv_precision", compiled.kv_plan)
+        if kw.get("kv_precision") == "auto":
+            # "auto" needs the weight plan, which the constructor does not
+            # see on this path (the params arrive compiled)
+            kw["kv_precision"] = compile_kv_plan(
+                model.cfg, compiled.plan, "auto",
+                kw.pop("kv_group", None) or DEFAULT_KV_GROUP)
+        engine = cls(model, compiled.params, max_seq=max_seq, plan=None,
+                     device=device, **kw)
+        engine.plan = compiled.plan
+        engine._draft_stamp = compiled.draft   # checked by _ensure_draft
+        return engine
 
     # -- quantized KV cache ----------------------------------------------------
     def _kv_cuts(self) -> tuple:
@@ -262,23 +356,32 @@ class ServeEngine:
                                            self.max_seq, self.device)
         return self._prompt_step
 
-    def _scan_prompt(self, toks: torch.Tensor, eager: bool = False):
-        """SSM / hybrid prefill: scan single-token decode steps over the
-        prompt from a fresh cache (the reference's ``_prefill_scan``). On
-        the card a batch=1 prompt replays the captured step, unless
-        ``eager``. Returns (cache at pos P, last logits (B, V_pad))."""
+    def _scan_prompt(self, toks: torch.Tensor, cache=None,
+                     eager: bool = False):
+        """SSM / hybrid prefill: scan single-token decode steps over
+        ``toks`` from ``cache`` (None: a fresh cache; or a chunked
+        prefill's cache so far; the reference's ``_prefill_scan``). On the
+        card a batch=1 prompt replays the captured step, unless ``eager``.
+        Returns (cache at pos + s, last logits (B, V_pad))."""
         if self.prompt_graph and not eager and toks.shape[0] == 1:
-            return self._prompt_graph().run(toks)
-        cache = self.model.init_cache(toks.shape[0], self.max_seq,
-                                      self.device)
+            return self._prompt_graph().run(toks, cache)
+        if cache is None:
+            cache = self.model.init_cache(toks.shape[0], self.max_seq,
+                                          self.device)
         for j in range(toks.shape[1]):
             logits, cache = self.model.decode_step(self.params, cache,
                                                    toks[:, j:j + 1])
         return cache, logits[:, 0]
 
     def _prefill_encdec(self, toks: torch.Tensor, frames: torch.Tensor):
-        """Enc-dec prefill: encode the frames, compute every decoder
-        layer's cross K/V once, then score the prompt in one step."""
+        """Enc-dec prefill: the seed (encoder and cross K/V), then the
+        prompt scored in one step."""
+        return self._prefill_step(toks, self._encdec_seed(frames))
+
+    def _encdec_seed(self, frames: torch.Tensor):
+        """Encode (B, S_enc, D) ``frames`` and compute every decoder
+        layer's cross K/V once: a raw batch cache at pos 0 that the prompt
+        then enters, whole or chunk by chunk."""
         if tuple(frames.shape[1:]) != (self.cfg.encoder_seq,
                                        self.cfg.d_model):
             raise ValueError(f"frames must be (B, {self.cfg.encoder_seq}, "
@@ -286,10 +389,9 @@ class ServeEngine:
                              f"{tuple(frames.shape)}")
         enc_out = encdec.encode(self.params, frames, self.cfg)
         ck, cv = encdec.precompute_cross_kv(self.params, enc_out, self.cfg)
-        cache = self.model.init_cache(toks.shape[0], self.max_seq,
+        cache = self.model.init_cache(frames.shape[0], self.max_seq,
                                       self.device)
-        return self._prefill_step(toks, cache._replace(cross_k=ck,
-                                                       cross_v=cv))
+        return cache._replace(cross_k=ck, cross_v=cv)
 
     def _default_frames(self, batch: int) -> torch.Tensor:
         return torch.zeros((batch, self.cfg.encoder_seq, self.cfg.d_model),
@@ -322,10 +424,16 @@ class ServeEngine:
     @torch.no_grad()
     def _seed_prefill(self, prompt: np.ndarray, m: PrefixMatch,
                       state: B.DecodeState):
-        """Prefix-hit prefill: gather the matched rows (shared pages, then
-        the COW donor's page) from the pool, dequantize them into a raw
-        batch=1 cache at ``pos = hit``, and score the suffix in one
-        multi-query decode step. Returns (cache, last logits (1, V_pad))."""
+        """Prefix-hit prefill: the pool gather, then the suffix scored in
+        one multi-query decode step. Returns (cache, last logits
+        (1, V_pad))."""
+        return self._prefill_step(self._tokens(prompt[None, m.hit:]),
+                                  self._pool_gather(m, state))
+
+    def _pool_gather(self, m: PrefixMatch, state: B.DecodeState):
+        """Gather a prefix hit's matched rows (shared pages, then the COW
+        donor's page) from the pool and dequantize them into a raw batch=1
+        cache at ``pos = hit``."""
         row = np.zeros(self.pool.n_log, np.int32)
         row[:len(m.full_ids)] = m.full_ids
         if m.donor is not None:
@@ -339,9 +447,60 @@ class ServeEngine:
                      for pg in (field if isinstance(field, tuple)
                                 else (field,))]
             reps[name] = torch.cat(parts, 0)[:, :, :self.max_seq].contiguous()
-        cache = proto._replace(pos=torch.tensor(m.hit, dtype=torch.int32,
-                                                device=self.device), **reps)
-        return self._prefill_step(self._tokens(prompt[None, m.hit:]), cache)
+        return proto._replace(pos=torch.tensor(m.hit, dtype=torch.int32,
+                                               device=self.device), **reps)
+
+    # -- chunked prefill -----------------------------------------------------------
+    @torch.no_grad()
+    def begin_prefill(self, prompt, state: Optional[B.DecodeState] = None,
+                      *, frames=None) -> ChunkedPrefill:
+        """Start a chunked prefill: returns the task ``advance_prefill``
+        moves forward between decode chunks. A prefix hit (paged, as in
+        ``prefill_request``) seeds the cache from the pool's shared rows
+        and only the suffix runs through the model; the match's pages stay
+        pinned for the task's life (``insert`` takes the pins over; a
+        cancelled task gives them back through ``pool.unpin``). An enc-dec
+        task starts from the encoder seed (``frames`` (S_enc, D); zeros
+        when None)."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        match = None
+        if self.pool is not None and self.pool.prefix is not None:
+            match = self.pool.match(prompt)
+            if (match.hit > 0 and state is not None
+                    and not self.model.scans_prompts):
+                return ChunkedPrefill(prompt=prompt,
+                                      cache=self._pool_gather(match, state),
+                                      last_logits=None, pos=match.hit,
+                                      match=match)
+        if self.cfg.family == "encdec":
+            frames_b = (self._default_frames(1) if frames is None else
+                        torch.as_tensor(frames, device=self.device)[None])
+            cache = self._encdec_seed(frames_b)
+        else:
+            if frames is not None:
+                raise ValueError("frames only apply to enc-dec models")
+            cache = self.model.init_cache(1, self.max_seq, self.device)
+        return ChunkedPrefill(prompt=prompt, cache=cache, last_logits=None,
+                              pos=0, match=match)
+
+    @torch.no_grad()
+    def advance_prefill(self, cp: ChunkedPrefill,
+                        budget: int) -> ChunkedPrefill:
+        """Run ONE prefill chunk of up to ``budget`` prompt tokens; mutates
+        and returns ``cp``. A dense or enc-dec chunk is one multi-query
+        decode step over the task's raw cache; an SSM or hybrid chunk is a
+        scan of single-token steps from the task's cache (on the card the
+        captured prompt step), equal to the whole-prompt scan to the
+        bit."""
+        assert not cp.done
+        c = min(int(budget), len(cp.prompt) - cp.pos)
+        toks = self._tokens(cp.prompt[None, cp.pos:cp.pos + c])
+        if self.model.scans_prompts:
+            cp.cache, cp.last_logits = self._scan_prompt(toks, cp.cache)
+        else:
+            cp.cache, cp.last_logits = self._prefill_step(toks, cp.cache)
+        cp.pos += c
+        return cp
 
     # -- slotted decode ----------------------------------------------------------
     def _pool_runs(self, raw) -> list:
@@ -494,11 +653,24 @@ class ServeEngine:
 
     # -- self-speculative decoding ----------------------------------------------
     def _ensure_draft(self):
-        """Compile the all-int4 draft at first use."""
+        """Compile the all-int4 draft at first use. An engine booted from
+        an artifact holds the draft stamped there: the re-derived draft
+        must carry the stamped precisions (a different ``draft_group`` or
+        ``draft_layers`` is an explicit override and is not checked)."""
         if self._draft is None:
-            self._draft = compile_draft_plan(
+            draft = compile_draft_plan(
                 self.model, self.params, self.plan, self.spec.draft_group,
                 draft_layers=self.spec.draft_layers)
+            stamp = self._draft_stamp
+            if (stamp and stamp.get("group") == self.spec.draft_group
+                    and stamp.get("draft_layers") == self.spec.draft_layers
+                    and list(draft.precisions) != stamp.get("precisions")):
+                raise ValueError(
+                    "artifact draft stamp mismatch: re-derived draft "
+                    f"precisions {list(draft.precisions)} != stamped "
+                    f"{stamp.get('precisions')}: the artifact's plan and "
+                    "the serving engine's plan disagree")
+            self._draft = draft
         return self._draft
 
     @property
@@ -589,146 +761,27 @@ class ServeEngine:
     @torch.no_grad()
     def serve(self, requests: Sequence[Request], *, num_slots: int = 8,
               chunk: int = DEFAULT_CHUNK, temperature: float = 0.0,
-              seed: int = 0) -> tuple[list[RequestOutput], ServeStats]:
-        """Drain a request stream with continuous batching: admit ready
-        requests into free slots (monolithic prefill + insert), run one
-        decode chunk, harvest finished slots; repeat. Outputs come back
-        ordered by request id. On a spec engine a chunk is ``chunk``
-        propose/verify rounds (1 to k+1 tokens per live slot each) and the
-        stats carry the acceptance counters. On a paged engine a request
-        whose worst case (no prefix hit) the pool's free and evictable
-        pages cannot cover is requeued until a slot drains; with no slot
-        active that is a deadlock, and ``OutOfPages`` is raised."""
-        if chunk < 1 or num_slots < 1:
-            raise ValueError("chunk and num_slots must be >= 1")
-        t_start = time.perf_counter()
-        sched = Scheduler(num_slots)
-        for r in requests:
-            if self.spec is not None:
-                self._spec_budget_check(len(r.prompt), r.max_new_tokens)
-            else:
-                assert len(r.prompt) + r.max_new_tokens <= self.max_seq, r.rid
-            sched.submit(r)
-        spec_m = SpecMetrics.zeros(self.device)
-        state = self.init_decode_state(num_slots, seed)
-        if self.graphs is not None:
-            # capture the greedy chunk before the first admission: a
-            # capture costs an eager chunk of host time, which would land
-            # in the first requests' TTFT. A chunk over empty slots writes
-            # only rows an insert overwrites (or the dump page) and leaves
-            # tokens, lengths and done flags as they are.
-            self.decode_chunk(state, chunk)
-        if self.prompt_graph and self.model.scans_prompts:
-            self._prompt_graph()       # captured before the first admission
-        clock, admissions, generated, requeues = 0, 0, 0, 0
-        occupancy: list[float] = []
-        gaps: list[float] = []
-        while not sched.all_done():
-            sched.poll(clock)
-            stalled = False
-            for slot in sched.free_slots():
-                req = sched.next_ready(clock)
-                if req is None:
-                    break
-                if self.pool is not None and not self.pool.can_admit(
-                        self.pool.pages_for(self._slot_seq_budget(
-                            len(req.prompt), req.max_new_tokens))):
-                    # backpressure: the pool's free and evictable pages do
-                    # not cover the worst case; retry after a slot drains
-                    sched.requeue(req)
-                    requeues += 1
-                    stalled = True
-                    break
-                sched.assign(slot, req, clock, wall=time.perf_counter())
-                temp = (req.temperature if req.temperature is not None
-                        else temperature)
-                try:
-                    self.insert(state, slot,
-                                self.prefill_request(req.prompt, state,
-                                                     frames=req.frames),
-                                req.max_new_tokens, temperature=temp,
-                                top_k=req.top_k, top_p=req.top_p)
-                except OutOfPages:
-                    # insert unpinned the match and leaked nothing
-                    sched.unassign(slot)
-                    requeues += 1
-                    stalled = True
-                    break
-                if occupancy and sched.num_active > 1:
-                    admissions += 1    # joined a batch already mid-decode
-            if sched.num_active == 0:
-                if stalled:
-                    raise OutOfPages(
-                        "admission deadlock: no active slots and the pool "
-                        "cannot supply the next request's pages "
-                        f"({self.pool.num_pages} pages of "
-                        f"{self.pool.page_size} tokens); size pool_pages "
-                        "for the longest request")
-                nxt = sched.next_arrival()
-                if nxt is not None:
-                    clock = max(clock + 1, nxt)    # idle: fast-forward
-                continue
-            occupancy.append(sched.num_active / num_slots)
-            t0 = time.perf_counter()
-            if self.spec is not None:
-                state, m = self.decode_chunk(state, chunk)
-                spec_m = spec_m.plus(m)
-            else:
-                self.decode_chunk(state, chunk)
-            clock += chunk
-            done_np = state.done.cpu().numpy()      # the one device read
-            len_np = state.lengths.cpu().numpy()
-            now = time.perf_counter()
-            gaps.append(now - t0)
-            for slot, req in sched.active_slots():
-                if len_np[slot] > len(req.prompt):
-                    sched.mark_first_token(slot, now)
-                if not done_np[slot]:
-                    continue
-                n = int(len_np[slot])
-                # copies: the slot's buffers are reused by the next request
-                row = state.tokens[slot, :n].cpu().numpy().copy()
-                lps = state.logprobs[slot, len(req.prompt):n].cpu().numpy(
-                    ).copy()
-                reason = ("eos" if self.eos_id is not None and n > 0
-                          and row[-1] == self.eos_id else "length")
-                sched.complete(slot, row, lps, reason, clock)
-                self.release(state, slot)
-                generated += n - len(req.prompt)
-        wall = time.perf_counter() - t_start
-        outputs = sorted(sched.finished, key=lambda o: o.rid)
-        ttfts = [o.ttft_s for o in outputs if o.ttft_s is not None]
-        tpots = [o.tpot_s for o in outputs if o.tpot_s is not None]
-        proposed, accepted, committed, rounds = (int(v) for v in spec_m)
-        pool_kw = {}
-        if self.pool is not None:
-            pool = self.pool
-            pool.check_invariants()    # nothing leaked
-            pool_kw = dict(
-                pool_pages_total=pool.num_pages,
-                pool_pages_peak=pool.peak_pages,
-                pool_page_size=pool.page_size,
-                prefix_hits=pool.prefix_hits,
-                prefix_hit_tokens=pool.prefix_hit_tokens,
-                prefix_hit_rate=(pool.prefix_hit_tokens / pool.prompt_tokens
-                                 if pool.prompt_tokens else 0.0),
-                cow_copies=pool.cow_copies,
-                kv_bytes_peak=pool.peak_pages * self._page_bytes)
-        stats = ServeStats(
-            decode_steps=len(occupancy) * chunk, generated_tokens=generated,
-            occupancy=float(np.mean(occupancy)) if occupancy else 0.0,
-            num_chunks=len(occupancy), admissions=admissions, wall_s=wall,
-            tokens_per_s=generated / wall if wall > 0 else 0.0,
-            ttft_mean_s=float(np.mean(ttfts)) if ttfts else 0.0,
-            ttft_p50_s=float(np.median(ttfts)) if ttfts else 0.0,
-            tpot_p50_s=float(np.median(tpots)) if tpots else 0.0,
-            decode_gap_p50_s=float(np.median(gaps)) if gaps else 0.0,
-            spec_rounds=rounds, draft_proposed=proposed,
-            draft_accepted=accepted,
-            acceptance_rate=accepted / proposed if proposed else 0.0,
-            tokens_per_round=committed / rounds if rounds else 0.0,
-            requeues=requeues, **pool_kw)
-        return outputs, stats
+              seed: int = 0, prefill_chunk: Optional[int] = None,
+              slo: Optional[SLOConfig] = None
+              ) -> tuple[list[RequestOutput], ServeStats]:
+        """Drain a request stream with continuous batching
+        (``serving/session.py``): between decode chunks, finished slots are
+        harvested and ready requests are admitted into freed slots, highest
+        priority first and FIFO within a class. Outputs come back ordered
+        by request id. ``prefill_chunk`` (or the engine's) splits prompts
+        into slices scheduled between decode chunks; ``slo`` adds
+        TPOT-gated admission and priority preemption; a request's queue
+        timeout, deadline and cancellation hold either way. On a spec
+        engine a chunk is ``chunk`` propose/verify rounds (1 to k+1 tokens
+        per live slot each) and the stats carry the acceptance counters. On
+        a paged engine a request whose worst case (no prefix hit) the
+        pool's free and evictable pages cannot cover is requeued until a
+        slot drains; with no slot active that is a deadlock, and
+        ``OutOfPages`` is raised."""
+        from repro_torch.serving.session import ServeSession
+        return ServeSession(self, requests, num_slots=num_slots, chunk=chunk,
+                            temperature=temperature, seed=seed,
+                            prefill_chunk=prefill_chunk, slo=slo).run()
 
     # -- accounting ----------------------------------------------------------------
     def kv_bytes_by_field(self) -> dict:
@@ -755,14 +808,24 @@ class ServeEngine:
                             * getattr(cache, name).element_size())
                 for name in ("conv", "state") if name in cache._fields}
 
+    def _nonpaged_bytes_per_slot(self) -> float:
+        """Per-slot bytes of the KV fields NOT served from the pool (none
+        in the families the port pages today; an enc-dec engine's cross
+        K/V would be); 0.0 when every KV field is paged or there is none."""
+        by_field = self.kv_bytes_by_field()
+        return float(sum(v for name, v in by_field.items()
+                         if name not in self._paged_fields))
+
     def kv_bytes_allocated(self, num_slots: int = 1) -> float:
         """Attention-cache bytes held right now. A dense engine reserves
         every slot at full depth up front (``num_slots`` times
         ``kv_bytes_per_slot()``); a paged engine charges only the pool
-        pages referenced now, a shared prefix page once."""
+        pages referenced now, a shared prefix page once, plus the dense
+        reservation of any KV field outside the pool."""
         if self.pool is None:
             return num_slots * self.kv_bytes_per_slot()
-        return self.pool.pages_in_use * self._page_bytes
+        return (self.pool.pages_in_use * self._page_bytes
+                + num_slots * self._nonpaged_bytes_per_slot())
 
     @staticmethod
     def _weight_bytes(params) -> float:

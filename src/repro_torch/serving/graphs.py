@@ -21,7 +21,8 @@ chunk's real run, and the warm-up capture wants), then captures the same
 body. Capture records kernels and runs none, so the first chunk runs
 once. Graphs belong to the decode state they were captured on:
 ``init_decode_state`` makes new tensors, so a new state drops the old
-graphs. All graphs of one ``ChunkGraphs`` share one memory pool.
+graphs. The graphs of one state share one memory pool; a new state
+captures into a new pool.
 
 Launch counts: the kernel wrappers add to ``build.LAUNCHES`` in Python,
 which runs at capture and not at replay. ``capture`` takes back what the
@@ -120,7 +121,10 @@ class ChunkGraphs:
         """Run one chunk over ``state``: replay its graph, or on the first
         call with ``key`` run it and capture it."""
         if self._state is None or self._state() is not state:
-            self.graphs.clear()          # graphs of another state
+            # graphs of another state, and their memory pool: once no
+            # graph holds a pool, PyTorch refuses a new capture into it
+            self.graphs.clear()
+            self.pool = None
             self._state = weakref.ref(state)
         entry = self.graphs.get(key)
         if entry is not None:
@@ -140,10 +144,12 @@ class PromptStep:
     one single-token decode step over a persistent batch=1 cache, captured
     once and replayed for every prompt token (the recurrent state has no
     multi-token step, so a prompt is a scan of single-token steps, as in
-    the reference's prefill). ``run`` zeroes the cache in place, replays
-    the step once per token and returns copies of the cache and of the
-    last logits; the step and the eager scan launch the same kernels on
-    the same values, so they agree to the bit. ``make_graph`` and
+    the reference's prefill). ``run`` zeroes the cache in place (or copies
+    a given starting cache into it: a chunked prefill's cache so far),
+    replays the step once per token and returns copies of the cache and of
+    the last logits; the step and the eager scan launch the same kernels
+    on the same values, so they agree to the bit, and a prompt scanned in
+    chunks equals the prompt scanned whole. ``make_graph`` and
     ``warm_run`` are replaced by stubs in the CPU tests."""
 
     def __init__(self, model, params, max_seq: int, device,
@@ -163,10 +169,15 @@ class PromptStep:
         warm_run(body)
         self.step = capture(body, make_graph=make_graph)
 
-    def run(self, toks) -> tuple:
-        """toks (1, P) -> (batch=1 cache at pos P, last logits (1, V_pad))."""
-        for t in self.cache:
-            t.zero_()
+    def run(self, toks, cache=None) -> tuple:
+        """toks (1, s) -> (batch=1 cache at pos + s, last logits
+        (1, V_pad)), from ``cache`` (None: a fresh cache at pos 0)."""
+        if cache is None:
+            for t in self.cache:
+                t.zero_()
+        else:
+            for t, src in zip(self.cache, cache):
+                t.copy_(src)
         for j in range(toks.shape[1]):
             self.tok.copy_(toks[:, j:j + 1])
             self.step.replay()

@@ -1,0 +1,403 @@
+"""Serve-loop state machine: continuous batching with chunked prefill and
+SLO-aware scheduling (the JAX package's ``serving/session.py``).
+
+``ServeSession`` owns what one ``ServeEngine.serve`` run carries between
+decode chunks: the scheduler, the slotted DecodeState, in-flight chunked
+prefills, the decode-step clock and the latency accounting. One serve tick
+has two phases:
+
+* ``dispatch()``: host-side policy and device launches, no blocking read:
+  the expire / cancel / deadline sweeps, SLO preemption, admissions (a
+  whole-prompt prefill and insert, or a reservation and the start of a
+  chunked prefill), one chunk of every in-flight prefill, then the next
+  decode chunk (a CUDA-graph replay on the card);
+* ``harvest()``: the one device read per chunk: done flags and lengths,
+  first-token marks, finished slots completed.
+
+Chunked prefill: with ``prefill_chunk`` set, an admitted request first
+RESERVES its slot and its prompt enters the batch=1 prefill cache one
+chunk per tick, between decode chunks, so a long prompt does not stall the
+running slots for its whole prefill. A reserved slot stays done in the
+DecodeState until ``insert``, so a decode chunk (or its graph replay) never
+touches a half-prefilled request. The decode-step clock does not advance on
+prefill-only ticks, which keeps ``arrival_step`` meaning what it means in
+a whole-prompt serve.
+
+A preempted, cancelled or deadlined running slot is released in place
+(``ServeEngine.release``), so a captured decode graph keeps its buffers.
+
+Left out beside the reference: graceful degradation (``DegradeConfig``),
+the chaos sites and the watchdog, the replica id, and the tracer, profile
+and metrics registry (ROADMAP.md, queue 1 items 5 and 6); ``finalize``
+builds ``ServeStats`` directly.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.serving.pool import OutOfPages
+from repro_torch.serving.scheduler import Request, Scheduler, SLOConfig
+from repro_torch.serving.spec import SpecMetrics
+
+
+def _pct(vals: list, q: float) -> float:
+    return float(np.percentile(vals, q)) if vals else 0.0
+
+
+class ServeSession:
+    """One continuous-batching run over a fixed request list."""
+
+    def __init__(self, engine, requests, *, num_slots: int, chunk: int,
+                 temperature: float = 0.0, seed: int = 0,
+                 prefill_chunk: Optional[int] = None,
+                 slo: Optional[SLOConfig] = None):
+        if chunk < 1:
+            raise ValueError(f"chunk must be >= 1, got {chunk}")
+        if num_slots < 1:
+            raise ValueError(f"num_slots must be >= 1, got {num_slots}")
+        if prefill_chunk is None:
+            prefill_chunk = engine.prefill_chunk
+        if prefill_chunk is not None and prefill_chunk < 1:
+            raise ValueError(f"prefill_chunk must be >= 1 or None, got "
+                             f"{prefill_chunk}")
+        self.t_start = time.perf_counter()
+        self.engine = engine
+        self.chunk = chunk
+        self.num_slots = num_slots
+        self.temperature = temperature
+        self.prefill_chunk = prefill_chunk
+        self.slo = slo
+        self.spec = engine.spec is not None
+        self.sched = Scheduler(num_slots)
+        for r in requests:
+            if self.spec:
+                engine._spec_budget_check(len(r.prompt), r.max_new_tokens)
+            else:
+                assert len(r.prompt) + r.max_new_tokens <= engine.max_seq, \
+                    r.rid
+            self.sched.submit(r)
+        self.state = engine.init_decode_state(num_slots, seed)
+        if engine.graphs is not None:
+            # capture the greedy chunk before the first admission: a
+            # capture costs an eager chunk of host time, which would land
+            # in the first requests' TTFT. A chunk over empty slots writes
+            # only rows an insert overwrites (or the dump page) and leaves
+            # tokens, lengths and done flags as they are.
+            engine.decode_chunk(self.state, chunk)
+        if engine.prompt_graph and engine.model.scans_prompts:
+            engine._prompt_graph()     # captured before the first admission
+        self.clock = 0
+        self.occupancy: list[float] = []
+        self.admissions = 0
+        self.generated = 0
+        self.prefill_chunks = 0
+        self.requeues = 0
+        # summed on the device; read once, by finalize
+        self.spec_m = SpecMetrics.zeros(engine.device)
+        self.tasks: dict = {}          # slot -> ChunkedPrefill (reserved)
+        # wall seconds from the start of a decoding tick to its harvest:
+        # what a running request waits for its next chunk of tokens
+        self.gaps: list[float] = []
+        self._chunk_t0: Optional[float] = None
+        self._dispatched = False
+
+    # -- progress ------------------------------------------------------------
+    @property
+    def done(self) -> bool:
+        return self.sched.all_done()
+
+    # -- tick phase 1: policy + launches --------------------------------------
+    def dispatch(self) -> None:
+        """Admissions, SLO enforcement, one chunk of every in-flight
+        prefill, and the next decode chunk. Never waits for the device."""
+        eng, sched = self.engine, self.sched
+        self._dispatched = False
+        now = time.perf_counter()
+        sched.poll(self.clock, now)
+        sched.expire(self.clock)
+        self._enforce_running_drops()
+        self._preempt_for_priority()
+        stalled = self._admit(now)
+        self._advance_prefills()
+        if sched.num_active == 0:
+            if self.tasks:
+                return                 # prefill-only tick; clock frozen
+            if stalled:
+                raise OutOfPages(
+                    "admission deadlock: no active slots and the pool "
+                    "cannot supply the next request's pages "
+                    f"({eng.pool.num_pages} pages of "
+                    f"{eng.pool.page_size} tokens); size pool_pages "
+                    "for the longest request")
+            nxt = sched.next_arrival()
+            if nxt is not None:
+                self.clock = max(self.clock + 1, nxt)  # idle: fast-forward
+            return
+        self.occupancy.append(sched.num_active / self.num_slots)
+        # the gap starts with the tick, so the prefill work this tick ran
+        # ahead of the chunk counts: the host dispatches it eagerly, where
+        # the reference's asynchronous launch queued it before the chunk
+        self._chunk_t0 = now
+        if self.spec:
+            self.state, m = eng.decode_chunk(self.state, self.chunk)
+            self.spec_m = self.spec_m.plus(m)
+        else:
+            eng.decode_chunk(self.state, self.chunk)
+        self.clock += self.chunk
+        self._dispatched = True
+
+    # -- tick phase 2: the one blocking read -----------------------------------
+    def harvest(self) -> None:
+        """Read back the chunk ``dispatch`` launched and complete slots."""
+        if not self._dispatched:
+            return
+        self._dispatched = False
+        sched = self.sched
+        done_np = self.state.done.cpu().numpy()      # the one device read
+        len_np = self.state.lengths.cpu().numpy()
+        now = time.perf_counter()
+        if self._chunk_t0 is not None:
+            self.gaps.append(now - self._chunk_t0)
+        for slot, req in sched.active_slots():
+            if len_np[slot] > len(req.prompt):
+                sched.mark_first_token(slot, now)
+            if not done_np[slot]:
+                continue
+            self._complete_slot(slot, req, int(len_np[slot]))
+
+    def _complete_slot(self, slot: int, req: Request, n: int,
+                       reason: Optional[str] = None) -> None:
+        eng = self.engine
+        # copies: the slot's buffers are reused by the next request
+        row = self.state.tokens[slot, :n].cpu().numpy().copy()
+        lps = self.state.logprobs[slot, len(req.prompt):n].cpu().numpy(
+            ).copy()
+        if reason is None:
+            reason = ("eos" if eng.eos_id is not None and n > 0
+                      and row[-1] == eng.eos_id else "length")
+        self.sched.complete(slot, row, lps, reason, self.clock)
+        eng.release(self.state, slot)
+        self.generated += n - len(req.prompt)
+
+    # -- SLO enforcement -------------------------------------------------------
+    def _enforce_running_drops(self) -> None:
+        """Cancellation / deadline sweep over reserved and decoding slots:
+        the request finalizes (a running abort keeps its partial tokens)
+        and the slot and its pool pages free leak-free."""
+        eng, sched = self.engine, self.sched
+        for slot, req in sched.reserved_slots():
+            reason = sched.drop_reason(req, self.clock)
+            if reason is None:
+                continue
+            task = self.tasks.pop(slot, None)
+            if task is not None and task.match is not None \
+                    and eng.pool is not None:
+                eng.pool.unpin(task.match)
+            sched.drop_reserved(slot, reason, self.clock)
+        drops = [(slot, req, sched.drop_reason(req, self.clock))
+                 for slot, req in sched.active_slots()]
+        drops = [d for d in drops if d[2] is not None]
+        if not drops:
+            return
+        len_np = self.state.lengths.cpu().numpy()
+        for slot, req, reason in drops:
+            self._complete_slot(slot, req, int(len_np[slot]), reason=reason)
+
+    def _preempt_for_priority(self) -> None:
+        """Restart-style preemption: a strictly-higher-priority waiter may
+        evict the lowest-priority decoding slot (its pages return through
+        ``PoolSession.release``; the victim requeues and prefills again).
+        Gated behind ``SLOConfig.preempt``."""
+        if self.slo is None or not self.slo.preempt:
+            return
+        sched = self.sched
+        while not sched.free_slots():
+            head = sched.peek_ready(self.clock)
+            if head is None:
+                return
+            victim = sched.preempt_victim(head.priority)
+            if victim is None:
+                return
+            self.engine.release(self.state, victim)
+            sched.preempt(victim)
+
+    def _admission_gated(self, req: Request, now: float) -> bool:
+        """TPOT admission gate: defer NEW work while the running slots'
+        measured per-token latency (mean over the last ``admit_window``
+        chunks) exceeds the target. Priority-0 requests and requests
+        already past their TTFT target are never deferred."""
+        slo = self.slo
+        if slo is None or slo.tpot_target_s is None or req.priority == 0:
+            return False
+        if self.sched.num_active == 0:
+            return False    # never starve an idle engine
+        if slo.ttft_target_s is not None:
+            rw = self.sched.ready_wall(req.rid)
+            if rw is not None and now - rw >= slo.ttft_target_s:
+                return False
+        window = self.gaps[-slo.admit_window:]
+        if not window:
+            return False
+        return (sum(window) / len(window)) / self.chunk > slo.tpot_target_s
+
+    # -- admissions --------------------------------------------------------------
+    def _admit(self, now: float) -> bool:
+        """Fill free slots from the ready queue. Returns True when pool
+        backpressure stalled an admission (deadlock detection)."""
+        eng, sched = self.engine, self.sched
+        for slot in sched.free_slots():
+            head = sched.peek_ready(self.clock)
+            if head is None or self._admission_gated(head, now):
+                break
+            req = sched.next_ready(self.clock)
+            if req is None:
+                break
+            if eng.pool is not None and not eng.pool.can_admit(
+                    eng.pool.pages_for(eng._slot_seq_budget(
+                        len(req.prompt), req.max_new_tokens))):
+                # backpressure: the pool's free and evictable pages do not
+                # cover the worst case; retry after a slot drains
+                sched.requeue(req)
+                self.requeues += 1
+                return True
+            # the TTFT clock starts at dequeue (reserve), so prefill time
+            # (and the prefix cache skipping it) shows in ttft_s
+            sched.reserve(slot, req, self.clock, wall=time.perf_counter())
+            if self.prefill_chunk is not None:
+                self.tasks[slot] = eng.begin_prefill(
+                    req.prompt, self.state, frames=req.frames)
+                continue
+            pf = eng.prefill_request(req.prompt, self.state,
+                                     frames=req.frames)
+            if not self._insert(slot, req, pf):
+                return True
+        return False
+
+    def _insert(self, slot: int, req: Request, pf) -> bool:
+        """Insert a finished prefill into its reserved slot; False if the
+        pool refused (the request is back in the queue, nothing leaked)."""
+        eng, sched = self.engine, self.sched
+        temp = (req.temperature if req.temperature is not None
+                else self.temperature)
+        try:
+            eng.insert(self.state, slot, pf, req.max_new_tokens,
+                       temperature=temp, top_k=req.top_k, top_p=req.top_p)
+        except OutOfPages:
+            # insert unpinned the match and leaked nothing; the request
+            # goes back (its queue-delay clock resumes) until a slot drains
+            sched.unreserve(slot)
+            self.requeues += 1
+            return False
+        # a refill = joining a batch that is already mid-decode
+        if self.occupancy and sched.num_active > 0:
+            self.admissions += 1
+        sched.activate(slot)
+        return True
+
+    def _advance_prefills(self) -> None:
+        """Advance every in-flight chunked prefill by ONE chunk per tick
+        and insert each task as soon as its prompt is in. ``tasks`` keeps
+        reservation order, so progress is FIFO."""
+        for slot in list(self.tasks):
+            task = self.tasks[slot]
+            self.engine.advance_prefill(task, self.prefill_chunk)
+            self.prefill_chunks += 1
+            if not task.done:
+                continue
+            del self.tasks[slot]
+            self._insert(slot, self.sched.reserved_request(slot),
+                         task.as_prefill())
+
+    # -- teardown ------------------------------------------------------------
+    def abort(self) -> list:
+        """Tear in-flight work down leak-free and return the unfinished
+        requests: chunked-prefill prefix pins drop, every decoding slot's
+        pages release, and the scheduler drains. Finished outputs stay
+        available through ``finalize``."""
+        eng, sched = self.engine, self.sched
+        for task in self.tasks.values():
+            if task.match is not None and eng.pool is not None:
+                eng.pool.unpin(task.match)
+        self.tasks.clear()
+        for slot, _req in sched.active_slots():
+            eng.release(self.state, slot)
+        survivors = sched.drain_unfinished()
+        self._dispatched = False
+        if eng.pool is not None:
+            eng.pool.check_invariants()
+        return survivors
+
+    # -- wrap-up -------------------------------------------------------------
+    def finalize(self):
+        """Outputs ordered by request id, and the run's ``ServeStats``
+        (call once, after ``done``)."""
+        from repro_torch.serving.engine import ServeStats
+        eng, sched = self.engine, self.sched
+        wall = time.perf_counter() - self.t_start
+        outputs = sorted(sched.finished, key=lambda o: o.rid)
+        ttfts = [o.ttft_s for o in outputs if o.ttft_s is not None]
+        tpots = [o.tpot_s for o in outputs if o.tpot_s is not None]
+        qdel = [o.queue_delay_s for o in outputs
+                if o.queue_delay_s is not None]
+        proposed, accepted, committed, rounds = (int(v) for v in self.spec_m)
+        pool_kw = {}
+        if eng.pool is not None:
+            pool = eng.pool
+            pool.check_invariants()    # nothing leaked
+            pool_kw = dict(
+                pool_pages_total=pool.num_pages,
+                pool_pages_peak=pool.peak_pages,
+                pool_page_size=pool.page_size,
+                prefix_hits=pool.prefix_hits,
+                prefix_hit_tokens=pool.prefix_hit_tokens,
+                prefix_hit_rate=(pool.prefix_hit_tokens / pool.prompt_tokens
+                                 if pool.prompt_tokens else 0.0),
+                cow_copies=pool.cow_copies,
+                kv_bytes_peak=(pool.peak_pages * eng._page_bytes
+                               + self.num_slots
+                               * eng._nonpaged_bytes_per_slot()))
+        stats = ServeStats(
+            decode_steps=len(self.occupancy) * self.chunk,
+            generated_tokens=self.generated,
+            occupancy=(float(np.mean(self.occupancy)) if self.occupancy
+                       else 0.0),
+            num_chunks=len(self.occupancy), admissions=self.admissions,
+            wall_s=wall,
+            tokens_per_s=self.generated / wall if wall > 0 else 0.0,
+            ttft_mean_s=float(np.mean(ttfts)) if ttfts else 0.0,
+            ttft_p50_s=_pct(ttfts, 50), ttft_p95_s=_pct(ttfts, 95),
+            tpot_p50_s=_pct(tpots, 50), tpot_p95_s=_pct(tpots, 95),
+            queue_delay_p50_s=_pct(qdel, 50),
+            queue_delay_p95_s=_pct(qdel, 95),
+            preemptions=sum(o.preempted for o in outputs),
+            timeouts=sum(o.finish_reason == "timeout" for o in outputs),
+            cancelled=sum(o.finish_reason == "cancelled" for o in outputs),
+            prefill_chunks=self.prefill_chunks,
+            decode_gap_p50_s=_pct(self.gaps, 50),
+            decode_gap_p95_s=_pct(self.gaps, 95),
+            decode_gap_max_s=max(self.gaps) if self.gaps else 0.0,
+            spec_rounds=rounds, draft_proposed=proposed,
+            draft_accepted=accepted,
+            acceptance_rate=accepted / proposed if proposed else 0.0,
+            tokens_per_round=committed / rounds if rounds else 0.0,
+            requeues=self.requeues, **pool_kw)
+        return outputs, stats
+
+    @torch.no_grad()
+    def run(self):
+        """Drain the stream (the single-engine serve loop). Any failure
+        first tears the session down leak-free (``abort``), then
+        propagates."""
+        try:
+            while not self.done:
+                self.dispatch()
+                self.harvest()
+        except BaseException:
+            self.abort()
+            raise
+        return self.finalize()
