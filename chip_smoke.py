@@ -12,8 +12,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    the full-width shapes of the main paths (rtol = atol = 2e-2 on bf16
    inputs), timed with CUDA events (median of 20 after warm-up, L2 flushed
    before each call): the kernel, its plain version (only at the row each
-   kernel reports on the kernels line: HEADLINE; PERF.md keeps the other
-   shapes' plain times from earlier runs), and a PyTorch yardstick that
+   kernel reports on the kernels line, HEADLINE, and at one decode-step row
+   of each form the MoE and whisper paged / spec serves brought,
+   PLAIN_ROWS; PERF.md keeps the other shapes' plain times from earlier
+   runs), and a PyTorch yardstick that
    the port itself never calls. The matmul kernels at
    llama3.2-3b's and whisper-medium's shapes, qmatmul and qkv also within
    QMATMUL_F32 of the f32 dequantized product, the fused MLP (swiglu and
@@ -41,7 +43,16 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    at hd 80 and int4 at an odd Hkv (3 heads of 64); the refusals of what
    the kernel has no copy for (attn_refusals); the matmul kernels at
    zamba2's and mamba2's shapes at M = 1 and 4 (RECURRENT_SHAPES; every
-   fused-MLP case is in qmlp_cases). The
+   fused-MLP case is in qmlp_cases). The MoE family's (MOE_SHAPES,
+   moe_ms): the routers (N = 8 for grok-1, 128 for arctic, f32 out),
+   grok's and arctic's attention output projections (wo), their
+   projections (qkv) and arctic's dense residual MLP (FF 4864, a ragged
+   last 512-row part), each at a decode step, a verify window and a
+   prompt;
+   decode attention at 6 and 7 query heads a KV head (30 and 35 query rows
+   in a verify window) in the single-query, window, fresh-row and paged
+   forms; whisper's self-attention from a pool and its verify window
+   (self, and cross-attention with causal=False over 1500 rows). The
    entropy kernel (within 1e-3 * max(1, |H|) and 1e-5 absolute, at the
    weight scale and the reference test's, with a weighted ragged tail),
    one array a launch and grouped (llama3.2-3b's embedding and one layer's
@@ -100,8 +111,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    versions at the same limit, each decoder layer's cross-attention output
    too (with the slots' cross caches rotated, a planted fault that limit
    must catch), and timed eager and from a CUDA graph.
-4e. zamba2-2.7b at full width, 36 of its 54 layers (RECURRENT_LAYERS;
-   d_model 2560, one shared attention + MLP block at 6 of its 9 sites, hd
+4e. zamba2-2.7b at full width, 24 of its 54 layers (RECURRENT_LAYERS;
+   d_model 2560, one shared attention + MLP block at 4 of its 9 sites, hd
    80, vocab 32000) from seeded random weights, and 4f. mamba2-780m FULL (48 layers, d_model 1536,
    vocab 50280), each after its phase 5 analysis (kernel against stream
    mode): phase 4's 8 prompts, each prefilled as a scan of single-token
@@ -124,6 +135,28 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    captured step (``begin_prefill`` + ``advance_prefill``) must equal the
    whole-prompt graph scan to the bit, cache and logits.
    The kernels of ZAMBA_PATH and MAMBA_PATH must launch there.
+4h. (after 4f) the MoE family at full width, its depth cut (MOE_LAYERS:
+   neither config fits one 80 GB card whole): grok-1-314b at 2 of 64
+   layers (d_model 6144, 48 heads over 8, 8 experts top-2 of d_ff 32768,
+   vocab 131072) and arctic-480b at 1 of 35 (d_model 7168, 56 heads over
+   8, 128 experts top-2 of d_ff 4864 beside a dense residual MLP, vocab
+   32000), from seeded random weights, phase 4's prompts, max_seq 1024;
+   each after its phase 5 analysis (every expert stack one array of the
+   grouped entropy launch). Both plans are compiled first and the raw
+   weights freed: EWQ 4bit/8bit with int8 KV from CUDA graphs and eagerly
+   (equal to the bit), an explicit plan (int8 embedding, layers int8 /
+   int4) with int4 KV, also from CUDA graphs and eagerly (equal to the
+   bit: on a depth-cut config EWQ leaves every layer raw, so this is the
+   serve whose captured decode runs the quantized experts); grok-1 also from an equal-memory paged pool (equal
+   to its dense serve) and with spec k = 4 (int4 self-draft, one wave of
+   4 prompts of 16 new tokens). One decode step through the kernels against the plain
+   versions (LOGIT_REL_L2), beside the reordered-sum floor and the first
+   layer's router rows rotated by one expert, which the limit must catch;
+   the 4e readings per run. The kernels of MOE_PATH must launch there.
+   Phase 4d also serves whisper from an equal-memory paged pool (equal to
+   its dense serve to the bit) and speculatively (k = 4, int4 self-draft
+   and ngram draft, one wave of 4 requests of 16 new tokens, each from
+   CUDA graphs and eagerly, equal to the bit), with their acceptance.
 4g. (after llama's phase 5) plan artifacts and the serve session on
    llama3.2-3b FULL, reusing phase 4's EWQ plan, prompts and outputs and
    phase 4b's int4 self-draft, no second analysis. Artifact: the plan
@@ -331,6 +364,8 @@ def paged_pair(torch, gen, b: int, s: int, rows_needed, prec: str,
 LLAMA_ATTN = (8, 3, 128)        # KV heads, query heads per KV head, head dim
 WHISPER_ATTN = (16, 1, 64)
 ZAMBA_ATTN = (32, 1, 80)        # zamba2-2.7b's shared attention
+GROK_ATTN = (8, 6, 128)         # grok-1-314b: 48 heads over 8
+ARCTIC_ATTN = (8, 7, 128)       # arctic-480b: 56 heads over 8
 
 
 def attention_cases(torch):
@@ -359,7 +394,13 @@ def attention_cases(torch):
     group of 80 at hd 80 (a multiple of 16 that is not a power of two) and
     int4 at an odd Hkv (3 heads of 64, a head straddling the two halves).
     Small cases ("f32q") run the kernel's other instantiations (hd 32, 64,
-    80, 128 with one or several query rows a KV head) on f32 q."""
+    80, 128 with one or several query rows a KV head) on f32 q.
+    grok-1's and arctic's heads (6 and 7 query heads a KV head, hd 128) at
+    the serve shape: one query (and the split edges), the verify window
+    (30 and 35 query rows a KV head), the first and last fresh-row step,
+    paged in pages of 64; whisper's verify window over its 448-row
+    decoder cache and, causal=False, over 1500 encoder rows, and its
+    self-attention from a pool in pages of 64."""
     from repro_torch.kernels.decode_attn.ops import split_rows
     from repro_torch.quant.kvcache import make_page
     L, L1 = split_rows(LLAMA_ATTN[1]), split_rows(WHISPER_ATTN[1])
@@ -428,7 +469,23 @@ def attention_cases(torch):
              ("decode_attn", SLOTS, 1024, 1, True, serve_valid, int8,
               ZAMBA_ATTN, " g80", 80),
              ("decode_attn_window", SLOTS, 1024, SPEC_K + 1, True,
-              serve_valid, ("int4",), (3, 2, 64), " odd Hkv")]
+              serve_valid, ("int4",), (3, 2, 64), " odd Hkv"),
+             # whisper's verify window: self-attention over its decoder
+             # cache, and cross-attention (causal=False) over 1500 rows
+             ("decode_attn_window", SLOTS, WHISPER_MAX_SEQ, SPEC_K + 1, True,
+              [L1 - 1, L1, L1 + 1, WHISPER_MAX_SEQ - SPEC_K],
+              ("int8", "int4"), WHISPER_ATTN, " self"),
+             ("decode_attn_window", SLOTS, 1500, SPEC_K + 1, False,
+              [1500] * SLOTS, ("int8", "int4"), WHISPER_ATTN, " cross")]
+    # the MoE family's heads: 6 (grok-1) and 7 (arctic) query heads a KV
+    # head, so a verify window has 30 and 35 query rows a KV head
+    for geom in (GROK_ATTN, ARCTIC_ATTN):
+        dense += [("decode_attn", SLOTS, 1024, 1, True, serve_valid, all3,
+                   geom, ""),
+                  ("decode_attn", SLOTS, 1024, 1, True, edge_valid, int8,
+                   geom, " edges"),
+                  ("decode_attn_window", SLOTS, 1024, SPEC_K + 1, True,
+                   serve_valid, all3, geom, "")]
     # the kernel's other instantiations: head dims 32 and 64 with several
     # query rows a KV head, 128 with one, and f32 q (as a float32 model
     # passes it); hd 32 leaves one scale per stored row (F / group odd)
@@ -451,7 +508,13 @@ def attention_cases(torch):
     sf = SPEC_K
     base = valid_of(serve_valid)
     fresh_rows = {}
-    for geom, precs in ((LLAMA_ATTN, ("int8", "int4")), (ZAMBA_ATTN, all3)):
+    # (geometry, precisions, propose steps): the MoE heads take the first
+    # and the last step of a propose
+    fresh_geoms = ((LLAMA_ATTN, ("int8", "int4"), range(SPEC_K)),
+                   (ZAMBA_ATTN, all3, range(SPEC_K)),
+                   (GROK_ATTN, int8, (0, SPEC_K - 1)),
+                   (ARCTIC_ATTN, int8, (0, SPEC_K - 1)))
+    for geom, precs, counts in fresh_geoms:
         hkv, rep, hd = geom
         _, (kraw, vraw) = qkv(SLOTS, 1024, 1, geom)
         fk, fv = (torch.randn((SLOTS, sf, hkv, hd), generator=gen,
@@ -460,7 +523,7 @@ def attention_cases(torch):
         fresh_rows[geom] = fk, fv
         for prec in precs:
             kp, vp = make_page(kraw, prec, 64), make_page(vraw, prec, 64)
-            for count in range(sf):
+            for count in counts:
                 q, _ = qkv(SLOTS, 0, 1, geom)
                 yield case("decode_attn_fresh",
                            shape(SLOTS, 1024, 1, geom,
@@ -491,7 +554,17 @@ def attention_cases(torch):
              ("decode_attn_paged", SLOTS, 24 * 43, 1, True,
               [L1 - 1, L1, L1 + 1, 2 * L1 + 1], all3, 24, ZAMBA_ATTN),
              ("decode_attn_paged_window", SLOTS, 24 * 43, SPEC_K + 1, True,
-              edge_valid, int8, 24, ZAMBA_ATTN)]
+              edge_valid, int8, 24, ZAMBA_ATTN),
+             # whisper's self-attention from a pool (its cross K/V stay
+             # dense per slot)
+             ("decode_attn_paged", SLOTS, WHISPER_MAX_SEQ, 1, True,
+              [L1 - 1, L1, L1 + 1, WHISPER_MAX_SEQ], ("int8", "int4"), PAGE,
+              WHISPER_ATTN)]
+    for geom in (GROK_ATTN, ARCTIC_ATTN):
+        paged += [("decode_attn_paged", SLOTS, 1024, 1, True, serve_valid,
+                   all3, PAGE, geom),
+                  ("decode_attn_paged_window", SLOTS, 1024, SPEC_K + 1, True,
+                   serve_valid, int8, PAGE, geom)]
     for ci, (kname, b, s, qs, causal, rows, precs, page,
              geom) in enumerate(paged):
         q, _ = qkv(b, 0, qs, geom)
@@ -504,13 +577,13 @@ def attention_cases(torch):
             yield case(kname, shape(b, s, qs, geom, tail), q, kp, vp,
                        valid, causal)
             del kp, vp
-    for geom, precs in ((LLAMA_ATTN, ("int8", "int4")), (ZAMBA_ATTN, all3)):
+    for geom, precs, counts in fresh_geoms:
         fk, fv = fresh_rows[geom]
         for prec in precs:
             kp, vp = paged_pair(torch, gen, SLOTS, 1024,
                                 [v + sf for v in serve_valid], prec, seed=9,
                                 hkv=geom[0], hd=geom[2])
-            for count in range(sf):
+            for count in counts:
                 q, _ = qkv(SLOTS, 0, 1, geom)
                 yield case("decode_attn_paged_fresh",
                            shape(SLOTS, 1024, 1, geom,
@@ -721,6 +794,12 @@ def check_kernels(torch, timer, rows: list) -> dict:
     # token (a prompt is a scan of single-token steps)
     check_qmatmul(*mm, RECURRENT_SHAPES["qmatmul"], (1, SLOTS))
     check_qkv(*mm, RECURRENT_SHAPES["qkv"], (1, SLOTS))
+    # grok-1's and arctic's, each at every M their serves give (moe_ms):
+    # the routers (N = 8 and 128, under one 16-row tile at grok), the
+    # attention output projections and the projections
+    check_qmatmul(*mm, MOE_SHAPES["router"], moe_ms())
+    check_qmatmul(*mm, MOE_SHAPES["qmatmul"], moe_ms())
+    check_qkv(*mm, MOE_SHAPES["qkv"], moe_ms())
 
     # decode attention in every form (attention_cases)
     for case in attention_cases(torch):
@@ -743,17 +822,31 @@ def matmul_ms() -> tuple:
     return (1, 2, 3, SLOTS, 8, SLOTS * (SPEC_K + 1), 256, ragged)
 
 
+def moe_ms() -> tuple:
+    """The M values the MoE serves (phase 4h) give the routers, the
+    projections and the dense residual MLP: a decode step or a draft step
+    (SLOTS), a verify window (SLOTS * (K + 1)) and a prompt (the serve
+    prompt whose last 8-row tile is partial). Their heads stay raw (an
+    embedding plan quantizes the embedding alone), so no MoE row is at a
+    prompt's head (M = 1)."""
+    return (SLOTS, SLOTS * (SPEC_K + 1), matmul_ms()[-1])
+
+
 def qmlp_cases() -> list:
     """(form, label, d_ff, d_model, M values) of every fused-MLP case:
     llama3.2-3b's swiglu at every M of ``matmul_ms``; zamba2's shared
     swiglu MLP at 1 (a prompt token: prompts are scans of single-token
     steps) and SLOTS (a decode step; verify windows and draft steps are
     scans too); whisper-medium's gelu at 1 (the batch-1 prefill steps),
-    SLOTS and 1500 (the encoder, one request's frames)."""
+    SLOTS and 1500 (the encoder, one request's frames); arctic-480b's
+    dense residual MLP at ``moe_ms`` (FF 4864: its last 512-row part holds
+    256 rows)."""
     return [("swiglu", "swiglu 3072->8192->3072", 8192, 3072, matmul_ms()),
             ("swiglu", "zamba2 swiglu 2560->10240->2560", 10240, 2560,
              (1, SLOTS)),
-            ("gelu", "gelu 1024->4096->1024", 4096, 1024, (1, SLOTS, 1500))]
+            ("gelu", "gelu 1024->4096->1024", 4096, 1024, (1, SLOTS, 1500)),
+            ("swiglu", "arctic swiglu 7168->4864->7168", 4864, 7168,
+             moe_ms())]
 
 
 # zamba2-2.7b's and mamba2-780m's matrices (N, K) by kernel: the Mamba2
@@ -768,20 +861,36 @@ RECURRENT_SHAPES = {
 }
 
 
+# grok-1-314b's and arctic-480b's matrices (N, K) by kernel: the routers
+# (f32 out) and the attention output projections through qmatmul, the
+# projections through qkv (arctic's dense residual MLP is in qmlp_cases;
+# the experts are dequantized and multiplied, as in the reference, through
+# no kernel; the heads stay raw)
+MOE_SHAPES = {
+    "router": {"grok router": (8, 6144), "arctic router": (128, 7168)},
+    "qmatmul": {"grok wo": (6144, 6144), "arctic wo": (7168, 7168)},
+    "qkv": {"grok wq|wk|wv 8192x6144": ((6144, 1024, 1024), 6144),
+            "arctic wq|wk|wv 9216x7168": ((7168, 1024, 1024), 7168)},
+}
+
+
 MATMUL_PRECISIONS = ("int8", "int4", "ternary")
 
 
 def headline(row: dict) -> bool:
     """Is ``row`` the row its kernel reports on the kernels line
-    (HEADLINE)? Only there is the plain version timed: the other shapes'
-    plain times are in PERF.md from earlier runs, and no check reads
-    them."""
+    (HEADLINE)?"""
     return HEADLINE.get(row["kernel"]) == (row["shape"], row["precision"],
                                            row["m"])
 
 
 def plain_ms(timer, row: dict, plain):
-    return timer.ms(plain) if headline(row) else None
+    """The plain version's time, taken only at the kernels line's rows and
+    at the forms the MoE and whisper paged / spec paths brought (PLAIN_ROWS):
+    the other shapes' plain times are in PERF.md from earlier runs, and no
+    check reads them."""
+    key = (row["shape"], row["precision"], row["m"])
+    return timer.ms(plain) if headline(row) or key in PLAIN_ROWS else None
 
 
 def _timed(row, timer, fn, plain, library, nbytes, flops):
@@ -906,14 +1015,28 @@ def check_qmlp(torch, timer, weight, act, compare, add, cases: dict,
                            plan=qmlp_plan(m, d, ff, d, prec, gelu))
                 del exact
                 if m in (SLOTS, SLOTS * (SPEC_K + 1)):
-                    # f32 x (8-row chunks) at a decode and a verify M
+                    # f32 x (8-row chunks) at a decode and a verify M, where
+                    # its rows fit the shared memory (f32 x is off the
+                    # serve path; past that the kernel refuses it)
                     x32 = x.float()
-                    exact = QM.fused_mlp_f32(x32, wg, wu, wdn, act=form)
-                    row["f32_x"] = matmul_exactness(
-                        torch, f"{kernel} f32 x",
-                        [QM.qmlp_cuda(x32, wg, wu, wdn)], [exact],
-                        lambda: [QM.qmlp_cuda(x32, wg, wu, wdn)], QMLP_F32)
-                    del exact
+                    if qmlp_takes_f32(m, d, ff, prec, gelu):
+                        exact = QM.fused_mlp_f32(x32, wg, wu, wdn, act=form)
+                        row["f32_x"] = matmul_exactness(
+                            torch, f"{kernel} f32 x",
+                            [QM.qmlp_cuda(x32, wg, wu, wdn)], [exact],
+                            lambda: [QM.qmlp_cuda(x32, wg, wu, wdn)],
+                            QMLP_F32)
+                        del exact
+                    else:
+                        try:
+                            QM.qmlp_cuda(x32, wg, wu, wdn)
+                        except RuntimeError:
+                            row["f32_x"] = "refused: x rows past the shared " \
+                                           "memory"
+                        else:
+                            raise AssertionError(
+                                f"{kernel} {label}: f32 x at M = {m} "
+                                "launched past its shared memory")
                 if not QUICK:
                     row["library_composition_ms"] = timer.ms(library)
                 add(_timed(row, timer, lambda: QM.qmlp_cuda(x, wg, wu, wdn),
@@ -1019,6 +1142,16 @@ def qmlp_plan(m: int, k: int, ff: int, d: int, prec: str,
                 blocks_per_sm_max=per_sm, clusters_max=clusters, sms=sms,
                 rows_a_chunk=rows, parts=parts,
                 partial_bytes=parts * m * d * 4)
+
+
+def qmlp_takes_f32(m: int, k: int, ff: int, prec: str, gelu: bool) -> bool:
+    """Does csrc/qmlp.cu take f32 x at this shape (its 8-row chunk of x
+    within the shared memory the device offers)?"""
+    import ctypes
+    from repro_torch.kernels import build
+    out = (ctypes.c_int * 10)()
+    return build.library("qmlp").repro_qmlp_plan(
+        m, k, ff, 0, int(prec == "int4"), int(gelu), out) == 0
 
 
 def qmatmul_refusals() -> None:
@@ -1280,6 +1413,13 @@ LLAMA_PATH = ("qmatmul", "qkv", "qmlp", "decode_attn", "decode_attn_window",
 # launch in every whisper run
 WHISPER_PATH = ("qmatmul", "qkv", "qmlp_gelu", "decode_attn",
                 "decode_attn_cross")
+# a whisper serve from a paged pool: the self-attention reads the pool, the
+# cross-attention the dense per-slot cross K/V
+WHISPER_PAGED_PATH = ("qmatmul", "qkv", "qmlp_gelu", "decode_attn_paged",
+                      "decode_attn_cross")
+# a whisper serve with the ngram draft: no draft model runs, every step is
+# a verify window (self-attention and the causal=False cross-attention)
+WHISPER_NGRAM_PATH = ("qmatmul", "qkv", "qmlp_gelu", "decode_attn_window")
 # the kernels zamba2-2.7b's serves (phase 4e) and its analysis run, each
 # of which must launch there: the Mamba2 products, the shared block's
 # projections and MLP, and decode attention at hd 80, dense and paged
@@ -1306,6 +1446,27 @@ HEADLINE = {"qmatmul": ("wq 3072x3072", "int8", SLOTS),
                 "B4 S1024 Hkv8 rep3 hd128 P64 Sf4 count3", "int8", SLOTS),
             "entropy": ("3072x8192 bf16", "bfloat16", None),
             "quantize_int8": ("3072x8192 bf16 group128", "bfloat16", None)}
+# the rows of phase 3 whose plain version is also timed, beside HEADLINE's:
+# one int8 row at a decode step (4 slots) of each form the MoE serves and
+# whisper's paged and speculative serves run
+PLAIN_ROWS = {
+    ("grok router 8x6144", "int8", SLOTS),
+    ("arctic router 128x7168", "int8", SLOTS),
+    ("grok wq|wk|wv 8192x6144", "int8", SLOTS),
+    ("arctic wq|wk|wv 9216x7168", "int8", SLOTS),
+    ("arctic swiglu 7168->4864->7168", "int8", SLOTS),
+    ("B4 S1024 Hkv8 rep6 hd128", "int8", SLOTS),
+    ("B4 S1024 Hkv8 rep7 hd128", "int8", SLOTS),
+    ("B4 S1024 Hkv8 rep6 hd128 qs5", "int8", SLOTS),
+    ("B4 S1024 Hkv8 rep7 hd128 qs5", "int8", SLOTS),
+    ("B4 S1024 Hkv8 rep6 hd128 Sf4 count3", "int8", SLOTS),
+    ("B4 S1024 Hkv8 rep7 hd128 Sf4 count3", "int8", SLOTS),
+    ("B4 S1024 Hkv8 rep6 hd128 P64", "int8", SLOTS),
+    ("B4 S1024 Hkv8 rep7 hd128 P64", "int8", SLOTS),
+    ("B4 S448 Hkv16 rep1 hd64 P64", "int8", SLOTS),
+    ("B4 S448 Hkv16 rep1 hd64 self qs5", "int8", SLOTS),
+    ("B4 S1500 Hkv16 rep1 hd64 cross qs5", "int8", SLOTS),
+}
 # Limit on the relative L2 distance of one decode step's logits, kernels
 # against plain versions. PERF.md gives the readings that place it: the
 # kernels against the plain versions, and against the plain versions
@@ -2691,30 +2852,37 @@ RECURRENT_MAX_SEQ = 1024   # cache depth per slot of phases 4e and 4f
 
 def recurrent_run(torch, build, model, params, label: str, plan, kv: str,
                   graphs: bool, prompts, device: str, spec=None,
-                  paged=None, readings: bool = False):
-    """One serve of phase 4e/4f: the engine, its outputs (checked: 32 new
-    tokens in the vocabulary with finite logprobs each), its launches and
-    its row (tokens/s, TTFT, bytes, peak memory; ``readings``: one decode
-    chunk's wall and device time and launches per step). Every engine
-    scans its prompts through the captured prompt step, one with eager
-    decode chunks too (those are what it holds a graph serve to);
-    ``prompt_graph_check`` holds the prompt step to the eager scan."""
+                  paged=None, readings: bool = False,
+                  compiled: bool = False, max_new: int = 32):
+    """One serve of phase 4e/4f/4h: the engine, its outputs (checked:
+    ``max_new`` new tokens in the vocabulary with finite logprobs each),
+    its launches and its row (tokens/s, TTFT, bytes, peak memory;
+    ``readings``: one decode chunk's wall and device time and launches per
+    step).
+    ``compiled``: ``params`` are already compiled under ``plan`` (the
+    engine takes them as they are and derives its draft from ``plan``).
+    Every recurrent engine scans its prompts through the captured prompt
+    step, one with eager decode chunks too (those are what it holds a
+    graph serve to); ``prompt_graph_check`` holds the prompt step to the
+    eager scan."""
     import numpy as np
     from repro_torch.serving.engine import ServeEngine
     cfg = model.cfg
     fresh_memory(torch, device)
-    engine = ServeEngine(model, params, max_seq=RECURRENT_MAX_SEQ, plan=plan,
-                         kv_precision=kv, device=device, cuda_graphs=graphs,
-                         spec=spec, paged=paged)
+    engine = ServeEngine(model, params, max_seq=RECURRENT_MAX_SEQ,
+                         plan=None if compiled else plan, kv_precision=kv,
+                         device=device, cuda_graphs=graphs, spec=spec,
+                         paged=paged)
+    engine.plan = plan
     if spec is not None:
         engine.draft_params                    # the draft, derived once
     build.reset_launches()                     # main path: counts from 0
     (outs, stats), peak, serve_peak = serve_peaks(
-        torch, device, lambda: engine.serve(_requests_of(prompts),
+        torch, device, lambda: engine.serve(_requests_of(prompts, max_new),
                                             num_slots=SLOTS, chunk=CHUNK))
     counts = dict(build.LAUNCHES)
     for o in outs:
-        if (len(o.generated) != 32 or o.generated.min() < 0
+        if (len(o.generated) != max_new or o.generated.min() < 0
                 or o.generated.max() >= cfg.vocab_size
                 or not np.all(np.isfinite(o.logprobs))):
             raise AssertionError(f"{label}: bad output for request {o.rid}: "
@@ -2751,17 +2919,18 @@ def recurrent_run(torch, build, model, params, label: str, plan, kv: str,
 
 
 # Depth of the FULL configs phases 4e/4f serve, where cut: zamba2-2.7b's
-# 54 layers (the shared block at 9 sites) take 36 (6 sites), every width
+# 54 layers (the shared block at 9 sites) take 24 (4 sites), every width
 # as published. At 54 the whole smoke ran 770 s on one H100, its eight
-# zamba2 serves (prompts scanned token by token) 351 s of it.
-RECURRENT_LAYERS = {"zamba2-2.7b": 36}
+# zamba2 serves (prompts scanned token by token) 351 s of it; at 36, with
+# phase 4h, 662-704 s.
+RECURRENT_LAYERS = {"zamba2-2.7b": 24}
 
 
 def serve_recurrent(torch, build, report: dict, arch: str,
                     smoke: bool = False, device: str = "cuda") -> dict:
     """Phases 5 and 4e (zamba2-2.7b at full width, its depth cut to
-    RECURRENT_LAYERS: 36 Mamba2 layers, d_model 2560, one shared attention
-    + MLP block at 6 sites, 32 heads of hd 80, vocab 32000) or 4f
+    RECURRENT_LAYERS: 24 Mamba2 layers, d_model 2560, one shared attention
+    + MLP block at 4 sites, 32 heads of hd 80, vocab 32000) or 4f
     (mamba2-780m FULL: 48 layers, d_model 1536, vocab 50280)
     from seeded random weights, max_seq 1024, 4 slots, chunk 8, phase 4's
     8 prompts of 64-256 tokens (each prefilled as a scan of single-token
@@ -2912,6 +3081,206 @@ def serve_recurrent(torch, build, report: dict, arch: str,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 4h: the MoE family at full width, its depth cut
+# ---------------------------------------------------------------------------
+
+# Depth of the MoE configs phase 4h serves: neither fits one 80 GB card
+# whole (grok-1 needs at least 157 GB at int4, arctic-480b 240 GB); every
+# width is the published one. One layer holds 4.92 G params (9.84 GB in
+# bf16) in grok-1 and 13.6 G (27.2 GB) in arctic.
+MOE_LAYERS = {"grok-1-314b": 2, "arctic-480b": 1}
+# the kernels the MoE serves and analyses (phase 4h) run, each of which
+# must launch there: the routers, heads and attention output projections
+# (qmatmul), the projections (qkv), arctic's dense residual MLP (qmlp),
+# decode attention at rep 6 and 7 in its single-query, verify-window,
+# fresh-row and paged forms, and the grouped entropy launch
+MOE_PATH = ("qmatmul", "qkv", "qmlp", "decode_attn", "decode_attn_window",
+            "decode_attn_fresh", "decode_attn_paged", "entropy")
+
+
+def permute_router_rows(torch, params) -> dict:
+    """A planted fault: ``params`` with the first layer's router rows
+    rotated by one expert (its payload and scales, or its raw rows), so
+    every token of that layer is routed by another expert's logits."""
+    from repro_torch.quant.qtypes import QTensor
+    layers = params["layers"]
+    segs = list(layers.segments)
+    sp = segs[0].params
+    r = sp["moe"]["router"]
+
+    def roll(t):
+        t = t.clone()
+        t[0] = t[0].roll(1, dims=0)
+        return t
+
+    r = (dataclasses.replace(r, data=roll(r.data), scale=roll(r.scale))
+         if isinstance(r, QTensor) else roll(r))
+    segs[0] = dataclasses.replace(
+        segs[0], params={**sp, "moe": {**sp["moe"], "router": r}})
+    return {**params, "layers": dataclasses.replace(layers, segments=segs)}
+
+
+def serve_moe(torch, build, report: dict, arch: str, smoke: bool = False,
+              device: str = "cuda") -> dict:
+    """Phases 5 and 4h for one MoE config at full width, its depth cut to
+    MOE_LAYERS (grok-1-314b: 2 of 64 layers, d_model 6144, 48 heads over
+    8 KV heads of 128, 8 experts top-2 of d_ff 32768, vocab 131072;
+    arctic-480b: 1 of 35, d_model 7168, 56 heads over 8, 128 experts top-2
+    of d_ff 4864 beside a dense residual MLP of 4864, vocab 32000) from
+    seeded random weights, phase 4's 8 prompts, 32 new tokens each, 4
+    slots, chunk 8, max_seq 1024. The analysis through the entropy kernel
+    (phase 5; every expert stack one array of the grouped launch). Both
+    plans are compiled first and the raw weights freed before any serve:
+    the 4bit/8bit plan from the kernel-mode entropies with int8 KV, from
+    CUDA graphs and eagerly (equal to the bit); an explicit plan (int8
+    embedding, layers int8 then int4) with int4 KV, so the routers,
+    projections, experts and arctic's residual MLP run quantized, from
+    CUDA graphs and eagerly (equal to the bit). grok-1
+    also from an equal-memory paged pool (equal to its dense serve) and
+    speculatively (k = 4, the int4 self-draft, fused propose; one wave of
+    4 prompts, 16 new tokens each, for time). Then, on
+    the explicit engine, one decode step through the kernels against the
+    plain versions (LOGIT_REL_L2), the plain versions with their f32 sums
+    reordered (the floor, a reading), and the planted fault the limit
+    must catch: the first layer's router rows rotated by one expert.
+    Returns the launches of the phases."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import policy
+    from repro_torch.models.model import build as build_model
+    from repro_torch.quant.kvcache import clone_cache
+    from repro_torch.serving.pool import PagedConfig
+    from repro_torch.serving.quantized import explicit_plan
+    from repro_torch.serving.spec import SpecConfig
+
+    cfg = get_config(arch, smoke=smoke)
+    if not smoke:
+        cfg = dataclasses.replace(cfg, num_layers=MOE_LAYERS[arch])
+    model = build_model(cfg)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=device).manual_seed(0), device)
+    sync()
+    n_params = sum(t.numel() for t in _matrices(params))
+    raw_bytes = sum(t.numel() * t.element_size() for t in _matrices(params))
+    log(f"{cfg.name}: moe {cfg.num_layers} of {get_config(arch).num_layers}"
+        f"L d_model {cfg.d_model} {cfg.num_heads}H/{cfg.num_kv_heads}KV hd "
+        f"{cfg.head_dim} {cfg.num_experts} experts top-{cfg.top_k} d_ff "
+        f"{cfg.expert_d_ff}" + (f" + dense residual d_ff {cfg.d_ff}"
+                                if cfg.dense_residual else "")
+        + f" vocab {cfg.vocab_size} {cfg.dtype}: {n_params} matrix params, "
+        f"{raw_bytes} bytes (analytic {cfg.param_count()} params); random "
+        f"init {time.perf_counter() - t0:.1f} s")
+    launches = {k: 0 for k in build.LAUNCHES}
+    ents, launches["entropy"] = analyze_model(torch, build, report, model,
+                                              params, device)
+    ewq = policy.decide(ents, aggressive="int4")    # the 4bit/8bit variant
+    explicit = explicit_plan(cfg, (["int8", "int4"] * cfg.num_layers)
+                             [:cfg.num_layers], embed_precision="int8")
+    log(f"{cfg.name}: EWQ 4bit/8bit plan from the kernel-mode entropies: "
+        f"{ewq.counts()} precisions {ewq.precisions()}; explicit "
+        f"{explicit.precisions()}")
+    t0 = time.perf_counter()
+    trees = {name: model.compile_plan(params, plan).params
+             for name, plan in (("ewq", ewq), ("explicit", explicit))}
+    sync()
+    compile_s = time.perf_counter() - t0
+    params = None                       # the raw weights: freed
+    fresh_memory(torch, device)
+    prompts = serve_prompts(cfg.vocab_size)
+    runs = []
+
+    def serve(label, tree, plan, kv, graphs, requests=prompts, **kw):
+        engine, outs, run, counts = recurrent_run(
+            torch, build, model, trees[tree], label, plan, kv, graphs,
+            requests, device, compiled=True, **kw)
+        for k, v in counts.items():
+            launches[k] += v
+        runs.append(run)
+        return engine, outs, run
+
+    _, base_outs, _ = serve("ewq-4bit/8bit", "ewq", ewq, "int8", True,
+                            readings=True)
+    _, outs, run = serve("ewq-4bit/8bit", "ewq", ewq, "int8", False)
+    require_same(f"{cfg.name} ewq", base_outs, outs, logprobs=True)
+    run["identical_to_graph_run"] = True
+    if arch == "grok-1-314b":
+        _, outs, run = serve("ewq-4bit/8bit-paged", "ewq", ewq, "int8", True,
+                             paged=PagedConfig(page_size=PAGE))
+        if not same_outputs(outs, base_outs, logprobs=True):
+            raise AssertionError(f"{cfg.name}: the paged serve differs from "
+                                 "the dense serve")
+        run["identical_to_dense_run"] = True
+        # one wave of SLOTS prompts, 16 new tokens each, for time: every
+        # round runs four int4 draft steps, each dequantizing both layers'
+        # experts, and commits about one token a slot (random weights)
+        serve("spec-model-draft", "ewq", ewq, "int8", True,
+              requests=prompts[:SLOTS], max_new=16,
+              spec=SpecConfig(k=SPEC_K))
+    engine, base_outs, _ = serve("explicit", "explicit", explicit, "int4",
+                                 True, readings=True)
+    # EWQ leaves every layer of a depth-cut config raw: this is the graph
+    # serve whose decode runs the quantized experts (chunked dequantize),
+    # held to the eager serve to the bit
+    _, outs, run = serve("explicit", "explicit", explicit, "int4", False)
+    require_same(f"{cfg.name} explicit", base_outs, outs, logprobs=True)
+    run["identical_to_graph_run"] = True
+
+    # one decode step through the kernels against the plain versions, on
+    # the explicit plan's params and an identical int4 cache
+    state = engine.init_decode_state(SLOTS)
+    for slot in range(SLOTS):
+        engine.insert(state, slot, engine.prefill_request(prompts[slot]), 32)
+    toks = torch.argmax(state.last_logits[:, :cfg.vocab_size], -1)[:, None]
+
+    def step_logits(p, plain=False):
+        logits, _ = model.decode_step(p, clone_cache(state.cache), toks,
+                                      plain=plain)
+        return logits.float()
+
+    k_logits = step_logits(engine.params)
+    p_logits = step_logits(engine.params, True)
+    if not bool(torch.isfinite(k_logits).all()):
+        raise AssertionError(f"{cfg.name}: non-finite logits through the "
+                             "kernels")
+    rel = rel_l2(k_logits, p_logits)
+    with patched_plain(torch, "reordered"):
+        rel_reordered = rel_l2(step_logits(engine.params, True), p_logits)
+    rel_fault = rel_l2(step_logits(permute_router_rows(torch, engine.params)),
+                       p_logits)
+    agree = float((k_logits.argmax(-1) == p_logits.argmax(-1)).float().mean())
+    log(f"{cfg.name}: first decode step, kernels vs plain versions: relative "
+        f"L2 {rel:.4g} (limit {LOGIT_REL_L2}), greedy agreement {agree:.2f}; "
+        f"plain versions with their f32 sums reordered vs plain versions "
+        f"{rel_reordered:.4g}; the first layer's router rows rotated by one "
+        f"expert: {rel_fault:.4g}")
+    if rel > LOGIT_REL_L2:
+        raise AssertionError(f"{cfg.name}: decode logits differ: relative L2 "
+                             f"{rel}")
+    if rel_fault <= LOGIT_REL_L2:
+        raise AssertionError(f"{cfg.name}: the logit limit {LOGIT_REL_L2} "
+                             f"misses a planted fault (relative L2 "
+                             f"{rel_fault})")
+    step = {}
+    if device == "cuda":
+        eager_ms, device_ms = step_ms(torch, model, engine.params, state,
+                                      toks)
+        step = dict(eager_ms=eager_ms, device_ms=device_ms)
+        log(f"{cfg.name}: one decode step at {SLOTS} slots (explicit plan, "
+            f"int4 KV): eager {eager_ms:.2f} ms wall, device {device_ms:.2f} "
+            f"ms (CUDA graph replay)")
+    engine = state = None
+    report.setdefault("moe", {})[cfg.name] = dict(
+        layers=cfg.num_layers, raw_weight_bytes=raw_bytes,
+        matrix_params=n_params, compile_s=compile_s, runs=runs,
+        ewq_counts=ewq.counts(), ewq_precisions=ewq.precisions(),
+        explicit_precisions=explicit.precisions(), logit_rel_l2=rel,
+        logit_rel_l2_reordered=rel_reordered,
+        logit_rel_l2_planted_fault=rel_fault, greedy_agreement=agree,
+        decode_step=step, launches=launches)
+    return launches
+
+
 def prompt_graph_check(torch, engine, prompt, chunk: int = 32) -> dict:
     """A prompt scanned through the captured prompt step against the same
     prompt scanned eagerly, and against the prompt prefilled in chunks of
@@ -2965,10 +3334,11 @@ def _requests_of(prompts, max_new: int = 32) -> list:
 WHISPER_MAX_SEQ = 448   # whisper's published decoder context (n_text_ctx)
 
 
-def whisper_requests(cfg) -> list:
-    """8 requests: decoder prompts of 4-32 tokens (numpy seed 0) and one
-    (encoder_seq, d_model) frame block each, standard normal (numpy seed
-    2, the encoder input's scale in the reference's synthetic data)."""
+def whisper_requests(cfg, max_new: int = 32) -> list:
+    """8 requests of ``max_new`` new tokens: decoder prompts of 4-32
+    tokens (numpy seed 0) and one (encoder_seq, d_model) frame block
+    each, standard normal (numpy seed 2, the encoder input's scale in the
+    reference's synthetic data)."""
     import numpy as np
     from repro_torch.serving.scheduler import Request
     rng = np.random.RandomState(0)
@@ -2976,7 +3346,7 @@ def whisper_requests(cfg) -> list:
     prompts = [rng.randint(0, cfg.vocab_size, size=(n,)).astype(np.int32)
                for n in lens]
     frng = np.random.RandomState(2)
-    return [Request(rid=i, prompt=p, max_new_tokens=32,
+    return [Request(rid=i, prompt=p, max_new_tokens=max_new,
                     frames=frng.standard_normal(
                         (cfg.encoder_seq, cfg.d_model)).astype(np.float32))
             for i, p in enumerate(prompts)]
@@ -3002,7 +3372,9 @@ def serve_whisper(torch, build, report: dict, smoke: bool = False,
     from repro_torch.core import policy
     from repro_torch.models.model import build as build_model
     from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.pool import PagedConfig
     from repro_torch.serving.quantized import explicit_plan
+    from repro_torch.serving.spec import SpecConfig
 
     cfg = get_config("whisper-medium", smoke=smoke)
     model = build_model(cfg)
@@ -3026,31 +3398,57 @@ def serve_whisper(torch, build, report: dict, smoke: bool = False,
              for i in range(cfg.num_layers)]
     explicit = explicit_plan(cfg, stack * 2, embed_precision="int8")
     runs = []
-    # EWQ from CUDA graphs, then eagerly (held equal to the bit); the
-    # explicit plan from CUDA graphs
+    # EWQ from CUDA graphs, then eagerly (held equal to the bit); EWQ from
+    # an equal-memory paged pool (held equal to the dense serve); EWQ
+    # speculatively with each draft, from graphs and eagerly (equal to the
+    # bit); the explicit plan from CUDA graphs
+    paged = dict(paged=PagedConfig(page_size=PAGE))
+    cases = [("whisper-ewq-4bit/8bit", ewq, "int8", True, {}, WHISPER_PATH),
+             ("whisper-ewq-4bit/8bit", ewq, "int8", False, {}, WHISPER_PATH),
+             ("whisper-ewq-4bit/8bit-paged", ewq, "int8", True, paged,
+              WHISPER_PAGED_PATH)]
+    for source, path in (("model", WHISPER_PATH + ("decode_attn_window",)),
+                         ("ngram", WHISPER_NGRAM_PATH)):
+        spec = dict(spec=SpecConfig(k=SPEC_K, draft_source=source))
+        cases += [(f"whisper-spec-{source}-draft", ewq, "int8", graphs,
+                   spec, path) for graphs in (True, False)]
+    cases.append(("whisper-explicit-all-precisions", explicit, "int4", True,
+                  {}, WHISPER_PATH))
+    graph_outs = {}
     engine = None
-    for label, plan, kv, graphs in (
-            ("whisper-ewq-4bit/8bit", ewq, "int8", True),
-            ("whisper-ewq-4bit/8bit", ewq, "int8", False),
-            ("whisper-explicit-all-precisions", explicit, "int4", True)):
+    for label, plan, kv, graphs, kw, path in cases:
+        # a spec serve takes one wave of SLOTS requests, 16 new tokens
+        # each, for time
+        spec_wave = dict(n_requests=SLOTS, max_new=16) if "spec" in kw \
+            else {}
         engine = None                          # free the previous engine
         fresh_memory(torch, device)
         engine = ServeEngine(model, params, max_seq=WHISPER_MAX_SEQ,
                              plan=plan, kv_precision=kv, device=device,
-                             cuda_graphs=graphs)
+                             cuda_graphs=graphs, **kw)
+        if engine.spec is not None:
+            engine.draft_params                # the draft, derived once
         run, counts, outs = whisper_run(torch, build, model, engine, label,
-                                        kv, plan, device, readings=graphs)
+                                        kv, plan, device, path=path,
+                                        readings=graphs and not kw,
+                                        **spec_wave)
         for k, v in counts.items():
             launches[k] += v
         runs.append(run)
-        if kv == "int8" and graphs:
-            graph_outs = outs
-        elif kv == "int8":
-            require_same(label, graph_outs, outs, logprobs=True)
+        if graphs:
+            graph_outs[label] = outs
+        else:
+            require_same(label, graph_outs[label], outs, logprobs=True)
             run["identical_to_graph_run"] = True
+        if "paged" in kw:
+            if not same_outputs(outs, graph_outs["whisper-ewq-4bit/8bit"],
+                                logprobs=True):
+                raise AssertionError("whisper: the paged serve differs from "
+                                     "the dense serve")
+            run["identical_to_dense_run"] = True
     engine = None
     ttft = {("graphs" if r["cuda_graphs"] else "eager"): r["ttft_mean_s"]
-            for r in runs if r["kv"] == "int8"}
+            for r in runs if r["run"] == "whisper-ewq-4bit/8bit"}
     log(f"whisper: mean TTFT (EWQ, int8 KV): {json.dumps(ttft)}")
     report["whisper_ttft"] = ttft
     report["whisper_runs"] = runs
@@ -3058,7 +3456,9 @@ def serve_whisper(torch, build, report: dict, smoke: bool = False,
 
 
 def whisper_run(torch, build, model, engine, label: str, kv: str, plan,
-                device: str, readings: bool = True) -> tuple:
+                device: str, readings: bool = True,
+                path: tuple = None, n_requests: int = None,
+                max_new: int = 32) -> tuple:
     """One whisper serve of ``whisper_requests`` and its readings: the
     kernel launches of the encoder for one request and of one decode step;
     that decode step through the kernels against the plain versions, its
@@ -3070,20 +3470,22 @@ def whisper_run(torch, build, model, engine, label: str, kv: str, plan,
     nibbles swapped, a planted fault LOGIT_REL_L2 must catch; the step's
     time eager and from a CUDA graph; one decode chunk's wall and device
     time (``chunk_readings``). ``readings=False`` serves and takes the
-    chunk readings only. Returns (the run's record, the serve's launches,
-    the outputs)."""
+    chunk readings only. Every kernel of ``path`` (WHISPER_PATH by
+    default) must launch in the serve; ``n_requests`` serves the first
+    that many requests, ``max_new`` tokens each. Returns (the run's
+    record, the serve's launches, the outputs)."""
     import numpy as np
     from repro_torch.models import encdec
     from repro_torch.quant.kvcache import clone_cache
     cfg = model.cfg
-    reqs = whisper_requests(cfg)
+    reqs = whisper_requests(cfg, max_new)[:n_requests]
     build.reset_launches()                     # main path: counts from 0
     (outs, stats), peak, serve_peak = serve_peaks(
         torch, device, lambda: engine.serve(reqs, num_slots=SLOTS,
                                             chunk=CHUNK))
     counts = dict(build.LAUNCHES)
     for o in outs:
-        if (len(o.generated) != 32 or o.generated.min() < 0
+        if (len(o.generated) != max_new or o.generated.min() < 0
                 or o.generated.max() >= cfg.vocab_size
                 or not np.all(np.isfinite(o.logprobs))):
             raise AssertionError(f"{label}: bad output for request {o.rid}: "
@@ -3103,12 +3505,23 @@ def whisper_run(torch, build, model, engine, label: str, kv: str, plan,
                max_memory_allocated=peak,
                serve_max_memory_allocated=serve_peak,
                plan=plan.counts(), launches=counts)
-    for k in WHISPER_PATH:
+    if engine.spec is not None:
+        run.update(spec=engine.spec.draft_source,
+                   spec_rounds=stats.spec_rounds,
+                   acceptance_rate=stats.acceptance_rate,
+                   tokens_per_round=stats.tokens_per_round,
+                   draft_overhead_bytes=engine.draft_overhead_bytes())
+    if engine.paged is not None:
+        run.update(paged=True, pool_pages=stats.pool_pages_total,
+                   pool_pages_peak=stats.pool_pages_peak,
+                   kv_bytes_peak=stats.kv_bytes_peak)
+    for k in path or WHISPER_PATH:
         if counts[k] <= 0 and device == "cuda":
             raise AssertionError(f"{label}: kernel {k} never launched")
-    run["chunk"] = chunk_readings(torch, build, engine,
-                                  [r.prompt for r in reqs], device,
-                                  frames=[r.frames for r in reqs])
+    if engine.graphs is not None:   # an eager chunk's wall is in the stats
+        run["chunk"] = chunk_readings(torch, build, engine,
+                                      [r.prompt for r in reqs], device,
+                                      frames=[r.frames for r in reqs])
     if not readings:
         log("whisper serve: " + json.dumps(run))
         return run, counts, outs
@@ -3349,6 +3762,21 @@ def main() -> int:
         for k, v in got.items():
             launches[k] += v
         out_file.write_text(json.dumps(report, indent=1))
+    # -- phases 5 and 4h: grok-1-314b and arctic-480b at full width ---------
+    moe_launches = {k: 0 for k in build.LAUNCHES}
+    for arch in MOE_LAYERS:
+        torch.cuda.empty_cache()
+        with phase(report, f"5+4h {arch}"):
+            got = serve_moe(torch, build, report, arch)
+        for k, v in got.items():
+            moe_launches[k] += v
+            launches[k] += v
+        out_file.write_text(json.dumps(report, indent=1))
+    for k in MOE_PATH:
+        if moe_launches[k] <= 0:
+            raise AssertionError(f"kernel {k} never launched on the MoE "
+                                 "serve and analysis paths")
+    report["moe_launches"] = moe_launches
     for k, v in launches.items():
         if v <= 0 and k not in OFF_PATH:
             raise AssertionError(f"kernel {k} never launched on the serve "

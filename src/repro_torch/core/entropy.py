@@ -48,20 +48,25 @@ def matrix_entropy_paper(w: torch.Tensor, eps: float = DEFAULT_EPS
 def matrix_entropy_stream(w: torch.Tensor, chunk: int = 1 << 20
                           ) -> torch.Tensor:
     """H = logsumexp(w) - sum(w e^w) / sum(e^w), merged chunk by chunk with
-    a running max m, Z = sum e^(w - m) and S = sum w e^(w - m)."""
-    flat = w.reshape(-1).float()
+    a running max m, Z = sum e^(w - m) and S = sum w e^(w - m). Each chunk
+    is summed in f32 (goes to f32 on its own: no f32 copy of the whole
+    matrix, and an MoE expert stack holds billions of elements); the
+    running Z and S merge in f64, so a matrix of thousands of chunks keeps
+    the accuracy of one (an f32 running sum over 1600 chunks drifts by
+    ~1e-5 in H)."""
+    flat = w.reshape(-1)
     m = torch.tensor(float("-inf"), device=flat.device)
-    z = torch.zeros((), device=flat.device)
-    s = torch.zeros((), device=flat.device)
+    z = torch.zeros((), dtype=torch.float64, device=flat.device)
+    s = torch.zeros((), dtype=torch.float64, device=flat.device)
     for lo in range(0, flat.numel(), chunk):
-        x = flat[lo:lo + chunk]
+        x = flat[lo:lo + chunk].float()
         new_m = torch.maximum(m, x.max())
-        scale = torch.exp(m - new_m)
+        scale = torch.exp((m - new_m).double())
         e = torch.exp(x - new_m)
-        z = z * scale + e.sum()
-        s = s * scale + (x * e).sum()
+        z = z * scale + e.sum().double()
+        s = s * scale + (x * e).sum().double()
         m = new_m
-    return (m + torch.log(z)) - s / z
+    return ((m.double() + torch.log(z)) - s / z).float()
 
 
 def matrix_entropy(w: torch.Tensor, *, mode: str = "paper",

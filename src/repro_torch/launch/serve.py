@@ -13,6 +13,10 @@
         --device cpu           # hybrid (also --paged, --spec-k 4)
     python -m repro_torch.launch.serve --arch mamba2-780m --smoke \
         --device cpu           # SSM (also --spec-k 4)
+    python -m repro_torch.launch.serve --arch grok-1-314b --smoke \
+        --device cpu           # MoE (also arctic-480b; --paged, --spec-k 4)
+    python -m repro_torch.launch.serve --arch grok-1-314b --num-layers 2
+                               # MoE at full width, its depth cut to fit
     python -m repro_torch.launch.serve --arch llama3.2-3b \
         --plan-artifact /tmp/llama-ewq   # compile and save; the next run
                                          # cold-boots from the artifact
@@ -26,7 +30,9 @@ An enc-dec model (whisper) gets one block of (encoder_seq, d_model) frame
 embeddings per request, standard normal from ``--seed``, in place of the
 audio frontend. An SSM or hybrid model also reports the conv/state bytes
 a slot holds; an SSM model has no KV cache, so ``--kv-precision`` and
-``--paged`` leave it as it is.
+``--paged`` leave it as it is. ``--num-layers N`` keeps the config's width
+and cuts its depth to N layers: neither MoE config fits one 80 GB card
+whole (grok-1 needs at least 157 GB at int4, arctic 240 GB).
 ``--plan-artifact DIR`` boots from DIR when it holds a compiled-plan
 artifact (no raw weights, no entropy analysis; the KV plan stamped there is
 the default), and otherwise compiles the plan, stamps the int4 self-draft
@@ -41,6 +47,7 @@ Without ``--device`` it runs on the GPU, and raises if there is none.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -61,6 +68,9 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCHS, required=True)
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--num-layers", type=int, default=0,
+                    help="cut the config's depth to N layers at its full "
+                         "width (0: the config's own depth)")
     ap.add_argument("--variant", default="4bit/8bit",
                     choices=["raw", "4bit", "8bit", "8bit-mixed", "4bit/8bit",
                              "ternary/4bit"])
@@ -140,6 +150,8 @@ def main(argv=None) -> dict:
         raise SystemExit("--poisson requires --arrival-rate > 0")
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
+    if args.num_layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.num_layers)
     model = build(cfg)
     spec = (SpecConfig(k=args.spec_k, draft_source=args.spec_draft)
             if args.spec_k > 0 else None)
@@ -223,6 +235,7 @@ def main(argv=None) -> dict:
     for o in outs:
         reasons[o.finish_reason] = reasons.get(o.finish_reason, 0) + 1
     report = dict(arch=cfg.name, device=str(device), variant=args.variant,
+                  layers=cfg.num_layers,
                   kv_plan=(list(engine.kv_plan.precisions)
                            if engine.kv_plan is not None else "bf16"),
                   requests=len(outs), generated=stats.generated_tokens,

@@ -11,9 +11,13 @@ after another. Decode keeps the decoder's self-attention cache (written in
 place) and the cross-attention K/V computed once per request from the
 encoder output (``precompute_cross_kv``); a quantized cache holds both as
 ``KVPage``s, and cross-attention then runs the decode attention kernel
-with ``causal=False`` over all ``encoder_seq`` rows. The paged pool and
-speculative decoding are not ported for this family (ROADMAP.md, "the
-other families").
+with ``causal=False`` over all ``encoder_seq`` rows. Over a paged pool the
+self-attention K/V live in the pool and the cross K/V stay a dense field
+per slot. A speculative verify window is one multi-query decode step
+(cross-attention is non-causal over the fixed encoder rows) and rolls back
+by position arithmetic; the family has no read-only propose step, so a
+draft proposes on a clone of the whole cache, the slot's cross K/V
+included.
 """
 
 from __future__ import annotations
@@ -198,6 +202,22 @@ def decode_step(params, cache: EncDecCache, tokens: torch.Tensor, cfg, *,
                            cross_kv=A.KVCache(k=ck, v=cv),
                            valid_bias=valid_bias, plain=plain)
     return _head(params, h, cfg, plain), cache._replace(pos=cache.pos + s)
+
+
+def spec_verify(params, cache: EncDecCache, tokens: torch.Tensor, cfg, *,
+                plain: bool = False):
+    """Score a verify window ``tokens`` (B, K+1) in one multi-query decode
+    step over the decoder stack (rows written in place at ``cache.pos``).
+    Returns (logits (B, K+1, V_pad), snap) for ``spec_commit``."""
+    logits, new_cache = decode_step(params, cache, tokens, cfg, plain=plain)
+    return logits, (new_cache, tokens.shape[1])
+
+
+def spec_commit(snap, committed: torch.Tensor) -> EncDecCache:
+    """Keep ``committed`` (B,) rows of the verify window: position
+    arithmetic alone (0 rolls a slot back to its pre-verify position)."""
+    cache, s = snap
+    return cache._replace(pos=cache.pos - s + committed.to(cache.pos.dtype))
 
 
 def block_params(params) -> list[Any]:

@@ -1,9 +1,8 @@
 """Model facade: one interface over the family modules.
 
-The dense family (``transformer``), the encoder-decoder family
-(``encdec``), the SSM family (``ssm_lm``) and the hybrid family
-(``hybrid``) are ported. Building a model of another family (MoE) raises
-``NotImplementedError`` naming its ROADMAP item.
+Every family of the JAX package: dense and MoE (``transformer``), the
+encoder-decoder family (``encdec``), the SSM family (``ssm_lm``) and the
+hybrid family (``hybrid``).
 """
 
 from __future__ import annotations
@@ -17,9 +16,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import encdec, hybrid, ssm_lm, transformer
 from repro_torch.quant import kvcache as KV
 
-_FAMILIES = {"dense": transformer, "encdec": encdec, "ssm": ssm_lm,
-             "hybrid": hybrid}
-_TODO = {"moe": "the other families (MoE branch of the transformer)"}
+_FAMILIES = {"dense": transformer, "moe": transformer, "encdec": encdec,
+             "ssm": ssm_lm, "hybrid": hybrid}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,9 +26,7 @@ class Model:
 
     def __post_init__(self):
         if self.cfg.family not in _FAMILIES:
-            raise NotImplementedError(
-                f"family {self.cfg.family!r} is still to be ported "
-                f"(ROADMAP.md: {_TODO.get(self.cfg.family, '?')})")
+            raise ValueError(f"unknown family {self.cfg.family!r}")
 
     @property
     def module(self):
@@ -66,7 +62,8 @@ class Model:
     # ---- speculative decoding -----------------------------------------------
     @property
     def supports_fused_propose(self) -> bool:
-        """True when the family has a read-only draft decode step."""
+        """True when the family has a read-only draft decode step (dense
+        and MoE); the others propose in two passes on a cache clone."""
         return hasattr(self.module, "draft_propose_step")
 
     def draft_propose_step(self, params, cache, fresh_k, fresh_v, count,
@@ -108,6 +105,15 @@ class Model:
         step (SSM, hybrid): a prompt is a scan of single-token decode
         steps."""
         return self.cfg.family in ("ssm", "hybrid")
+
+    @property
+    def seeds_prefix_hits(self) -> bool:
+        """True for the families whose prefix hit skips its shared tokens
+        (dense, MoE: the pool's rows seed the cache, the model runs the
+        suffix); the others prefill in full with the hit's pages still
+        mapped (a hybrid's conv/state need every token, an enc-dec prompt
+        its frames)."""
+        return self.cfg.family in ("dense", "moe")
 
     def slotted_cache(self, num_slots: int, max_seq: int, device):
         """init_cache with a (num_slots,) per-slot position vector."""

@@ -1,9 +1,13 @@
-"""Decoder-only LM of the dense family (llama3.2-3b, yi-9b, minicpm-2b, ...).
+"""Decoder-only LM of the dense and MoE families (llama3.2-3b, yi-9b,
+minicpm-2b, ...; grok-1-314b, and arctic-480b with its dense residual MLP
+beside the experts).
 
 Layers are stacked on a leading axis and run in a Python loop, one segment
 of a ``SegmentedParams`` after another; parameters may be raw tensors or
-QTensors (EWQ-quantized). The MoE branch of the JAX reference is still to
-be ported.
+QTensors (EWQ-quantized). An MoE layer's output depends on which tokens
+share its call (capacity drops, ``models/moe.py``): a forward routes the
+whole (B, S) batch at once, a decode step every slot, a verify window all
+of its B * (K + 1) tokens, as the reference does.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ import torch
 
 from repro_torch.models import attention as A
 from repro_torch.models import mlp as M
+from repro_torch.models import moe as MOE
 from repro_torch.models.common import (decode_positions, dtype_of,
                                        embed_init, embed_lookup, lm_head,
                                        norm)
@@ -35,23 +40,21 @@ CACHE_BATCH_AXES = DecodeCache(k=1, v=1, pos=0)
 KV_CACHE_FIELDS = ("k", "v")
 
 
-def _require_dense(cfg) -> None:
-    if cfg.num_experts > 0:
-        raise NotImplementedError(
-            "the MoE branch of the transformer is still to be ported "
-            "(ROADMAP.md, 'the other families')")
-
-
 def init(cfg, gen: torch.Generator, device) -> dict:
     """Random weights at the JAX package's init scales, from ``gen``."""
-    _require_dense(cfg)
     dtype = dtype_of(cfg)
     n, d = cfg.num_layers, cfg.d_model
     layers: dict = {"attn": A.init_attention_params(gen, cfg, dtype, device)}
     if not cfg.nonparametric_norm:
         layers["ln1"] = torch.ones((n, d), dtype=dtype, device=device)
         layers["ln2"] = torch.ones((n, d), dtype=dtype, device=device)
-    layers["mlp"] = M.init_mlp_params(gen, n, d, cfg.d_ff, dtype, device)
+    if cfg.num_experts > 0:
+        layers["moe"] = MOE.init_moe_params(
+            gen, n, d, cfg.expert_d_ff, cfg.num_experts, cfg.num_layers,
+            dtype, device)
+    if cfg.num_experts == 0 or cfg.dense_residual:
+        layers["mlp"] = M.init_mlp_params(gen, n, d, cfg.d_ff, dtype, device,
+                                          cfg.mlp_act)
     params = {"embed": {"tok": embed_init(gen, cfg.padded_vocab, d, dtype,
                                           device)},
               "layers": layers, "final": {}}
@@ -75,8 +78,20 @@ def _layer(p, h, positions, cfg, cache_kv=None, cache_pos=None,
         valid_bias=valid_bias, fresh_kv=fresh_kv, emit_kv=emit_kv,
         plain=plain)
     h = h + a
-    m = M.mlp(p["mlp"], norm(h, p.get("ln2"), cfg), cfg.mlp_act, plain)
-    return h + m, kv
+    return h + _ffn(p, norm(h, p.get("ln2"), cfg), cfg, plain), kv
+
+
+def _ffn(p, hn, cfg, plain):
+    """The layer's MLP, or its experts (plus arctic's dense residual MLP on
+    the same input)."""
+    if cfg.num_experts == 0:
+        return M.mlp(p["mlp"], hn, cfg.mlp_act, plain)
+    m, _ = MOE.moe_block(p["moe"], hn, num_experts=cfg.num_experts,
+                         top_k=cfg.top_k,
+                         capacity_factor=cfg.capacity_factor, plain=plain)
+    if cfg.dense_residual:
+        m = m + M.mlp(p["mlp"], hn, cfg.mlp_act, plain)
+    return m
 
 
 def _head(params, h, cfg, plain):
@@ -90,7 +105,6 @@ def apply(params, tokens: torch.Tensor, cfg, *, return_cache: bool = False,
     """tokens (B, S) -> logits (B, S, V_pad) f32; with ``return_cache`` also
     the raw (L, B, S, Hkv, hd) K/V cache at position S. ``last_only`` takes
     the head logits of the final position only (serving prefill)."""
-    _require_dense(cfg)
     b, s = tokens.shape
     h = embed_lookup(params["embed"]["tok"], tokens, dtype_of(cfg))
     positions = torch.arange(s, dtype=torch.int32,
@@ -124,7 +138,6 @@ def decode_step(params, cache: DecodeCache, tokens: torch.Tensor, cfg, *,
                 plain: bool = False):
     """tokens (B, s) -> (logits (B, s, V_pad), cache). The cache's K/V are
     written in place; the returned cache carries ``pos + s``."""
-    _require_dense(cfg)
     b, s = tokens.shape
     h = embed_lookup(params["embed"]["tok"], tokens, dtype_of(cfg))
     positions = decode_positions(cache.pos, b, s)
@@ -156,7 +169,6 @@ def draft_propose_step(params, cache: DecodeCache, fresh_k: torch.Tensor,
     a draft truncated to its first layers; its segments each sit inside
     one cache page (``kv_take_layers``). tokens (B, 1) -> (logits
     (B, 1, V_pad), fresh_k, fresh_v)."""
-    _require_dense(cfg)
     b, s = tokens.shape
     h = embed_lookup(params["embed"]["tok"], tokens, dtype_of(cfg))
     positions = decode_positions(cache.pos + count, b, s)

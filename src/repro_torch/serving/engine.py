@@ -56,8 +56,17 @@ Enc-dec models (whisper) serve with ``frames`` per request (a zero frame
 block when a request has none): prefill encodes them, computes every
 decoder layer's cross K/V once, and scores the whole prompt in one
 multi-query decode step; admission quantizes the self and cross K/V into
-the slot. The paged pool and speculative decoding are not ported for this
-family, and the engine refuses both for it.
+the slot. Over a paged pool only the self-attention K/V are paged; the
+cross K/V stay a dense field per slot, and a prefix hit maps its pages but
+still prefills in full (the frames are needed). Its speculative rounds
+verify in one multi-query step and propose in two passes on a cache clone
+(cross K/V included).
+
+MoE models (grok-1, arctic) take the dense family's paths. An MoE layer's
+output depends on which tokens share its call, so each path routes the
+reference's token set: a prompt alone at prefill, one chunk (or a prefix
+hit's suffix) at a time in chunked prefill, every slot (free ones too) at
+a decode step, all B * (k + 1) tokens of a verify window.
 
 SSM (mamba2) and hybrid (zamba2) models prefill by scanning single-token
 decode steps over the prompt, as the reference does: their recurrent
@@ -215,11 +224,6 @@ class ServeEngine:
         self.prompt_graph = self.device.type == "cuda"
         self.model = model
         self.cfg = model.cfg
-        if self.cfg.family == "encdec" and (spec is not None or paged):
-            raise NotImplementedError(
-                "enc-dec serving over a paged KV pool or with speculative "
-                "decoding is still to be ported (ROADMAP.md, 'the other "
-                "families'); serve it dense and non-speculative")
         self.max_seq = max_seq
         self.plan = plan
         self.eos_id = eos_id
@@ -404,15 +408,15 @@ class ServeEngine:
         the prompt against the pool's prefix cache, pinning the matched
         pages; on a hit, and given ``state`` (which holds the pool), it
         reads the shared K/V back from the pool and runs the model over the
-        suffix only. A hybrid model prefills the whole prompt (its
-        conv/state need every token) while the hit's pages are still
-        mapped at insert."""
+        suffix only (dense and MoE). A hybrid or enc-dec model prefills
+        the whole prompt (its conv/state need every token; its frames are
+        needed) while the hit's pages are still mapped at insert."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         match = None
         if self.pool is not None and self.pool.prefix is not None:
             match = self.pool.match(prompt)
             if (match.hit > 0 and state is not None
-                    and not self.model.scans_prompts):
+                    and self.model.seeds_prefix_hits):
                 cache, logits = self._seed_prefill(prompt, match, state)
                 return Prefill(prompt=prompt, cache=cache,
                                last_logits=logits, match=match)
@@ -467,7 +471,7 @@ class ServeEngine:
         if self.pool is not None and self.pool.prefix is not None:
             match = self.pool.match(prompt)
             if (match.hit > 0 and state is not None
-                    and not self.model.scans_prompts):
+                    and self.model.seeds_prefix_hits):
                 return ChunkedPrefill(prompt=prompt,
                                       cache=self._pool_gather(match, state),
                                       last_logits=None, pos=match.hit,
@@ -519,8 +523,8 @@ class ServeEngine:
     def _paged_cache(self, num_slots: int, pool_pages: int):
         """Slotted family cache with the paged fields as empty pools (their
         dense layout is shaped on the meta device, never allocated) and
-        every other field (pos; a hybrid's conv/state) zeroed on the
-        device."""
+        every other field (pos; a hybrid's conv/state; an enc-dec slot's
+        cross K/V, quantized per the KV plan) zeroed on the device."""
         proto = self.model.slotted_cache(num_slots, self.max_seq, "meta")
         group = (self.kv_plan.group if self.kv_plan is not None
                  else DEFAULT_KV_GROUP)
@@ -534,7 +538,7 @@ class ServeEngine:
             else:
                 reps[name] = torch.zeros(raw.shape, dtype=raw.dtype,
                                          device=self.device)
-        return proto._replace(**reps)
+        return self._wrap_cache(proto._replace(**reps))
 
     def init_decode_state(self, num_slots: int, seed: int = 0
                           ) -> B.DecodeState:
@@ -809,9 +813,9 @@ class ServeEngine:
                 for name in ("conv", "state") if name in cache._fields}
 
     def _nonpaged_bytes_per_slot(self) -> float:
-        """Per-slot bytes of the KV fields NOT served from the pool (none
-        in the families the port pages today; an enc-dec engine's cross
-        K/V would be); 0.0 when every KV field is paged or there is none."""
+        """Per-slot bytes of the KV fields NOT served from the pool (an
+        enc-dec engine's cross K/V); 0.0 when every KV field is paged or
+        there is none."""
         by_field = self.kv_bytes_by_field()
         return float(sum(v for name, v in by_field.items()
                          if name not in self._paged_fields))

@@ -341,10 +341,26 @@ def test_generate_with_frames_matches_serve(whisper):
 
 
 def test_engine_refuses_paged_and_spec_for_encdec(whisper):
-    _, _, _, _, tmodel, tparams, _ = whisper
-    for kw in (dict(paged=True), dict(spec=SpecConfig(k=2))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ServeEngine(tmodel, tparams, max_seq=MAX_SEQ, device="cpu", **kw)
+    """The refusal is gone: an enc-dec engine builds over a paged pool and
+    with speculative decoding, and each serves a request with frames to
+    its non-spec dense tokens (held to the JAX engine in
+    tests/test_torch_encdec_serve.py)."""
+    _, tcfg, _, _, tmodel, tparams, frames = whisper
+    prompt = np.random.default_rng(9).integers(
+        0, tcfg.vocab_size, size=(P,)).astype(np.int32)
+    outs = {}
+    for name, kw in (("dense", {}), ("paged", dict(paged=True)),
+                     ("spec", dict(spec=SpecConfig(k=2)))):
+        eng = ServeEngine(tmodel, tparams, max_seq=MAX_SEQ, device="cpu",
+                          kv_precision="int8", **kw)
+        outs[name], _ = eng.serve([Request(rid=0, prompt=prompt,
+                                           max_new_tokens=4,
+                                           frames=frames[0])],
+                                  num_slots=1, chunk=2)
+        assert len(outs[name][0].generated) == 4
+    for name in ("paged", "spec"):
+        np.testing.assert_array_equal(outs[name][0].tokens,
+                                      outs["dense"][0].tokens)
 
 
 # ---------------------------------------------------------------------------

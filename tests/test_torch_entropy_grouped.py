@@ -12,6 +12,8 @@ interpret mode within the reference test's 1e-3 * max(1, |H|)
 2e-5: arrays smaller than one tile, one element either side of a tile
 boundary, ragged tails, more tiles than the merge has threads, bf16 and
 f32 in one list. An array's H does not depend on the rest of the list.
+Stream mode over many thousands of chunks stays within 1e-6 of the
+float64 closed form.
 A list with a CUDA tensor never takes the plain version, and one longer
 than a launch holds is cut into launches. The CUDA kernel itself is held
 to the plain version on the card by chip_smoke.py."""
@@ -80,6 +82,18 @@ def test_merge_runs_of_many_partials(n, tile):
     got = float(E.entropy_tiled_plain([tw], tile)[0])
     _close(got, float(entropy_ref(jw)))
     assert abs(got - _closed_form_f64(tw)) < 2e-5
+
+
+@pytest.mark.parametrize("n,chunk", [(1 << 22, 256), (1 << 21, 64)])
+def test_stream_mode_over_many_chunks_matches_f64(n, chunk):
+    """Stream mode (``matrix_entropy_stream``) over 16384 and 32768 chunks,
+    as an MoE expert stack of billions of elements is in its default
+    chunks: its running Z and S merge in f64, so H stays within 1e-6 of
+    the float64 closed form (about 2e-7 here; a running merge in f32 read
+    5e-6 to 7e-6 on these arrays)."""
+    _, tw = _pair((n,), jnp.bfloat16, seed=5, scale=1.0)
+    got = float(TE.matrix_entropy_stream(tw, chunk))
+    assert abs(got - _closed_form_f64(tw)) < 1e-6
 
 
 def test_mixed_list_each_matches_reference_and_alone():
