@@ -94,6 +94,26 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    prefill (median, torch.profiler) than a prefill of the same stream
    without sharing (wall times and mean TTFTs readings, beside dense); phase
    4b's model-draft speculative serve over the pool (tokens identical).
+4i. degradation and fault tolerance (``serve_degrade``), on phase 4c's
+   compiled EWQ weights (no second analysis or compile) and phase 4's
+   requests: the entropy-ordered KV ladder (tiers, labels, pages a tier);
+   a 10-page pool (pages of 64; any two of the first four requests fit at
+   tier 0, no three) under DegradeConfig(cooldown=2, headroom=0.3), from
+   CUDA graphs and eagerly (equal to the bit, the same transitions), which
+   must spill and promote back (two transitions or more, decode steps at
+   tier 0 and below it), complete every request, leak no page, launch
+   DEGRADE_PATH's kernels (the paged attention kernel at a degraded tier)
+   and hold no dead pool after its last transition; each transition's
+   wall ms and transient bytes, the bytes allocated and reserved before
+   the first and after the last; a live pool repacked by
+   ``apply_kv_plan`` at a spill and at a promotion, each equal to the bit
+   to ``repack_pool_field`` on a CPU copy (the repack's device ms beside
+   the pool's bytes); two replica engines over the same weights under
+   ``ReplicaServe``, fault-free and with replica 1 killed (the same greedy
+   tokens, one restart, requests re-driven, clean pools; recovery p95 and
+   the largest logprob difference read), and a tick stalled STALL_S
+   under a WATCHDOG_S deadline (a watchdog trip, the same tokens). The
+   share of tokens equal to phase 4's undegraded serve is a reading.
 5. analysis: ``analyze_blocks`` over every matrix of llama3.2-3b FULL (197
    matrices) and of whisper-medium FULL through the entropy kernel
    (mode="kernel": one grouped launch a model) and in plain tensor ops
@@ -1749,10 +1769,17 @@ def serve_full_width(torch, build, report: dict, smoke: bool = False,
     for k, v in spec_launches.items():
         launches[k] += v
     with phase(report, "4c llama paged"):
-        paged_launches = serve_paged(torch, build, report, model, params,
-                                     ewq, prompts, base_outs, spec_outs,
-                                     device)
+        paged_launches, compiled = serve_paged(
+            torch, build, report, model, params, ewq, prompts, base_outs,
+            spec_outs, device)
     for k, v in paged_launches.items():
+        launches[k] += v
+    with phase(report, "4i llama degrade + failover"):
+        degrade_launches = serve_degrade(torch, build, report, model,
+                                         compiled, ewq, prompts, base_outs,
+                                         device)
+    compiled = None
+    for k, v in degrade_launches.items():
         launches[k] += v
     with phase(report, "5 llama analysis"):
         _, entropy_launches = analyze_model(torch, build, report, model,
@@ -2075,7 +2102,8 @@ def serve_paged(torch, build, report: dict, model, params, plan, prompts,
     no leak), against the same stream without sharing from a 20-page pool
     and from the dense engine; phase 4b's model-draft speculative serve
     over the equal-memory pool (tokens identical to phase 4b's). Returns
-    the launches of the serves."""
+    the launches of the serves and the compiled EWQ params (phase 4i
+    serves them)."""
     import numpy as np
     from repro_torch.serving.engine import ServeEngine
     from repro_torch.serving.pool import PagedConfig
@@ -2280,6 +2308,412 @@ def serve_paged(torch, build, report: dict, model, params, plan, prompts,
                              "phase 4b's dense spec serve")
     sp_run["identical_to_dense_spec"] = True
     report.update(paged_runs=runs, paged_readings=readings)
+    return launches, speng.params
+
+
+DEGRADE_PATH = ("qmatmul", "qkv", "qmlp", "decode_attn_paged")
+DEGRADE = dict(cooldown=2, headroom=0.3)   # 4i: spill, and promote back
+WATCHDOG_S = 1.5        # 4i's watchdog deadline on a decode gap, s
+STALL_S = 2.0           # the stall injected into one of its ticks, s
+
+
+def degrade_pool_pages(prompts, max_new: int = 32) -> int:
+    """4i's pool: the worst cases (prompt + 32 new tokens, in pages of
+    PAGE) of the two largest of the first four requests, so any two of
+    them fit at tier 0 and no three do."""
+    need = sorted(-(-(len(p) + max_new) // PAGE) for p in prompts[:4])
+    pages = need[-1] + need[-2]
+    if sum(need[:3]) <= pages:
+        raise AssertionError(f"4i: three of the first four requests fit in "
+                             f"{pages} pages ({need})")
+    return pages
+
+
+def field_to(torch, field, device):
+    """A paged field (one PagedKV or a tuple of runs) copied to ``device``."""
+    runs = field if isinstance(field, tuple) else (field,)
+    out = tuple(dataclasses.replace(
+        pg, data=pg.data.to(device), table=pg.table.to(device),
+        scale=None if pg.scale is None else pg.scale.to(device))
+        for pg in runs)
+    return out if isinstance(field, tuple) else out[0]
+
+
+def field_mismatch(torch, got, want):
+    """Where two paged fields differ, or None when they are equal to the
+    bit: precisions, payloads, scales (through an int16 view) and
+    tables."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    if [g.precision for g in got] != [w.precision for w in want]:
+        return ("precisions", [g.precision for g in got],
+                [w.precision for w in want])
+    for i, (g, w) in enumerate(zip(got, want)):
+        for name in ("data", "scale", "table"):
+            a, b = getattr(g, name), getattr(w, name)
+            if (a is None) != (b is None):
+                return (i, name, "one is None")
+            if a is None:
+                continue
+            a, b = a.cpu(), b.cpu()
+            if a.dtype == torch.bfloat16:
+                a, b = a.view(torch.int16), b.view(torch.int16)
+            if a.shape != b.shape:
+                return (i, name, tuple(a.shape), tuple(b.shape))
+            bad = (a != b).nonzero()
+            if len(bad):
+                return (i, g.precision, name, int(len(bad)), a.numel(),
+                        bad[:4].tolist(),
+                        a[tuple(bad[0])].item(), b[tuple(bad[0])].item())
+    return None
+
+
+def field_nbytes(field) -> int:
+    return sum(t.numel() * t.element_size()
+               for pg in (field if isinstance(field, tuple) else (field,))
+               for t in (pg.data, pg.scale, pg.table) if t is not None)
+
+
+def serve_degrade(torch, build, report: dict, model, compiled, plan,
+                  prompts, base_outs, device: str) -> dict:
+    """Phase 4i: graceful degradation and fault tolerance on llama3.2-3b
+    FULL, over phase 4's compiled EWQ weights (``compiled``, the params of
+    phase 4c's last engine; no second analysis, no second compile) with
+    int8 KV and phase 4's 8 requests (4 slots, chunk 8, 32 new tokens).
+
+    * The entropy-ordered ladder (``ServeEngine.degrade_ladder``: tier
+      precisions, labels, pages a tier at the pool's byte budget).
+    * A pool of ``degrade_pool_pages`` pages of PAGE (any two of the first
+      four requests fit at tier 0, no three) under DegradeConfig(DEGRADE):
+      served from CUDA graphs and eagerly, equal to the bit in tokens,
+      logprobs and transitions; at least two transitions (a spill and a
+      promotion), decode steps at tier 0 and below it, every request
+      complete, no page leaked; DEGRADE_PATH's kernels launched, and the
+      paged attention kernel during degraded steps. Each transition's wall
+      ms, the memory it holds at its peak beyond what was allocated before
+      it, and the allocated and reserved bytes before the first transition
+      and after the last (which must not hold a dead pool's bytes more).
+    * The repack held to its plain run: a live pool (two requests admitted,
+      a chunk decoded) spilled one tier and promoted back with
+      ``apply_kv_plan``, each repacked field equal to the bit to
+      ``repack_pool_field`` on a CPU copy of the pool before it; the
+      repack's device ms (CUDA events, the fields repacked from a copy)
+      and transient bytes beside the pool's bytes.
+    * Failover: two replica engines over the same compiled weights (two
+      pools, 2 slots each) under ReplicaServe, fault-free and with replica
+      1 killed at its third dispatch (``replica_fault``): the same greedy
+      tokens, one restart, requests re-driven, both pools clean; the
+      recovery p95 and the largest logprob difference (readings).
+    * The watchdog: replica 0 stalls STALL_S in one tick under a
+      WATCHDOG_S deadline: at least one trip, the same tokens.
+
+    Artifact chaos (``artifact.read`` / ``artifact.corrupt``) is held on
+    the CPU only (tests/test_torch_chaos.py): re-reading phase 4g's
+    4.85 GB artifact would cost about 12 s. Returns the launches."""
+    import numpy as np
+    from repro_torch.quant import paged as PG
+    from repro_torch.quant.compiler import kv_tier_labels
+    from repro_torch.serving import chaos
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.pool import PagedConfig
+    from repro_torch.serving.replica import FailoverConfig, ReplicaServe
+    from repro_torch.serving.scheduler import Request
+    from repro_torch.serving.session import DegradeConfig, ServeSession
+    cfg = model.cfg
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    launches = {k: 0 for k in build.LAUNCHES}
+    out = {}
+
+    def engine(graphs: bool = True, pages=None):
+        # no prefix sharing: the prompts share no prefix, and a finished
+        # request's cached prompt pages would hold the pool's headroom down
+        eng = ServeEngine(model, compiled, max_seq=1024, kv_precision="int8",
+                          device=device, cuda_graphs=graphs,
+                          paged=PagedConfig(page_size=PAGE, pool_pages=pages,
+                                            prefix_sharing=False))
+        eng.plan = plan     # the ladder's order: phase 4's EWQ decisions
+        return eng
+
+    def requests():
+        return [Request(rid=i, prompt=p, max_new_tokens=32)
+                for i, p in enumerate(prompts)]
+
+    def check(label, outs):
+        if len(outs) != len(prompts):
+            raise AssertionError(f"4i {label}: {len(outs)} of "
+                                 f"{len(prompts)} requests completed")
+        for o in outs:
+            if (len(o.generated) != 32 or o.generated.min() < 0
+                    or o.generated.max() >= cfg.vocab_size
+                    or not np.all(np.isfinite(o.logprobs))):
+                raise AssertionError(f"4i {label}: bad output for request "
+                                     f"{o.rid}: {o.generated}")
+
+    def clean(label, eng):
+        pool = eng.pool
+        pool.check_invariants()
+        cached = pool.prefix.evictable(pool._ref) if pool.prefix else 0
+        if pool.pages_in_use != cached:
+            raise AssertionError(f"4i {label}: {pool.pages_in_use} pages "
+                                 f"held after the serve, {cached} cached")
+
+    def memory():
+        return ((torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+                if cuda else (None, None))
+
+    # -- the ladder -----------------------------------------------------------
+    pool_pages = degrade_pool_pages(prompts)
+    eng = engine(pages=pool_pages)
+    ladder = eng.degrade_ladder()
+    labels = kv_tier_labels(ladder)
+    budget = pool_pages * eng.pool_layout(ladder[0], SLOTS)[2]
+    tiers = [dict(tier=i, label=labels[i],
+                  precisions="".join("8" if p == "int8" else "4"
+                                     if p == "int4" else "b"
+                                     for p in kv.precisions),
+                  pages=int(budget // eng.pool_layout(kv, SLOTS)[2]))
+             for i, kv in enumerate(ladder)]
+    eng = None
+    log(f"degrade: the EWQ ladder at a {pool_pages}-page pool "
+        f"({budget:.0f} B): " + json.dumps(tiers))
+    out.update(pool_pages=pool_pages, pool_bytes=budget, ladder=tiers)
+    if len(ladder) < 2:
+        raise AssertionError("4i: the ladder has no tier below tier 0")
+    keys = [kv.precisions for kv in ladder]
+
+    # -- degraded serves: graphs, then eagerly --------------------------------
+    serves = []
+    for graphs in (True, False):
+        fresh_memory(torch, device)
+        eng = engine(graphs, pool_pages)
+        moves, tier_attn = [], [0] * len(ladder)
+        apply, chunk = eng.apply_kv_plan, eng.decode_chunk
+
+        def timed_apply(state, kv, eng=eng, apply=apply, moves=moves):
+            sync()
+            alloc, reserved = memory()
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            new = apply(state, kv)
+            sync()
+            wall = time.perf_counter() - t0
+            alloc_after, reserved_after = memory()
+            moves.append(dict(
+                to=keys.index(kv.precisions), done=new is not None,
+                wall_ms=wall * 1e3, pages=eng.pool.num_pages,
+                allocated_before=alloc, allocated_after=alloc_after,
+                reserved_before=reserved, reserved_after=reserved_after,
+                transient_bytes=(torch.cuda.max_memory_allocated() - alloc
+                                 if cuda else None)))
+            return new
+
+        def counted(state, steps=CHUNK, plain=False, eng=eng, chunk=chunk,
+                    tier_attn=tier_attn):
+            before = build.LAUNCHES["decode_attn_paged"]
+            res = chunk(state, steps, plain)
+            tier_attn[keys.index(eng.kv_plan.precisions)] += (
+                build.LAUNCHES["decode_attn_paged"] - before)
+            return res
+
+        eng.apply_kv_plan, eng.decode_chunk = timed_apply, counted
+        build.reset_launches()                 # main path: counts from 0
+        t0 = time.perf_counter()
+        sess = ServeSession(eng, requests(), num_slots=SLOTS, chunk=CHUNK,
+                            degrade=DegradeConfig(**DEGRADE))
+        t_init = time.perf_counter() - t0
+        while not sess.done:
+            sess.dispatch()
+            sess.harvest()
+        t_loop = time.perf_counter() - t0
+        outs, stats = sess.finalize()
+        wall = time.perf_counter() - t0
+        counts = dict(build.LAUNCHES)
+        for k, v in counts.items():
+            launches[k] += v
+        label = "graphs" if graphs else "eager"
+        check(f"degraded serve ({label})", outs)
+        clean(f"degraded serve ({label})", eng)
+        done = [m for m in moves if m["done"]]
+        run = dict(cuda_graphs=graphs, wall_s=wall, session_init_s=t_init,
+                   loop_s=t_loop,
+                   serve_wall_s=stats.wall_s,
+                   tokens_per_s=stats.tokens_per_s,
+                   transitions=sess.transitions,
+                   degrade_transitions=stats.degrade_transitions,
+                   kv_tier_steps=list(stats.kv_tier_steps),
+                   degraded_steps=stats.degraded_steps,
+                   requeues=stats.requeues,
+                   pool_pages_peak=stats.pool_pages_peak,
+                   num_chunks=stats.num_chunks,
+                   ttft_mean_s=stats.ttft_mean_s,
+                   decode_gap_p50_s=stats.decode_gap_p50_s,
+                   decode_gap_max_s=stats.decode_gap_max_s,
+                   attn_paged_launches_by_tier=tier_attn,
+                   transition_readings=moves, launches=counts)
+        if cuda and done:
+            run.update(
+                allocated_before_first=done[0]["allocated_before"],
+                allocated_after_last=done[-1]["allocated_after"],
+                reserved_before_first=done[0]["reserved_before"],
+                reserved_after_last=done[-1]["reserved_after"])
+        log(f"degrade: serve ({label}): " + json.dumps(run))
+        serves.append((outs, sess.transitions, stats, run))
+        eng = sess = None
+    (g_outs, g_moves, g_stats, g_run), (e_outs, e_moves, _, _) = serves
+    require_same("4i degraded serve", g_outs, e_outs, logprobs=True)
+    failed = [k for k, ok in {
+        "the graph and eager serves make the same transitions":
+            g_moves == e_moves,
+        "degrade_transitions >= 2": g_stats.degrade_transitions >= 2,
+        "decode steps below tier 0": sum(g_stats.kv_tier_steps[1:]) > 0,
+        "decode steps at tier 0": g_stats.kv_tier_steps[0] > 0,
+        "decode_attn_paged launched at a degraded tier":
+            not cuda or sum(g_run["attn_paged_launches_by_tier"][1:]) > 0,
+        "allocated bytes after the last transition within one pool of "
+        "those before the first (no dead pool or workspace held)":
+            not cuda or (g_run["allocated_after_last"]
+                         - g_run["allocated_before_first"] < budget),
+    }.items() if not ok]
+    if failed:
+        raise AssertionError(f"4i degraded serve: {failed}")
+    missing = [k for k in DEGRADE_PATH if g_run["launches"][k] <= 0]
+    if missing and cuda:
+        raise AssertionError(f"4i: kernels {missing} never launched in the "
+                             "degraded serve")
+    share = float(np.mean([np.mean(o.generated == b.generated)
+                           for o, b in zip(g_outs, base_outs)]))
+    log(f"degrade: graph serve equal to the eager serve to the bit, "
+        f"transitions {g_moves}; share of tokens equal to phase 4's "
+        f"undegraded serve {share:.4f} (a reading)")
+    out.update(serves=[s[3] for s in serves], token_share_vs_undegraded=share)
+
+    # -- the repack on the card held to its plain run on the CPU -------------
+    eng = engine(True, pool_pages)
+    state = eng.init_decode_state(SLOTS)
+    for slot in range(2):
+        eng.insert(state, slot, eng.prefill_request(prompts[slot]), 32)
+    eng.decode_chunk(state, CHUNK)
+    repacks = []
+    for tier in (1, 0):                        # a spill, then a promotion
+        pool = eng.pool
+        before = {s: list(p) for s, p in pool._slot_pages.items()}
+        n_old = pool.num_pages
+        cpu_fields = {n: field_to(torch, getattr(state.cache, n), "cpu")
+                      for n in eng._paged_fields}
+        old_bytes = sum(field_nbytes(getattr(state.cache, n))
+                        for n in eng._paged_fields)
+        runs, raw_dtypes, _ = eng.pool_layout(ladder[tier], SLOTS)
+        sync()
+        alloc, _ = memory()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        state = eng.apply_kv_plan(state, ladder[tier])
+        sync()
+        if state is None:
+            raise AssertionError(f"4i repack: the transition to tier {tier} "
+                                 "was refused")
+        transient = (torch.cuda.max_memory_allocated() - alloc
+                     if cuda else None)
+        n_new = eng.pool.num_pages
+        perm = np.zeros(n_old + 1, np.int32)
+        for s, pages in before.items():
+            perm[pages] = eng.pool._slot_pages[s]
+        inv = np.zeros(n_new + 1, np.int32)
+        live = np.nonzero(perm)[0]
+        inv[perm[live]] = live
+        group = ladder[tier].group
+        rec = dict(tier=tier, pages_before=n_old, pages_after=n_new,
+                   live_pages=int(live.size), pool_bytes_before=old_bytes,
+                   pool_bytes_after=sum(field_nbytes(getattr(state.cache, n))
+                                        for n in eng._paged_fields),
+                   transient_bytes=transient, equal_to_cpu_run=True)
+        device_ms = []
+        for name in eng._paged_fields:
+            want = PG.repack_pool_field(cpu_fields[name], runs[name],
+                                        perm=perm, inv=inv, group=group,
+                                        raw_dtype=raw_dtypes[name])
+            bad = field_mismatch(torch, getattr(state.cache, name), want)
+            if bad is not None:
+                raise AssertionError(f"4i repack to tier {tier}: field "
+                                     f"{name} differs from its CPU run: "
+                                     f"{bad}")
+            if cuda:                           # the repack alone, timed
+                src = field_to(torch, cpu_fields[name], device)
+                times = []
+                for _ in range(3):
+                    s_ev = torch.cuda.Event(enable_timing=True)
+                    e_ev = torch.cuda.Event(enable_timing=True)
+                    s_ev.record()
+                    again = PG.repack_pool_field(
+                        src, runs[name], perm=perm, inv=inv, group=group,
+                        raw_dtype=raw_dtypes[name])
+                    e_ev.record()
+                    e_ev.synchronize()
+                    times.append(s_ev.elapsed_time(e_ev))
+                bad = field_mismatch(torch, again, want)
+                if bad is not None:
+                    raise AssertionError(f"4i repack to tier {tier}: field "
+                                         f"{name} from a copy differs: "
+                                         f"{bad}")
+                device_ms.append(sorted(times)[1])
+                src = again = None
+        rec["device_ms"] = sum(device_ms) if cuda else None
+        log(f"degrade: repack to tier {tier} equal to its CPU run to the "
+            f"bit: " + json.dumps(rec))
+        repacks.append(rec)
+    out.update(repacks=repacks)
+    eng = state = None
+
+    # -- failover and the watchdog ---------------------------------------------
+    fresh_memory(torch, device)
+    rs = ReplicaServe([engine(), engine()])
+    runs = {}
+    for label, rules, failover in (
+            ("fault-free", (), FailoverConfig()),
+            ("replica_fault", chaos.FaultConfig.parse("replica_fault").rules,
+             FailoverConfig()),
+            ("stall", (chaos.FaultRule(site="device.stall", tag=0, at=(3,),
+                                       mode="stall", stall_s=STALL_S),),
+             FailoverConfig(watchdog_s=WATCHDOG_S))):
+        build.reset_launches()
+        with chaos.chaos(chaos.FaultConfig(rules=rules)) as inj:
+            outs, st = rs.serve(requests(), num_slots=2, chunk=CHUNK,
+                                failover=failover)
+        for k, v in build.LAUNCHES.items():
+            launches[k] += v
+        check(label, outs)
+        for i, e in enumerate(rs.engines):
+            clean(f"{label} replica {i}", e)
+        agg = st.aggregate
+        runs[label] = (outs, dict(
+            fired=inj.log, assignments=st.assignments,
+            replica_restarts=agg.replica_restarts,
+            redriven_requests=agg.redriven_requests,
+            recovery_p95_s=agg.recovery_p95_s,
+            watchdog_trips=agg.watchdog_trips,
+            decode_gap_max_s=agg.decode_gap_max_s,
+            tokens_per_s=agg.tokens_per_s, wall_s=agg.wall_s))
+    base, _ = runs["fault-free"]
+    for label in ("replica_fault", "stall"):
+        outs, rec = runs[label]
+        if not same_outputs(outs, base, logprobs=False):
+            raise AssertionError(f"4i {label}: greedy tokens differ from the "
+                                 "fault-free replica serve")
+        rec["logprob_max_abs_diff"] = float(max(
+            np.abs(o.logprobs - b.logprobs).max()
+            for o, b in zip(outs, base)))
+    kill, stall = runs["replica_fault"][1], runs["stall"][1]
+    if kill["replica_restarts"] != 1 or kill["redriven_requests"] <= 0:
+        raise AssertionError(f"4i replica_fault: {kill}")
+    if stall["watchdog_trips"] < 1:
+        raise AssertionError(f"4i stall: no watchdog trip ({stall})")
+    for label, (_, rec) in runs.items():
+        log(f"degrade: replicas ({label}): " + json.dumps(rec))
+    out.update(replicas={k: v[1] for k, v in runs.items()})
+    report["degrade"] = out
+    rs = None
     return launches
 
 

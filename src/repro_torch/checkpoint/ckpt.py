@@ -234,8 +234,14 @@ def latest_step(directory: str) -> Optional[int]:
 
 def _load_shards(d: pathlib.Path) -> dict:
     """Read every shard file, with a bounded retry for transient I/O
-    faults (flaky network filesystems)."""
+    faults (flaky network filesystems). Two chaos sites
+    (``serving/chaos.py``) let a test inject a transient read failure
+    (``artifact.read``, retried) and a one-byte flip of the first loaded
+    payload (``artifact.corrupt``), which the per-leaf crc32 must catch."""
+    from repro_torch.serving import chaos
+
     def read():
+        chaos.fire("artifact.read")
         data = {}
         for shard_file in sorted(d.glob("shard_*.npz")):
             with np.load(shard_file) as z:
@@ -243,7 +249,15 @@ def _load_shards(d: pathlib.Path) -> dict:
                     data[k] = z[k]
         return data
 
-    return retry(read, attempts=3, base_delay=0.05, retriable=(OSError,))
+    data = retry(read, attempts=3, base_delay=0.05,
+                 retriable=(OSError, chaos.TransientFault))
+    if data and chaos.deny("artifact.corrupt"):
+        key = sorted(data)[0]
+        arr = np.array(data[key])
+        if arr.nbytes:
+            arr.view(np.uint8).reshape(-1)[0] ^= 0xFF
+            data[key] = arr
+    return data
 
 
 def restore(directory: str, tree_like: Any, *, step: Optional[int] = None,

@@ -22,6 +22,9 @@
                                          # cold-boots from the artifact
     python -m repro_torch.launch.serve --arch llama3.2-3b --prefill-chunk 64 \
         --priorities 0,1,1,1 --preempt --arrival-rate 0.5 --poisson
+    python -m repro_torch.launch.serve --arch llama3.2-3b --paged \
+        --degrade-policy ewq --chaos oom --check-chaos-parity
+                               # spill the KV tiers under injected pressure
 
 Weights are random, drawn from a seeded ``torch.Generator`` at the JAX
 package's init scales (real checkpoints are not in the repository), so the
@@ -40,7 +43,13 @@ when ``--spec-draft model`` serves, and saves the artifact there.
 ``--prefill-chunk`` interleaves prompt prefill between decode chunks;
 ``--priorities``, ``--poisson``, ``--ttft-target-ms``, ``--tpot-target-ms``,
 ``--preempt``, ``--queue-timeout-steps`` and ``--deadline-steps`` shape the
-stream and its SLO scheduling.
+stream and its SLO scheduling. ``--degrade-policy ewq`` (with ``--paged``)
+spills the pool down the entropy-ordered KV tier ladder under pressure and
+promotes it back; ``--chaos`` injects faults into the serve
+(``serving/chaos.py`` shorthands, seeded by ``--chaos-seed``);
+``--watchdog-ms`` counts decode gaps over the deadline;
+``--check-chaos-parity`` serves fault-free (and undegraded) first and
+fails unless the chaos serve gives the same greedy tokens.
 Without ``--device`` it runs on the GPU, and raises if there is none.
 """
 
@@ -56,11 +65,13 @@ import torch
 from repro_torch.checkpoint import ckpt
 from repro_torch.configs.registry import ARCHS, get_config
 from repro_torch.models.model import build
-from repro_torch.quant.compiler import save_artifact
+from repro_torch.quant.compiler import kv_tier_labels, save_artifact
+from repro_torch.serving import chaos
 from repro_torch.serving.engine import ServeEngine, resolve_device
 from repro_torch.serving.pool import PagedConfig
 from repro_torch.serving.quantized import plan_for_variant
 from repro_torch.serving.scheduler import SLOConfig, synthetic_stream
+from repro_torch.serving.session import DegradeConfig
 from repro_torch.serving.spec import SpecConfig
 
 
@@ -141,6 +152,26 @@ def main(argv=None) -> dict:
                     help="abort requests, queued or running, N decode "
                          "steps after arrival (finish_reason 'deadline'; "
                          "0: never)")
+    ap.add_argument("--chaos", default=None,
+                    help="comma-separated fault-injection shorthands "
+                         "(serving/chaos.py): replica_fault, "
+                         "replica_transient, oom, stall, artifact; "
+                         "deterministic under --chaos-seed")
+    ap.add_argument("--chaos-seed", type=int, default=0,
+                    help="seed of the chaos injector's fault schedule")
+    ap.add_argument("--degrade-policy", default="off", choices=["off", "ewq"],
+                    help="graceful degradation under pool pressure: 'ewq' "
+                         "spills KV precision down the entropy-ordered "
+                         "tier ladder instead of rejecting work, and "
+                         "promotes back when headroom returns (requires "
+                         "--paged)")
+    ap.add_argument("--watchdog-ms", type=float, default=0.0,
+                    help="decode-gap deadline; overruns count as "
+                         "watchdog_trips (0: off)")
+    ap.add_argument("--check-chaos-parity", action="store_true",
+                    help="with --chaos: serve fault-free first, then the "
+                         "chaos serve, and fail unless every request "
+                         "completes with the same greedy tokens")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="default: cuda; 'cpu' runs the plain versions")
@@ -148,6 +179,12 @@ def main(argv=None) -> dict:
 
     if args.poisson and not args.arrival_rate:
         raise SystemExit("--poisson requires --arrival-rate > 0")
+    if args.check_chaos_parity and not args.chaos:
+        raise SystemExit("--check-chaos-parity requires --chaos")
+    if args.degrade_policy != "off" and not args.paged:
+        raise SystemExit("--degrade-policy trades KV precision for pool "
+                         "pages; it requires --paged")
+    degrade = DegradeConfig() if args.degrade_policy == "ewq" else None
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.num_layers:
@@ -227,10 +264,26 @@ def main(argv=None) -> dict:
         shared = reqs[0].prompt[:args.shared_prefix_len].copy()
         for r in reqs:
             r.prompt[:args.shared_prefix_len] = shared
-    outs, stats = engine.serve(reqs, num_slots=args.num_slots,
-                               chunk=args.chunk,
-                               prefill_chunk=args.prefill_chunk or None,
-                               slo=slo)
+    serve_kw = dict(num_slots=args.num_slots, chunk=args.chunk,
+                    prefill_chunk=args.prefill_chunk or None, slo=slo,
+                    watchdog_s=(args.watchdog_ms / 1e3 if args.watchdog_ms
+                                else None))
+    base = None
+    if args.check_chaos_parity:
+        # the fault-free baseline first, at tier 0 (no degradation): each
+        # serve builds a fresh state and pool
+        base, _ = engine.serve(reqs, **serve_kw)
+    injector = None
+    if args.chaos:
+        injector = chaos.ChaosInjector(chaos.FaultConfig.parse(
+            args.chaos, seed=args.chaos_seed))
+        chaos.install(injector)
+        print(f"chaos: injecting {args.chaos} (seed {args.chaos_seed})")
+    try:
+        outs, stats = engine.serve(reqs, degrade=degrade, **serve_kw)
+    finally:
+        if injector is not None:
+            chaos.install(None)
     reasons: dict = {}
     for o in outs:
         reasons[o.finish_reason] = reasons.get(o.finish_reason, 0) + 1
@@ -256,6 +309,21 @@ def main(argv=None) -> dict:
                   state_bytes_by_field=engine.state_bytes_by_field())
     if boot_s is not None:
         report.update(artifact_boot_s=boot_s)
+    if degrade is not None or injector is not None or args.watchdog_ms:
+        report.update(degrade_transitions=stats.degrade_transitions,
+                      kv_tier_steps=stats.kv_tier_steps,
+                      kv_tier_labels=kv_tier_labels(
+                          engine.degrade_ladder() if degrade is not None
+                          else [engine.kv_plan]),
+                      degraded_steps=stats.degraded_steps,
+                      watchdog_trips=stats.watchdog_trips,
+                      chaos_fired=(injector.log if injector is not None
+                                   else []))
+    if base is not None:
+        agree = len(base) == len(outs) and all(
+            a.rid == b.rid and np.array_equal(a.tokens, b.tokens)
+            for a, b in zip(base, outs))
+        report.update(greedy_agree_with_fault_free=agree)
     if paged is not None:
         report.update(page_size=paged.page_size,
                       pool_pages=stats.pool_pages_total,
@@ -272,6 +340,9 @@ def main(argv=None) -> dict:
                       draft_overhead_bytes=engine.draft_overhead_bytes())
     for k, v in report.items():
         print(f"{k}: {v}")
+    if base is not None and not report["greedy_agree_with_fault_free"]:
+        raise SystemExit("the chaos serve's greedy output differs from the "
+                         "fault-free serve's (or requests were lost)")
     return report
 
 

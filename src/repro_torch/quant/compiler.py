@@ -5,7 +5,8 @@ Lowers an EWQ/FastEWQ ``QuantPlan`` (one precision decision per block, in
 layer stack becomes a ``SegmentedParams`` (maximal runs of equal precision)
 and the embedding block is quantized whole at its own decision. Also lowers
 a KV-cache precision policy onto the family's cache layout
-(``compile_kv_plan``).
+(``compile_kv_plan``), and orders the KV degradation tiers a paged engine
+spills through under pool pressure (``degrade_kv_ladder``).
 
 ``compile_draft_plan`` derives the self-speculative all-int4 draft from a
 compiled target by the plan's entropy order.
@@ -144,6 +145,83 @@ def compile_kv_plan(cfg: ModelConfig, plan: Optional[QuantPlan],
         prec = tuple(KV_OF_WEIGHT[d.precision]
                      for d in plan.decisions[1:1 + cfg.num_layers])
     return KVPlan(precisions=prec, group=group)
+
+
+_KV_DOWN = {"bf16": "int8", "int8": "int4", "int4": "int4"}
+
+
+def degrade_kv_ladder(cfg: ModelConfig, plan: Optional[QuantPlan],
+                      base: Optional[KVPlan],
+                      group: int = DEFAULT_KV_GROUP, *,
+                      fastewq=None, block_sizes=None,
+                      cuts: Sequence[int] = ()) -> list:
+    """Entropy-ordered KV degradation tiers.
+
+    Tier 0 is the serving policy (``base``; None = bf16). Deeper tiers
+    spill cache precision down bf16 -> int8 -> int4 in the order the
+    layer-level entropy signal gives: layers whose weight blocks the plan
+    marked quantizable spill first, entropy-sensitive layers one tier
+    later, and the last tier is all int4. A lower precision at a constant
+    byte budget buys proportionally more pool pages
+    (``ServeEngine.apply_kv_plan``).
+
+    Decode reads the cache one pool run per parameter segment, so a tier's
+    precision is uniform within each segment of ``cuts`` (no cuts: one
+    segment over the stack); a segment spills when at least half of its
+    layers' decisions say so. Without a plan the deeper half of the layers
+    spills first. The FastEWQ order (``fastewq``, ``block_sizes``) waits
+    for the port's FastEWQ classifier (ROADMAP.md queue 1 item 9)."""
+    if fastewq is not None or block_sizes is not None:
+        raise NotImplementedError(
+            "the FastEWQ spill order needs the FastEWQ classifier, which "
+            "the port does not have yet (ROADMAP.md queue 1 item 9)")
+    n = kv_cache_layers(cfg)
+    if n == 0:
+        return []
+    base_prec = list(base.precisions) if base is not None else ["bf16"] * n
+    if base is not None:
+        group = base.group
+    if plan is not None:
+        if cfg.family == "hybrid":
+            spill = [plan.decisions[1 + cfg.num_layers].quantized] * n
+        elif cfg.family == "encdec":
+            ne = cfg.num_encoder_layers
+            spill = [d.quantized
+                     for d in plan.decisions[1 + ne:1 + ne + cfg.num_layers]]
+        else:
+            spill = [d.quantized for d in plan.decisions[1:1 + cfg.num_layers]]
+    else:
+        spill = [i >= n // 2 for i in range(n)]
+    bounds = [0] + [c for c in sorted(set(cuts)) if 0 < c < n] + [n]
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        seg = sum(spill[lo:hi]) * 2 >= (hi - lo)
+        spill[lo:hi] = [seg] * (hi - lo)
+    if not any(spill):
+        spill = [True] * n
+    t1 = [_KV_DOWN[p] if s else p for p, s in zip(base_prec, spill)]
+    t2 = [_KV_DOWN[_KV_DOWN[p]] if s else _KV_DOWN[p]
+          for p, s in zip(base_prec, spill)]
+    t3 = ["int4"] * n
+    tiers = [base]
+    last = base_prec
+    for t in (t1, t2, t3):
+        if t != last:
+            tiers.append(KVPlan(precisions=tuple(t), group=group))
+            last = t
+    return tiers
+
+
+def kv_tier_labels(ladder: Sequence[Optional[KVPlan]]) -> list[str]:
+    """The cache precision of each degradation tier: "bf16", "int8",
+    "int4", or "mixed" when a tier's layers differ."""
+    labels = []
+    for kv in ladder:
+        if kv is None:
+            labels.append("bf16")
+            continue
+        uniq = sorted(set(kv.precisions))
+        labels.append(uniq[0] if len(uniq) == 1 else "mixed")
+    return labels
 
 
 @dataclasses.dataclass

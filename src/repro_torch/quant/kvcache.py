@@ -171,7 +171,13 @@ def quantize_kv(x: torch.Tensor, precision: str, group: int
     assert f % group == 0, f"Hkv*hd={f} not divisible by kv group {group}"
     g = x.float().reshape(*lead, f // group, group)
     qmax = 127.0 if precision == "int8" else 7.0
-    scale = g.abs().amax(dim=-1, keepdim=True) / qmax
+    amax = g.abs().amax(dim=-1, keepdim=True)
+    # a true division: a CUDA tensor divided by a Python float is
+    # multiplied by its reciprocal, which can differ in the last bit (and
+    # then round a value to the next int4 step) from the CPU's division;
+    # a filled tensor (no host copy, so a captured step may run it)
+    # divides alike on both
+    scale = amax / torch.full_like(amax, qmax)
     q = torch.round(g / torch.where(scale == 0, torch.ones_like(scale), scale))
     q = q.clamp(-qmax, qmax).to(torch.int8)
     scale = scale[..., 0].to(torch.bfloat16)

@@ -14,7 +14,9 @@ which physical page each logical page maps to):
 * ``release_slot_pages`` - point a released slot's table at the dump page;
 * ``gather`` / ``gather_rows`` - pool pages back into a dense ``KVPage``
   (the decode attention oracle; prefix-hit prefill seeding);
-* ``page_nbytes``       - the bytes one logical page costs.
+* ``page_nbytes``       - the bytes one logical page costs;
+* ``repack_pool_field`` - a live repack under new precision runs and a new
+  pool size (graceful degradation, ``ServeEngine.apply_kv_plan``).
 
 Write safety: decode and verify writes target positions >= prompt_len, and
 pages shared through the prefix cache cover only full prompt pages, so no
@@ -22,8 +24,7 @@ slot ever writes a shared page. Copy-on-write resolves at admission (the
 divergent boundary page is written into a private page by the insert),
 never on the decode path.
 
-A port of the JAX package's ``quant/paged.py``; its live repack
-(``repack_pool_field``, graceful degradation) is not ported yet.
+A port of the JAX package's ``quant/paged.py``.
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ from typing import Optional, Sequence
 
 import torch
 
-from repro_torch.quant.kvcache import KVPage, PagedKV, quantize_kv
+from repro_torch.quant.kvcache import (KVPage, PagedKV, dequantize_kv,
+                                      quantize_kv)
 
 DUMP_PAGE = 0
 
@@ -221,3 +223,62 @@ def page_nbytes(field) -> float:
                 total += float(leaf.numel() * leaf.element_size()) \
                     / leaf.shape[1]
     return total
+
+
+# ---------------------------------------------------------------------------
+# live repack (graceful degradation)
+# ---------------------------------------------------------------------------
+
+def repack_pool_field(field, runs_new: Sequence[tuple[str, int, int]], *,
+                      perm, inv, group: int, raw_dtype):
+    """Rebuild one paged field under new precision runs and pool size,
+    carrying every live page's payload across the transition; returns the
+    new field (the old one is left as it was).
+
+    Pages move through ``inv`` (new physical id -> old physical id;
+    ``inv[0] = 0`` keeps the dump page), are dequantized to ``raw_dtype``
+    (the dense cache dtype) and requantized with the write math an
+    admission at the new precision applies, so a demoted page holds what
+    it would hold had its request been admitted at the lower tier. Page
+    tables remap through ``perm`` (old physical id -> new; dead pages ->
+    the dump page). Equal to the JAX package's ``repack_pool_field`` to the
+    bit; it gathers the pages before it dequantizes them (the same values:
+    dequantization is elementwise) and works one new run at a time, so the
+    raw copy it holds is one run of the new pool's pages."""
+    pages = field if isinstance(field, tuple) else (field,)
+    p_sz = pages[0].page_size
+    dev = pages[0].data.device
+    inv_t = torch.as_tensor(inv, device=dev).to(torch.long)
+    perm_t = torch.as_tensor(perm, device=dev).to(torch.long)
+    old_runs, lo = [], 0
+    for pg in pages:
+        old_runs.append((pg, lo, lo + pg.data.shape[0]))
+        lo += pg.data.shape[0]
+    table_full = torch.cat([pg.table for pg in pages], 0)
+    new_table = perm_t[table_full.long()].to(torch.int32)
+    out = []
+    for precision, lo, hi in runs_new:
+        parts = []
+        for pg, olo, ohi in old_runs:
+            a, b = max(lo, olo), min(hi, ohi)
+            if a >= b:
+                continue
+            sub = KVPage(
+                data=pg.data[a - olo:b - olo].index_select(1, inv_t),
+                scale=(None if pg.scale is None else
+                       pg.scale[a - olo:b - olo].index_select(1, inv_t)),
+                precision=pg.precision, head_dim=pg.head_dim,
+                group=pg.group)
+            parts.append(dequantize_kv(sub, raw_dtype))
+        seg = torch.cat(parts, 0) if len(parts) > 1 else parts[0]
+        parts = None
+        data_dtype = raw_dtype if precision == "bf16" else torch.int8
+        data, scale = _quant_rows(seg, precision, group, data_dtype)
+        seg = None
+        if precision == "int4":
+            data = data.reshape(*data.shape[:3], -1)
+        out.append(PagedKV(data=data, scale=scale,
+                           table=new_table[lo:hi].clone(),
+                           precision=precision, head_dim=pages[0].head_dim,
+                           group=group, page_size=p_sz))
+    return tuple(out) if len(out) > 1 else out[0]

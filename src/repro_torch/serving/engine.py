@@ -51,6 +51,11 @@ Structure:
     step over the shared rows. ``serve`` holds a request back (requeues it)
     while the pool cannot cover its worst case. Greedy output is
     token-identical to the dense engine's.
+  * Graceful degradation: ``degrade_ladder`` orders the KV tiers a paged
+    engine spills through under pool pressure (the weight plan's entropy
+    decisions first), and ``apply_kv_plan`` repacks the live pool at one
+    of them at a constant byte budget (``serve(degrade=...)``,
+    ``serving/session.py``).
 
 Enc-dec models (whisper) serve with ``frames`` per request (a zero frame
 block when a request has none): prefill encodes them, computes every
@@ -101,7 +106,8 @@ from repro_torch.models.common import dtype_of
 from repro_torch.quant import paged as PG
 from repro_torch.quant.apply import (SegmentedParams, segment_slices,
                                      tree_nbytes)
-from repro_torch.quant.compiler import compile_draft_plan, compile_kv_plan
+from repro_torch.quant.compiler import (compile_draft_plan, compile_kv_plan,
+                                        degrade_kv_ladder)
 from repro_torch.quant.kvcache import (DEFAULT_KV_GROUP, KVPlan,
                                        dequantize_kv, kv_field_nbytes,
                                        quantize_model_cache)
@@ -201,6 +207,14 @@ class ServeStats:
     kv_bytes_peak: float = 0.0     # peak pool bytes referenced, plus the
                                    # slots' KV fields outside the pool
     requeues: int = 0              # admissions the pool held back
+    # fault tolerance and graceful degradation
+    replica_restarts: int = 0      # replicas quarantined and failed over
+    redriven_requests: int = 0     # in-flight requests re-driven to survivors
+    recovery_p95_s: float = 0.0    # p95 wall s, failure -> survivors resumed
+    watchdog_trips: int = 0        # decode gaps over the watchdog deadline
+    degraded_steps: int = 0        # decode steps run below tier 0
+    degrade_transitions: int = 0   # KV tier changes (spills + promotions)
+    kv_tier_steps: tuple = ()      # decode steps per degradation tier
 
 
 class ServeEngine:
@@ -507,18 +521,37 @@ class ServeEngine:
         return cp
 
     # -- slotted decode ----------------------------------------------------------
-    def _pool_runs(self, raw) -> list:
-        """Per-precision layer runs of a pool, aligned with the KV plan's
-        page cuts; a bf16 cache still splits at the weight stack's segment
-        cuts, so each segment reads a pool of its own layers."""
+    def _pool_runs(self, raw, kv_plan) -> list:
+        """Per-precision layer runs of a pool under ``kv_plan`` (None:
+        bf16), aligned with the plan's page cuts; a bf16 cache still splits
+        at the weight stack's segment cuts, so each segment reads a pool of
+        its own layers."""
         l_total = raw.shape[0]
-        if self.kv_plan is None:
+        if kv_plan is None:
             cuts = (0,) + tuple(c for c in self._kv_cuts()
                                 if 0 < c < l_total) + (l_total,)
             return [("bf16", lo, hi) for lo, hi in zip(cuts[:-1], cuts[1:])]
-        runs = self.kv_plan.pages(self._kv_cuts())
+        runs = kv_plan.pages(self._kv_cuts())
         assert runs[-1][2] == l_total, (runs, l_total)
         return runs
+
+    def pool_layout(self, kv_plan, num_slots: int) -> tuple[dict, dict,
+                                                             float]:
+        """A pool under ``kv_plan`` (None: bf16), reckoned on the meta
+        device (nothing allocated): each paged field's layer runs, each
+        field's raw (dense) dtype, and the bytes of one page."""
+        proto = self.model.slotted_cache(num_slots, self.max_seq, "meta")
+        group = kv_plan.group if kv_plan is not None else DEFAULT_KV_GROUP
+        runs, raw_dtypes, page_bytes = {}, {}, 0.0
+        for name in self._paged_fields:
+            raw = getattr(proto, name)
+            runs[name] = self._pool_runs(raw, kv_plan)
+            raw_dtypes[name] = raw.dtype
+            page_bytes += PG.page_nbytes(PG.init_pool_field(
+                raw, runs[name], num_pages=1,
+                page_size=self.paged.page_size, num_slots=num_slots,
+                group=group, device="meta"))
+        return runs, raw_dtypes, page_bytes
 
     def _paged_cache(self, num_slots: int, pool_pages: int):
         """Slotted family cache with the paged fields as empty pools (their
@@ -532,7 +565,8 @@ class ServeEngine:
         for name, raw in zip(proto._fields, proto):
             if name in self._paged_fields:
                 reps[name] = PG.init_pool_field(
-                    raw, self._pool_runs(raw), num_pages=pool_pages,
+                    raw, self._pool_runs(raw, self.kv_plan),
+                    num_pages=pool_pages,
                     page_size=self.paged.page_size, num_slots=num_slots,
                     group=group, device=self.device)
             else:
@@ -625,10 +659,10 @@ class ServeEngine:
         st.cache.pos.copy_(cache.pos)
         st.last_logits.copy_(logits[:, 0])
 
-    def _chunk(self, state: B.DecodeState, steps: int):
+    def _chunk(self, state: B.DecodeState, steps: int, plain: bool = False):
         """The chunk's work: ``steps`` decode steps (returns None) or
         ``steps`` spec rounds (returns their SpecMetrics)."""
-        if self.spec is None:
+        if self.spec is None or plain:
             for _ in range(steps):
                 self._step(state)
             return None
@@ -640,20 +674,99 @@ class ServeEngine:
         return run(self.params, self.draft_params, state)[1]
 
     @torch.no_grad()
-    def decode_chunk(self, state: B.DecodeState, steps: int = DEFAULT_CHUNK):
+    def decode_chunk(self, state: B.DecodeState, steps: int = DEFAULT_CHUNK,
+                     plain: bool = False):
         """Run ``steps`` decode steps over every slot; does not wait for
         the device. A spec engine runs ``steps`` propose/verify rounds and
-        returns ``(state, SpecMetrics)``; a plain engine returns the
-        state. On a CUDA-graph engine the chunk replays the graph captured
-        for (state, steps, whether any slot samples, whether any slot
-        masks, spec config), capturing it on the key's first chunk."""
+        returns ``(state, SpecMetrics)``; a plain engine, or a spec engine
+        asked for a ``plain`` chunk (a degraded serve drops its spec
+        rounds), returns the state. On a CUDA-graph engine the chunk
+        replays the graph captured for (state, steps, whether any slot
+        samples, whether any slot masks, spec config or None for a plain
+        chunk), capturing it on the key's first chunk."""
+        plain = plain or self.spec is None
         if self.graphs is None:
-            out = self._chunk(state, steps)
+            out = self._chunk(state, steps, plain)
         else:
-            key = (steps, state.samples, state.masks, self.spec)
+            key = (steps, state.samples, state.masks,
+                   None if plain else self.spec)
             out = self.graphs.run(state, key,
-                                  lambda: self._chunk(state, steps))
-        return state if self.spec is None else (state, out)
+                                  lambda: self._chunk(state, steps, plain))
+        return state if plain else (state, out)
+
+    # -- graceful degradation ----------------------------------------------------
+    def degrade_ladder(self) -> list:
+        """Entropy-ordered KV degradation tiers of this engine: tier 0 is
+        the serving policy, deeper tiers spill cache precision down
+        bf16 -> int8 -> int4 in the order of the weight plan's entropy
+        decisions (``quant/compiler.degrade_kv_ladder``). Empty for an
+        unpaged engine: degradation trades precision for pool pages."""
+        if not self._paged_fields:
+            return []
+        group = (self.kv_plan.group if self.kv_plan is not None
+                 else DEFAULT_KV_GROUP)
+        return degrade_kv_ladder(self.cfg, self.plan, self.kv_plan, group,
+                                 cuts=self._kv_cuts())
+
+    @torch.no_grad()
+    def apply_kv_plan(self, state: B.DecodeState, new_plan
+                      ) -> Optional[B.DecodeState]:
+        """Live engine-wide KV-precision transition at a constant byte
+        budget. A demotion (bf16 -> int8 -> int4) shrinks the page and buys
+        proportionally more pages in the same bytes, which relieves pool
+        pressure; a promotion shrinks the pool and is refused (None, the
+        KV plan unchanged) while the live pages would not fit, after the
+        cache-only prefix pages are flushed. Every live page is requantized
+        (``quant/paged.repack_pool_field``) and the host allocator rebuilt
+        with refcounts, slot maps and the prefix cache remapped: growth
+        keeps each page's id, a shrink compacts the live pages to the
+        front.
+
+        Returns a new ``DecodeState`` over the new pools. ``state`` is
+        consumed: its cache is rebound to the new pools, so the old ones
+        are freed here, and the engine's captured decode chunks, which
+        read the old pools, are dropped (the next chunk captures anew)."""
+        pool = self.pool
+        if pool is None or new_plan is self.kv_plan:
+            return None
+        old_pages = pool.num_pages
+        new_runs, raw_dtypes, page_bytes_new = self.pool_layout(
+            new_plan, state.num_slots)
+        new_pages = int(old_pages * self._page_bytes // page_bytes_new)
+
+        def alive():
+            return [pid for pid in range(1, old_pages + 1)
+                    if pool._ref[pid] > 0]
+
+        live = alive()
+        if len(live) > new_pages and pool.prefix is not None:
+            pool.flush_prefix()
+            live = alive()
+        if new_pages < 1 or len(live) > new_pages:
+            return None
+        perm = np.zeros(old_pages + 1, np.int32)
+        if new_pages >= old_pages:
+            perm[live] = live                         # growth: in place
+        else:
+            perm[live] = np.arange(1, len(live) + 1)  # compaction
+        inv = np.zeros(new_pages + 1, np.int32)
+        inv[perm[live]] = live
+        group = new_plan.group if new_plan is not None else DEFAULT_KV_GROUP
+        reps = {name: PG.repack_pool_field(
+                    getattr(state.cache, name), new_runs[name], perm=perm,
+                    inv=inv, group=group, raw_dtype=raw_dtypes[name])
+                for name in self._paged_fields}
+        self.kv_plan = new_plan
+        new_state = dataclasses.replace(state,
+                                        cache=state.cache._replace(**reps))
+        state.cache = new_state.cache
+        if self.graphs is not None:
+            self.graphs.reset()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()   # the old pools and the graphs' pool
+        self.pool = pool.rebuild(perm, new_pages)
+        self._page_bytes = page_bytes_new
+        return new_state
 
     # -- self-speculative decoding ----------------------------------------------
     def _ensure_draft(self):
@@ -766,7 +879,8 @@ class ServeEngine:
     def serve(self, requests: Sequence[Request], *, num_slots: int = 8,
               chunk: int = DEFAULT_CHUNK, temperature: float = 0.0,
               seed: int = 0, prefill_chunk: Optional[int] = None,
-              slo: Optional[SLOConfig] = None
+              slo: Optional[SLOConfig] = None, degrade=None,
+              watchdog_s: Optional[float] = None
               ) -> tuple[list[RequestOutput], ServeStats]:
         """Drain a request stream with continuous batching
         (``serving/session.py``): between decode chunks, finished slots are
@@ -781,11 +895,15 @@ class ServeEngine:
         a paged engine a request whose worst case (no prefix hit) the
         pool's free and evictable pages cannot cover is requeued until a
         slot drains; with no slot active that is a deadlock, and
-        ``OutOfPages`` is raised."""
+        ``OutOfPages`` is raised, unless ``degrade`` (a
+        ``session.DegradeConfig``) can still spill the pool to a lower KV
+        tier. ``watchdog_s`` counts decode gaps over that many seconds
+        (``watchdog_trips``)."""
         from repro_torch.serving.session import ServeSession
         return ServeSession(self, requests, num_slots=num_slots, chunk=chunk,
                             temperature=temperature, seed=seed,
-                            prefill_chunk=prefill_chunk, slo=slo).run()
+                            prefill_chunk=prefill_chunk, slo=slo,
+                            degrade=degrade, watchdog_s=watchdog_s).run()
 
     # -- accounting ----------------------------------------------------------------
     def kv_bytes_by_field(self) -> dict:

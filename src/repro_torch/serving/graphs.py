@@ -21,8 +21,10 @@ chunk's real run, and the warm-up capture wants), then captures the same
 body. Capture records kernels and runs none, so the first chunk runs
 once. Graphs belong to the decode state they were captured on:
 ``init_decode_state`` makes new tensors, so a new state drops the old
-graphs. The graphs of one state share one memory pool; a new state
-captures into a new pool.
+graphs, and so does a KV tier transition (``ServeEngine.apply_kv_plan``
+hands back a new state over new pools and resets the graphs itself). The
+graphs of one state share one memory pool; a new state captures into a
+new pool.
 
 Launch counts: the kernel wrappers add to ``build.LAUNCHES`` in Python,
 which runs at capture and not at replay. ``capture`` takes back what the
@@ -90,13 +92,21 @@ def capture(body: Callable[[], Any], *, pool=None, generators=(),
     return CapturedChunk(graph, outputs, launches)
 
 
+_SIDE_STREAMS: dict = {}
+
+
 def _side_stream_run(body: Callable[[], Any]):
     """Run ``body`` eagerly on a side stream that waits for, and is then
     waited on by, the current stream (the warm-up PyTorch's capture
-    wants)."""
+    wants). The side stream is one per device for the process: cuBLAS
+    keeps a workspace for every stream it runs on, so a new stream a
+    capture would hold one more workspace each time a decode state (or a
+    KV tier transition) captures anew."""
     import torch
     main = torch.cuda.current_stream()
-    side = torch.cuda.Stream()
+    side = _SIDE_STREAMS.get(main.device)
+    if side is None:
+        side = _SIDE_STREAMS[main.device] = torch.cuda.Stream(main.device)
     side.wait_stream(main)
     with torch.cuda.stream(side):
         outputs = body()
@@ -117,14 +127,20 @@ class ChunkGraphs:
         self.graphs: dict = {}
         self._state: Optional[weakref.ref] = None
 
+    def reset(self) -> None:
+        """Drop every captured chunk and their memory pool (the decode
+        state's tensors changed under them: a KV tier transition repacks
+        the pool). Once no graph holds a pool, PyTorch refuses a new
+        capture into it, so the next capture takes a new pool."""
+        self.graphs.clear()
+        self.pool = None
+        self._state = None
+
     def run(self, state, key, body: Callable[[], Any]):
         """Run one chunk over ``state``: replay its graph, or on the first
         call with ``key`` run it and capture it."""
         if self._state is None or self._state() is not state:
-            # graphs of another state, and their memory pool: once no
-            # graph holds a pool, PyTorch refuses a new capture into it
-            self.graphs.clear()
-            self.pool = None
+            self.reset()               # graphs of another state
             self._state = weakref.ref(state)
         entry = self.graphs.get(key)
         if entry is not None:

@@ -13,6 +13,10 @@ Refcount invariants:
   table maps (shared prefix pages included);
 * the prefix cache holds one reference of its own on each registered
   page, so a shared page survives its donor slot's release;
+* a prefix match not yet admitted or unpinned (a chunked prefill in
+  flight) holds one reference on each page it pinned, counted apart, so
+  ``check_invariants`` holds while it is out (the reference's does not,
+  and fails a repack made while a chunked prefill holds a hit);
 * a page returns to the free list exactly when its count reaches 0.
 
 Copy-on-write prefix sharing: prompts are matched page-by-page against
@@ -26,9 +30,12 @@ these). The hit is capped at ``prompt_len - 1`` so at least one prompt
 token always runs through the model to produce the next-token logits.
 
 A copy of the JAX package's ``serving/pool.py`` without its trace instants
-(the port has no observability layer yet). ``remap``, ``flush_prefix`` and
-``rebuild`` serve a live repack of the pool, which the port does not run
-yet (graceful degradation).
+(the port has no observability layer yet). ``flush_prefix`` and
+``rebuild`` (with ``PrefixCache.remap``) serve a live repack of the pool
+(graceful degradation, ``ServeEngine.apply_kv_plan``); a rebuilt allocator
+keeps the page map it was rebuilt through (``perm``), with which a match
+pinned before the repack (an in-flight chunked prefill's) follows its
+pages (``PrefixMatch.remap``; the reference keeps the old ids).
 """
 
 from __future__ import annotations
@@ -69,6 +76,13 @@ class PrefixMatch:
     full_ids: tuple[int, ...] = ()
     donor: Optional[int] = None
     donor_tokens: int = 0
+
+    def remap(self, perm: np.ndarray) -> "PrefixMatch":
+        """The same match after a pool repack moved its pinned pages
+        (``perm[old_pid] = new_pid``)."""
+        return dataclasses.replace(
+            self, full_ids=tuple(int(perm[p]) for p in self.full_ids),
+            donor=None if self.donor is None else int(perm[self.donor]))
 
 
 class PrefixCache:
@@ -195,6 +209,10 @@ class PoolSession:
         self.prefix_hit_tokens = 0
         self.prompt_tokens = 0
         self.admitted = 0
+        self.perm: Optional[np.ndarray] = None  # set by ``rebuild``
+        # references held by matches not yet admitted or unpinned (a
+        # chunked prefill's pins), so the invariants hold while one is out
+        self._pins = np.zeros(num_pages + 1, np.int64)
 
     # -- accounting --------------------------------------------------------
 
@@ -252,18 +270,20 @@ class PoolSession:
         if self.prefix is None:
             return PrefixMatch()
         m = self.prefix.match(tuple(int(t) for t in tokens), self.page_size)
-        for pid in m.full_ids:
+        for pid in self._pinned(m):
             self._incref(pid)
-        if m.donor is not None:
-            self._incref(m.donor)
+            self._pins[pid] += 1
         return m
+
+    @staticmethod
+    def _pinned(m: PrefixMatch) -> list:
+        return list(m.full_ids) + ([m.donor] if m.donor is not None else [])
 
     def unpin(self, m: PrefixMatch) -> None:
         """Drop the pins ``match`` took (admission failed / abandoned)."""
-        for pid in m.full_ids:
+        for pid in self._pinned(m):
+            self._pins[pid] -= 1
             self._decref(pid)
-        if m.donor is not None:
-            self._decref(m.donor)
 
     def admit(self, slot: int, tokens, num_pages: int,
               m: Optional[PrefixMatch] = None
@@ -287,6 +307,8 @@ class PoolSession:
                 self._decref(pid)
             self.unpin(m)
             raise
+        for pid in self._pinned(m):
+            self._pins[pid] -= 1    # the full pages' pins pass to the slot
         if m.donor is not None:
             self._decref(m.donor)   # its rows are copied, not mapped
             self.cow_copies += 1
@@ -342,12 +364,15 @@ class PoolSession:
         ns = PoolSession(num_pages_new, self.page_size, self.n_log,
                          prefix_sharing=self.prefix is not None)
         ref = np.zeros(num_pages_new + 1, np.int64)
+        pins = np.zeros(num_pages_new + 1, np.int64)
         for old in range(1, self.num_pages + 1):
             if self._ref[old] > 0:
                 new = int(perm[old])
                 assert 1 <= new <= num_pages_new, (old, new, num_pages_new)
                 ref[new] = self._ref[old]
+                pins[new] = self._pins[old]
         ns._ref = ref
+        ns._pins = pins
         ns._free = [pid for pid in range(num_pages_new, 0, -1)
                     if ref[pid] == 0]
         ns._slot_pages = {
@@ -361,6 +386,7 @@ class PoolSession:
         ns.prefix_hit_tokens = self.prefix_hit_tokens
         ns.prompt_tokens = self.prompt_tokens
         ns.admitted = self.admitted
+        ns.perm = np.asarray(perm)
         ns.check_invariants()
         return ns
 
@@ -381,5 +407,6 @@ class PoolSession:
         if self.prefix is not None:
             for pid in self.prefix._lru.values():
                 held[pid] += 1
+        held += self._pins
         held[0] = 0
         assert np.array_equal(held, self._ref), (held, self._ref)

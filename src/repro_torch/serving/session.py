@@ -26,20 +26,45 @@ a whole-prompt serve.
 A preempted, cancelled or deadlined running slot is released in place
 (``ServeEngine.release``), so a captured decode graph keeps its buffers.
 
-Left out beside the reference: graceful degradation (``DegradeConfig``),
-the chaos sites and the watchdog, the replica id, and the tracer, profile
-and metrics registry (ROADMAP.md, queue 1 items 5 and 6); ``finalize``
-builds ``ServeStats`` directly.
+Graceful degradation (``DegradeConfig``, a paged engine only): admission
+backpressure that lasts ``patience`` ticks spills the pool one tier down
+the engine's entropy-ordered KV ladder (``ServeEngine.degrade_ladder``),
+and ``cooldown`` calm ticks with ``headroom`` of the pool free promote it
+one tier back. Each transition repacks the live pool at a constant byte
+budget (``ServeEngine.apply_kv_plan``), which hands back a new decode state
+and drops the captured decode chunks; a chunked prefill in flight keeps
+its pinned prefix pages, its match remapped to where the repack moved them
+(the reference keeps the old ids). Before an admission deadlock raises
+``OutOfPages``, a spill is tried. A spec engine runs plain decode chunks
+while degraded. ``finalize`` and ``abort`` put the engine back on tier 0
+(the reference's ``abort`` leaves a failed serve's degraded plan behind,
+so the engine's next serve took it for tier 0); ``finalize`` reports the
+steps run at each tier.
+
+Fault tolerance: the chaos sites (``serving/chaos.py``)
+``replica.dispatch`` and ``device.stall`` fire at the start of
+``dispatch``, before any state changes, so a transient fault retries the
+tick in place (``serving/replica.py``); ``replica.harvest`` fires in
+``harvest`` before its read; ``pool.oom`` denies an admission as if the
+pool were full. ``watchdog_s`` counts decode gaps longer than that
+(``watchdog_trips``). The gap runs from the tick's start, before the chaos
+sites, to the harvest (the reference starts it after them, at the chunk's
+launch), so a stalled tick shows in the gap and trips the watchdog.
+
+Left out beside the reference: the tracer, profile and metrics registry
+(ROADMAP.md queue 1 item 6); ``finalize`` builds ``ServeStats`` directly.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Optional
 
 import numpy as np
 import torch
 
+from repro_torch.serving import chaos
 from repro_torch.serving.pool import OutOfPages
 from repro_torch.serving.scheduler import Request, Scheduler, SLOConfig
 from repro_torch.serving.spec import SpecMetrics
@@ -49,13 +74,34 @@ def _pct(vals: list, q: float) -> float:
     return float(np.percentile(vals, q)) if vals else 0.0
 
 
+@dataclasses.dataclass(frozen=True)
+class DegradeConfig:
+    """Graceful-degradation policy under pool pressure.
+
+    Spills the engine's KV precision down its entropy-ordered tier ladder
+    (``ServeEngine.degrade_ladder``) when admission backpressure persists
+    for ``patience`` consecutive ticks (each tier repacks the pool at
+    constant bytes, so a lower precision buys more pages) and promotes
+    one tier back after ``cooldown`` stall-free ticks with at least
+    ``headroom`` of the pool free. A spec engine runs plain decode chunks
+    while degraded (draft rounds probe extra cache rows per slot).
+
+    The reference also carries ``policy`` (only "ewq") and
+    ``shrink_spec`` (only True); neither has another value here."""
+    patience: int = 2
+    cooldown: int = 16
+    headroom: float = 0.5
+
+
 class ServeSession:
     """One continuous-batching run over a fixed request list."""
 
     def __init__(self, engine, requests, *, num_slots: int, chunk: int,
                  temperature: float = 0.0, seed: int = 0,
                  prefill_chunk: Optional[int] = None,
-                 slo: Optional[SLOConfig] = None):
+                 slo: Optional[SLOConfig] = None, replica_id: int = 0,
+                 degrade: Optional[DegradeConfig] = None,
+                 watchdog_s: Optional[float] = None):
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
         if num_slots < 1:
@@ -74,6 +120,7 @@ class ServeSession:
         self.slo = slo
         self.spec = engine.spec is not None
         self.sched = Scheduler(num_slots)
+        self.replica_id = replica_id
         for r in requests:
             if self.spec:
                 engine._spec_budget_check(len(r.prompt), r.max_new_tokens)
@@ -105,6 +152,18 @@ class ServeSession:
         self.gaps: list[float] = []
         self._chunk_t0: Optional[float] = None
         self._dispatched = False
+        # fault tolerance and graceful degradation
+        self.watchdog_s = watchdog_s
+        self.watchdog_trips = 0
+        self.degrade = degrade if engine.pool is not None else None
+        self._ladder = (engine.degrade_ladder() if self.degrade is not None
+                        else [engine.kv_plan])
+        self.tier = 0
+        self.tier_steps = [0] * max(1, len(self._ladder))
+        self.degraded_steps = 0
+        self.transitions: list = []    # (clock, from_tier, to_tier)
+        self._stall_ticks = 0
+        self._calm_ticks = 0
 
     # -- progress ------------------------------------------------------------
     @property
@@ -118,16 +177,26 @@ class ServeSession:
         eng, sched = self.engine, self.sched
         self._dispatched = False
         now = time.perf_counter()
+        # the chaos sites fire before any state changes, so a transient
+        # fault can retry this tick in place
+        chaos.fire("replica.dispatch", tag=self.replica_id)
+        chaos.fire("device.stall", tag=self.replica_id)
         sched.poll(self.clock, now)
         sched.expire(self.clock)
         self._enforce_running_drops()
         self._preempt_for_priority()
         stalled = self._admit(now)
+        if self._degrade_tick(stalled) and stalled:
+            stalled = self._admit(now)   # the lower tier freed pages
         self._advance_prefills()
         if sched.num_active == 0:
             if self.tasks:
                 return                 # prefill-only tick; clock frozen
             if stalled:
+                if (self.degrade is not None
+                        and self.tier + 1 < len(self._ladder)
+                        and self._transition(self.tier + 1)):
+                    return             # spilled a tier: re-admit next tick
                 raise OutOfPages(
                     "admission deadlock: no active slots and the pool "
                     "cannot supply the next request's pages "
@@ -143,26 +212,79 @@ class ServeSession:
         # ahead of the chunk counts: the host dispatches it eagerly, where
         # the reference's asynchronous launch queued it before the chunk
         self._chunk_t0 = now
-        if self.spec:
+        if self.spec and self.tier == 0:
             self.state, m = eng.decode_chunk(self.state, self.chunk)
             self.spec_m = self.spec_m.plus(m)
         else:
-            eng.decode_chunk(self.state, self.chunk)
+            eng.decode_chunk(self.state, self.chunk, plain=True)
         self.clock += self.chunk
+        self.tier_steps[self.tier] += self.chunk
+        if self.tier:
+            self.degraded_steps += self.chunk
         self._dispatched = True
+
+    # -- graceful degradation ------------------------------------------------
+    def _degrade_tick(self, stalled: bool) -> bool:
+        """The tier policy, one decision a tick: persistent backpressure
+        spills down the ladder, sustained headroom promotes back up.
+        Returns True when a transition happened."""
+        if self.degrade is None or len(self._ladder) < 2:
+            return False
+        if stalled:
+            self._stall_ticks += 1
+            self._calm_ticks = 0
+            if (self._stall_ticks >= self.degrade.patience
+                    and self.tier + 1 < len(self._ladder)):
+                return self._transition(self.tier + 1)
+            return False
+        self._stall_ticks = 0
+        if self.tier == 0:
+            return False
+        pool = self.engine.pool
+        if pool.pages_free / pool.num_pages < self.degrade.headroom:
+            self._calm_ticks = 0
+            return False
+        self._calm_ticks += 1
+        if self._calm_ticks >= self.degrade.cooldown:
+            return self._transition(self.tier - 1)
+        return False
+
+    def _transition(self, tier: int) -> bool:
+        """Repack the engine's pool at the target tier (False when the
+        engine refuses: a promotion without room for the live pages)."""
+        state = self.engine.apply_kv_plan(self.state, self._ladder[tier])
+        if state is None:
+            return False
+        self.state = state
+        # an in-flight chunked prefill's pinned prefix pages moved with
+        # the repack (a shrink compacts them): its match follows them
+        for task in self.tasks.values():
+            if task.match is not None:
+                task.match = task.match.remap(self.engine.pool.perm)
+        self.transitions.append((self.clock, self.tier, tier))
+        self.tier = tier
+        self._stall_ticks = 0
+        self._calm_ticks = 0
+        return True
 
     # -- tick phase 2: the one blocking read -----------------------------------
     def harvest(self) -> None:
         """Read back the chunk ``dispatch`` launched and complete slots."""
         if not self._dispatched:
             return
+        chaos.fire("replica.harvest", tag=self.replica_id)
         self._dispatched = False
         sched = self.sched
         done_np = self.state.done.cpu().numpy()      # the one device read
         len_np = self.state.lengths.cpu().numpy()
         now = time.perf_counter()
         if self._chunk_t0 is not None:
-            self.gaps.append(now - self._chunk_t0)
+            gap = now - self._chunk_t0
+            self.gaps.append(gap)
+            if self.watchdog_s is not None and gap > self.watchdog_s:
+                # an in-process stall cannot be preempted, so an overrun is
+                # counted rather than aborted mid-read
+                self.watchdog_trips += 1
         for slot, req in sched.active_slots():
             if len_np[slot] > len(req.prompt):
                 sched.mark_first_token(slot, now)
@@ -257,11 +379,14 @@ class ServeSession:
             req = sched.next_ready(self.clock)
             if req is None:
                 break
-            if eng.pool is not None and not eng.pool.can_admit(
-                    eng.pool.pages_for(eng._slot_seq_budget(
-                        len(req.prompt), req.max_new_tokens))):
-                # backpressure: the pool's free and evictable pages do not
-                # cover the worst case; retry after a slot drains
+            if eng.pool is not None and (
+                    chaos.deny("pool.oom", tag=self.replica_id)
+                    or not eng.pool.can_admit(
+                        eng.pool.pages_for(eng._slot_seq_budget(
+                            len(req.prompt), req.max_new_tokens)))):
+                # backpressure (or an injected one): the pool's free and
+                # evictable pages do not cover the worst case; retry after
+                # a slot drains
                 sched.requeue(req)
                 self.requeues += 1
                 return True
@@ -316,9 +441,11 @@ class ServeSession:
     # -- teardown ------------------------------------------------------------
     def abort(self) -> list:
         """Tear in-flight work down leak-free and return the unfinished
-        requests: chunked-prefill prefix pins drop, every decoding slot's
-        pages release, and the scheduler drains. Finished outputs stay
-        available through ``finalize``."""
+        requests (replica failover, or an exception unwinding the serve):
+        chunked-prefill prefix pins drop, every decoding slot's pages
+        release, and the scheduler drains. The caller re-drives the
+        survivors onto another session, where each prefills again from its
+        prompt. Finished outputs stay available through ``finalize``."""
         eng, sched = self.engine, self.sched
         for task in self.tasks.values():
             if task.match is not None and eng.pool is not None:
@@ -330,7 +457,14 @@ class ServeSession:
         self._dispatched = False
         if eng.pool is not None:
             eng.pool.check_invariants()
+        self._back_to_tier0()
         return survivors
+
+    def _back_to_tier0(self) -> None:
+        """The engine's next serve starts at tier 0: its next
+        ``init_decode_state`` builds the pool from ``kv_plan``."""
+        if self.tier:
+            self.engine.kv_plan = self._ladder[0]
 
     # -- wrap-up -------------------------------------------------------------
     def finalize(self):
@@ -349,6 +483,7 @@ class ServeSession:
         if eng.pool is not None:
             pool = eng.pool
             pool.check_invariants()    # nothing leaked
+            self._back_to_tier0()
             pool_kw = dict(
                 pool_pages_total=pool.num_pages,
                 pool_pages_peak=pool.peak_pages,
@@ -385,7 +520,10 @@ class ServeSession:
             draft_accepted=accepted,
             acceptance_rate=accepted / proposed if proposed else 0.0,
             tokens_per_round=committed / rounds if rounds else 0.0,
-            requeues=self.requeues, **pool_kw)
+            requeues=self.requeues, watchdog_trips=self.watchdog_trips,
+            degraded_steps=self.degraded_steps,
+            degrade_transitions=len(self.transitions),
+            kv_tier_steps=tuple(self.tier_steps), **pool_kw)
         return outputs, stats
 
     @torch.no_grad()
