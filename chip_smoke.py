@@ -113,7 +113,30 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    tokens, one restart, requests re-driven, clean pools; recovery p95 and
    the largest logprob difference read), and a tick stalled STALL_S
    under a WATCHDOG_S deadline (a watchdog trip, the same tokens). The
-   share of tokens equal to phase 4's undegraded serve is a reading.
+   share of tokens equal to phase 4's undegraded serve is a reading. The
+   replica-kill serve runs with a metrics registry installed (4j (c)):
+   one ``serve_replica_restarts_total``, ``serve_chaos_faults_total``
+   equal to the injector's log, one ``serve_recovery_seconds`` sample,
+   and per-replica labels on the aggregate's ``registry``.
+4j. (after 4c, before 4i) observability (``serve_observed``) on phase
+   4c's compiled EWQ weights with int8 KV (no second analysis or compile)
+   and phase 4's 8 requests, from CUDA graphs. (a) With a ``Tracer`` and a
+   ``MetricsRegistry`` installed: tokens and logprobs equal to phase 4's
+   to the bit, no open span, every request's phases queued -> prefill ->
+   decode -> finish, ``serve_generated_tokens_total`` equal to the
+   tokens generated, ``ServeStats.from_registry(stats.registry) ==
+   stats``; tokens/s beside the same engine's untraced serve just before
+   and phase 4's (readings, beside the 2% tracing budget of the
+   reference's benchmark). (b) Also with
+   ``ProfileHooks(steps=(CHUNK, 3 * CHUNK), device_fences=True)``: the
+   same tokens and logprobs, one device_ms (CUDA events around the
+   chunk's graph replay) and host_gap_ms per decode chunk with 0 <
+   device_ms <= the chunk's gap, one profiler window whose Chrome trace
+   names the port's kernels (OBS_KERNELS, their ``__global__`` names);
+   the device ms of each port kernel and of everything else inside the
+   window, each one's share, and the chunks' median device ms beside
+   phase 4's replayed chunk (readings). The sinks are installed and
+   removed in ``try`` / ``finally``; no later phase is traced.
 5. analysis: ``analyze_blocks`` over every matrix of llama3.2-3b FULL (197
    matrices) and of whisper-medium FULL through the entropy kernel
    (mode="kernel": one grouped launch a model) and in plain tensor ops
@@ -1774,6 +1797,11 @@ def serve_full_width(torch, build, report: dict, smoke: bool = False,
             spec_outs, device)
     for k, v in paged_launches.items():
         launches[k] += v
+    with phase(report, "4j llama traced + profiled serve"):
+        obs_launches = serve_observed(torch, build, report, model, compiled,
+                                      ewq, prompts, base_outs, device)
+    for k, v in obs_launches.items():
+        launches[k] += v
     with phase(report, "4i llama degrade + failover"):
         degrade_launches = serve_degrade(torch, build, report, model,
                                          compiled, ewq, prompts, base_outs,
@@ -2403,7 +2431,11 @@ def serve_degrade(torch, build, report: dict, model, compiled, plan,
       pools, 2 slots each) under ReplicaServe, fault-free and with replica
       1 killed at its third dispatch (``replica_fault``): the same greedy
       tokens, one restart, requests re-driven, both pools clean; the
-      recovery p95 and the largest logprob difference (readings).
+      recovery p95 and the largest logprob difference (readings). The
+      kill runs with a metrics registry installed (phase 4j (c)): one
+      restart counted, the chaos faults counted as the injector logged
+      them, one recovery sample, the aggregate's registry labelled by
+      replica.
     * The watchdog: replica 0 stalls STALL_S in one tick under a
       WATCHDOG_S deadline: at least one trip, the same tokens.
 
@@ -2411,6 +2443,7 @@ def serve_degrade(torch, build, report: dict, model, compiled, plan,
     the CPU only (tests/test_torch_chaos.py): re-reading phase 4g's
     4.85 GB artifact would cost about 12 s. Returns the launches."""
     import numpy as np
+    from repro_torch import obs
     from repro_torch.quant import paged as PG
     from repro_torch.quant.compiler import kv_tier_labels
     from repro_torch.serving import chaos
@@ -2678,9 +2711,18 @@ def serve_degrade(torch, build, report: dict, model, compiled, plan,
                                        mode="stall", stall_s=STALL_S),),
              FailoverConfig(watchdog_s=WATCHDOG_S))):
         build.reset_launches()
-        with chaos.chaos(chaos.FaultConfig(rules=rules)) as inj:
-            outs, st = rs.serve(requests(), num_slots=2, chunk=CHUNK,
-                                failover=failover)
+        # the kill serve is metered (phase 4j (c)); no other serve is
+        metrics = obs.MetricsRegistry() if label == "replica_fault" else None
+        prev = obs.install(metrics=metrics)
+        try:
+            with chaos.chaos(chaos.FaultConfig(rules=rules)) as inj:
+                outs, st = rs.serve(requests(), num_slots=2, chunk=CHUNK,
+                                    failover=failover)
+        finally:
+            obs.install(*prev)
+        if metrics is not None:
+            out["metered_failover"] = metered_failover(metrics, inj.log,
+                                                       st.aggregate)
         for k, v in build.LAUNCHES.items():
             launches[k] += v
         check(label, outs)
@@ -2714,6 +2756,258 @@ def serve_degrade(torch, build, report: dict, model, compiled, plan,
     out.update(replicas={k: v[1] for k, v in runs.items()})
     report["degrade"] = out
     rs = None
+    return launches
+
+
+def metered_failover(metrics, fired: list, agg) -> dict:
+    """Phase 4j (c): the registry installed over 4i's replica-kill serve
+    holds one restart, a chaos fault for each firing the injector logged
+    and one recovery sample; the aggregate's merged registry carries both
+    replicas' labels and the same failover."""
+    rec = metrics.get("serve_recovery_seconds")
+    merged = agg.registry
+    gen = merged.get("serve_generated_tokens_total")
+    got = dict(
+        restarts=metrics.total("serve_replica_restarts_total"),
+        redriven=metrics.total("serve_redriven_requests_total"),
+        chaos_faults=metrics.total("serve_chaos_faults_total"),
+        fired=len(fired),
+        recovery_samples=rec.count() if rec is not None else 0,
+        recovery_s=rec.samples() if rec is not None else [],
+        aggregate_replica_labels=sorted(gen.labeled("replica")
+                                        if gen is not None else ()),
+        aggregate_restarts=merged.total("serve_replica_restarts_total"))
+    failed = [k for k, ok in {
+        "serve_replica_restarts_total == 1": got["restarts"] == 1,
+        "serve_redriven_requests_total == the aggregate's re-drives":
+            got["redriven"] == agg.redriven_requests > 0,
+        "serve_chaos_faults_total == the injector's log":
+            got["chaos_faults"] == got["fired"] > 0,
+        "one serve_recovery_seconds sample": got["recovery_samples"] == 1,
+        "the aggregate's registry labels replicas 0 and 1":
+            got["aggregate_replica_labels"] == ["0", "1"],
+        "the aggregate's registry holds the restart":
+            got["aggregate_restarts"] == 1,
+    }.items() if not ok]
+    log("observe: 4i's replica-kill serve, metered: " + json.dumps(got))
+    if failed:
+        raise AssertionError(f"4j (c) metered failover: {failed} ({got})")
+    return got
+
+
+OBS_PATH = ("qmatmul", "qkv", "qmlp", "decode_attn")
+# the __global__ names (csrc/) of the port's kernels on the serve path, by
+# the kernels line's names; qmatmul and qkv are one kernel (qmma_kernel)
+OBS_KERNELS = {"qmatmul + qkv": ("qmma_kernel",),
+               "qmlp": ("qmlp_kernel", "qmlp_sum_kernel"),
+               "decode_attn": ("decode_attn_split", "decode_attn_merge")}
+OBS_REQUIRED = ("qmma_kernel", "qmlp_kernel", "decode_attn_split")
+TRACE_BUDGET = 0.02     # the reference benchmark's tracing overhead budget
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def profile_breakdown(path: str) -> dict:
+    """The device events of a torch.profiler Chrome trace: the ms of each
+    port kernel group (OBS_KERNELS) and of everything else on the device
+    (other kernels, copies, sets), each one's share of the window's device
+    ms, and the count of each ``__global__`` name seen."""
+    events = json.loads(pathlib.Path(path).read_text())["traceEvents"]
+    groups = {g: 0.0 for g in OBS_KERNELS}
+    names = {n: 0 for ns in OBS_KERNELS.values() for n in ns}
+    other, other_kernels, total, n_device = 0.0, {}, 0.0, 0
+    for ev in events:
+        if ev.get("ph") != "X" or ev.get("cat") not in DEVICE_CATS:
+            continue
+        ms = float(ev.get("dur", 0.0)) / 1e3
+        n_device += 1
+        total += ms
+        for g, ns in OBS_KERNELS.items():
+            hit = next((n for n in ns if n in ev["name"]), None)
+            if hit is not None and ev["cat"] == "kernel":
+                groups[g] += ms
+                names[hit] += 1
+                break
+        else:
+            other += ms
+            key = ev["name"][:80]
+            other_kernels[key] = other_kernels.get(key, 0.0) + ms
+    top = sorted(other_kernels.items(), key=lambda kv: -kv[1])[:6]
+    return dict(device_events=n_device, device_ms=total,
+                kernel_ms=groups, other_ms=other,
+                share={**{g: (v / total if total else 0.0)
+                          for g, v in groups.items()},
+                       "other": other / total if total else 0.0},
+                kernel_events=names, other_top=dict(top))
+
+
+def serve_observed(torch, build, report: dict, model, compiled, plan,
+                   prompts, base_outs, device: str) -> dict:
+    """Phase 4j: phase 4's 8 requests (4 slots, chunk 8, 32 new tokens) on
+    phase 4c's compiled EWQ weights with int8 KV, from CUDA graphs:
+    untraced, then (a) traced and metered, then (b) also with device fences
+    and a torch.profiler window over two decode chunks past the chunk that
+    captures. Returns
+    the launches. (c) is 4i's replica-kill serve (``metered_failover``)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from repro_torch import obs
+    from repro_torch.serving.engine import ServeEngine, ServeStats
+    from repro_torch.serving.scheduler import Request
+    cuda = device == "cuda"
+    launches = {k: 0 for k in build.LAUNCHES}
+    out = {}
+    fresh_memory(torch, device)
+    eng = ServeEngine(model, compiled, max_seq=1024, kv_precision="int8",
+                      device=device)
+    eng.plan = plan
+
+    def serve(tracer, metrics, profile):
+        build.reset_launches()                 # main path: counts from 0
+        prev = obs.install(tracer, metrics, profile)
+        try:
+            res = eng.serve([Request(rid=i, prompt=p, max_new_tokens=32)
+                             for i, p in enumerate(prompts)],
+                            num_slots=SLOTS, chunk=CHUNK)
+        finally:
+            if profile is not None:
+                profile.stop()
+            obs.install(*prev)
+        counts = dict(build.LAUNCHES)
+        for k, v in counts.items():
+            launches[k] += v
+        return res, counts
+
+    phase4 = report["runs"][0]                 # phase 4's EWQ graph serve
+    # the same engine untraced first: tracing's cost read within the phase
+    (_, plain_stats), _ = serve(None, None, None)
+    # -- (a) traced and metered -------------------------------------------------
+    tr, mx = obs.Tracer(), obs.MetricsRegistry()
+    (outs, stats), counts = serve(tr, mx, None)
+    if not same_outputs(outs, base_outs, logprobs=True):
+        raise AssertionError("4j (a): the traced serve's tokens or logprobs "
+                             "differ from phase 4's serve")
+    phases = {}
+    for ev in tr.events:
+        if ev["tid"] >= obs.REQ_TRACK_BASE:
+            phases.setdefault(ev["tid"] - obs.REQ_TRACK_BASE, []).append(
+                (ev["name"], ev["ph"]))
+    walk = [("request/queued", "B"), ("request/queued", "E"),
+            ("request/prefill", "B"), ("request/prefill", "E"),
+            ("request/decode", "B"), ("request/decode", "E"),
+            ("request/finish", "i")]
+    tc = tr.counts()
+    generated = sum(len(o.generated) for o in outs)
+    failed = [k for k, ok in {
+        "no open span": tr.open_spans() == [],
+        "every request queued -> prefill -> decode -> finish":
+            sorted(phases) == list(range(len(prompts)))
+            and all(v == walk for v in phases.values()),
+        "serve_generated_tokens_total == the tokens generated":
+            mx.total("serve_generated_tokens_total") == generated
+            == stats.generated_tokens,
+        "ServeStats.from_registry(stats.registry) == stats":
+            ServeStats.from_registry(stats.registry) == stats,
+        "one decode/chunk span a chunk":
+            tc.get(("decode/chunk", "X"), 0) == stats.num_chunks > 0,
+        "OBS_PATH's kernels launched":
+            not cuda or all(counts[k] > 0 for k in OBS_PATH),
+    }.items() if not ok]
+    if failed:
+        raise AssertionError(f"4j (a) traced serve: {failed}")
+    traced = dict(tokens_per_s=stats.tokens_per_s, wall_s=stats.wall_s,
+                  untraced_tokens_per_s=plain_stats.tokens_per_s,
+                  ratio_to_untraced=stats.tokens_per_s
+                  / plain_stats.tokens_per_s,
+                  phase4_tokens_per_s=phase4["tokens_per_s"],
+                  ratio_to_phase4=stats.tokens_per_s
+                  / phase4["tokens_per_s"],
+                  trace_budget=TRACE_BUDGET, events=len(tr.events),
+                  counts={f"{n}/{ph}": v for (n, ph), v in
+                          sorted(tc.items()) if ph != "M"},
+                  metric_families=len(mx.names()), launches=counts)
+    log("observe: (a) traced + metered serve, tokens and logprobs equal to "
+        "phase 4's to the bit, no open span: " + json.dumps(traced))
+    log(f"observe: traced tokens/s {stats.tokens_per_s:.1f} beside the same "
+        f"engine's untraced serve just before {plain_stats.tokens_per_s:.1f} "
+        f"and phase 4's {phase4['tokens_per_s']:.1f} (readings; the "
+        f"reference's benchmark budgets tracing at under "
+        f"{TRACE_BUDGET:.0%})")
+    out["traced"] = traced
+
+    # -- (b) profiled: device fences and one torch.profiler window -------------
+    trace_dir = tempfile.mkdtemp(prefix="repro_torch-profile-")
+    try:
+        prof = obs.ProfileHooks(steps=(CHUNK, 3 * CHUNK),
+                                trace_dir=trace_dir, device_fences=True)
+        tr2, mx2 = obs.Tracer(), obs.MetricsRegistry()
+        (outs2, stats2), counts2 = serve(tr2, mx2, prof)
+        if not same_outputs(outs2, outs, logprobs=True):
+            raise AssertionError("4j (b): the profiled serve's tokens or "
+                                 "logprobs differ from the traced serve's")
+        chunks = [e for e in tr2.events if e["name"] == "decode/chunk"]
+        dev = [e["args"].get("device_ms") for e in chunks]
+        host = [e["args"].get("host_gap_ms") for e in chunks]
+        gaps = [e["dur"] / 1e3 for e in chunks]
+        breakdown = (profile_breakdown(prof.trace_files[0])
+                     if prof.trace_files else None)
+        failed = [k for k, ok in {
+            "no open span": tr2.open_spans() == [],
+            "one device_ms and host_gap_ms a decode chunk":
+                len(chunks) == stats2.num_chunks > 0
+                and None not in dev and None not in host
+                and mx2.get("serve_device_time_seconds").count()
+                == mx2.get("serve_host_gap_seconds").count()
+                == stats2.num_chunks,
+            "0 < device_ms <= the chunk's gap":
+                None not in dev and all(
+                    0 < d <= g + 1e-3 for d, g in zip(dev, gaps)),
+            "one profiler window": prof.windows == 1,
+            "the window's trace file exists":
+                len(prof.trace_files) == 1
+                and pathlib.Path(prof.trace_files[0]).is_file(),
+            "the window recorded device work":
+                not cuda or (breakdown is not None
+                             and breakdown["device_events"] > 0),
+            "the window's trace names the port's kernels":
+                not cuda or (breakdown is not None and all(
+                    breakdown["kernel_events"][n] > 0
+                    for n in OBS_REQUIRED)),
+        }.items() if not ok]
+        if failed:
+            raise AssertionError(f"4j (b) profiled serve: {failed}; "
+                                 f"device_ms {dev}, gaps {gaps}, "
+                                 f"breakdown {breakdown}")
+        phase4_chunk = phase4.get("chunk", {}).get("device_ms")
+        profiled = dict(
+            window=[CHUNK, 3 * CHUNK], windows=prof.windows,
+            trace_bytes=pathlib.Path(prof.trace_files[0]).stat().st_size,
+            chunk_device_ms=dev, chunk_host_gap_ms=host, chunk_gap_ms=gaps,
+            chunk_device_ms_median=float(np.median(dev)),
+            chunk_host_gap_ms_median=float(np.median(host)),
+            window_start_s=prof.start_s, window_stop_export_s=prof.stop_s,
+            phase4_replayed_chunk_device_ms=phase4_chunk,
+            tokens_per_s=stats2.tokens_per_s, launches=counts2,
+            breakdown=breakdown)
+        log("observe: (b) profiled serve (fences + one window), tokens and "
+            "logprobs equal to (a): " + json.dumps(profiled))
+        if breakdown is not None:
+            parts = ", ".join(
+                f"{g} {breakdown['kernel_ms'][g]:.3f} ms "
+                f"({breakdown['share'][g]:.1%})" for g in OBS_KERNELS)
+            log(f"observe: device time inside the window "
+                f"({breakdown['device_ms']:.3f} ms): {parts}, everything "
+                f"else {breakdown['other_ms']:.3f} ms "
+                f"({breakdown['share']['other']:.1%})")
+        log(f"observe: chunk device ms median "
+            f"{profiled['chunk_device_ms_median']:.3f} (host gap median "
+            f"{profiled['chunk_host_gap_ms_median']:.3f}) beside phase 4's "
+            f"replayed chunk {phase4_chunk} ms")
+        out["profiled"] = profiled
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    report["observe"] = out
     return launches
 
 

@@ -25,6 +25,9 @@
     python -m repro_torch.launch.serve --arch llama3.2-3b --paged \
         --degrade-policy ewq --chaos oom --check-chaos-parity
                                # spill the KV tiers under injected pressure
+    python -m repro_torch.launch.serve --arch llama3.2-3b \
+        --trace-out trace.json --metrics-out metrics.prom \
+        --profile-steps 8:24   # traced, metered and profiled serve
 
 Weights are random, drawn from a seeded ``torch.Generator`` at the JAX
 package's init scales (real checkpoints are not in the repository), so the
@@ -50,6 +53,13 @@ promotes it back; ``--chaos`` injects faults into the serve
 ``--watchdog-ms`` counts decode gaps over the deadline;
 ``--check-chaos-parity`` serves fault-free (and undegraded) first and
 fails unless the chaos serve gives the same greedy tokens.
+``--trace-out`` writes the serve's spans as Chrome trace_event JSON,
+``--metrics-out`` its metrics registry as Prometheus text (and a JSON
+snapshot beside it), and ``--profile-steps A:B`` arms the device fences
+(CUDA events around each decode chunk) and a ``torch.profiler`` window
+over decode steps [A, B), its trace written under ``--profile-dir``; the
+sinks are installed after the parity baseline, so only the measured serve
+is instrumented. The serve report renders through ``obs/render.py``.
 Without ``--device`` it runs on the GPU, and raises if there is none.
 """
 
@@ -62,9 +72,11 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.checkpoint import ckpt
 from repro_torch.configs.registry import ARCHS, get_config
 from repro_torch.models.model import build
+from repro_torch.obs import render
 from repro_torch.quant.compiler import kv_tier_labels, save_artifact
 from repro_torch.serving import chaos
 from repro_torch.serving.engine import ServeEngine, resolve_device
@@ -172,6 +184,21 @@ def main(argv=None) -> dict:
                     help="with --chaos: serve fault-free first, then the "
                          "chaos serve, and fail unless every request "
                          "completes with the same greedy tokens")
+    # serving telemetry (repro_torch.obs)
+    ap.add_argument("--trace-out", default=None,
+                    help="write the serve's request and engine spans as "
+                         "Chrome trace_event JSON (Perfetto / "
+                         "chrome://tracing)")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write the serve's metrics registry as Prometheus "
+                         "text exposition (and a .json snapshot beside it)")
+    ap.add_argument("--profile-steps", default=None,
+                    help="A:B: a torch.profiler window over decode steps "
+                         "[A, B) and device fences (CUDA events) around "
+                         "each decode chunk (device vs host-gap split)")
+    ap.add_argument("--profile-dir", default=None,
+                    help="folder of the --profile-steps trace (default: "
+                         "repro_torch-profile under the temporary folder)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="default: cuda; 'cpu' runs the plain versions")
@@ -184,6 +211,14 @@ def main(argv=None) -> dict:
     if args.degrade_policy != "off" and not args.paged:
         raise SystemExit("--degrade-policy trades KV precision for pool "
                          "pages; it requires --paged")
+    if args.num_requests < 1 and (args.trace_out or args.metrics_out
+                                  or args.profile_steps):
+        raise SystemExit("--trace-out/--metrics-out/--profile-steps "
+                         "instrument the serve loop; set --num-requests")
+    # a malformed window fails here, before any model is built
+    prof = (obs.ProfileHooks.parse(args.profile_steps,
+                                   trace_dir=args.profile_dir)
+            if args.profile_steps else None)
     degrade = DegradeConfig() if args.degrade_policy == "ewq" else None
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
@@ -279,11 +314,48 @@ def main(argv=None) -> dict:
             args.chaos, seed=args.chaos_seed))
         chaos.install(injector)
         print(f"chaos: injecting {args.chaos} (seed {args.chaos_seed})")
+    # the sinks go in after the parity baseline, so only the measured
+    # serve is instrumented, and come out however it ends
+    tracer = obs.Tracer() if args.trace_out else None
+    metrics_reg = obs.MetricsRegistry() if args.metrics_out else None
+    obs_on = bool(tracer or metrics_reg or prof)
+    if obs_on:
+        obs.install(tracer, metrics_reg, prof)
+    t0 = time.perf_counter()
     try:
         outs, stats = engine.serve(reqs, degrade=degrade, **serve_kw)
     finally:
         if injector is not None:
             chaos.install(None)
+        if obs_on:
+            if prof is not None:
+                prof.stop()
+            obs.install(None, None, None)
+    serve_s = time.perf_counter() - t0
+    for line in render.serve_report(
+            stats, wall_s=serve_s, num_requests=len(outs), chunk=args.chunk,
+            queueing=bool(args.arrival_rate or slo is not None),
+            prefill_chunk=args.prefill_chunk,
+            fault=bool(args.chaos or degrade is not None
+                       or args.watchdog_ms),
+            chaos_fired=injector.log if injector is not None else None,
+            spec=spec is not None,
+            paged=(dict(num_slots=args.num_slots,
+                        kv_bytes_per_slot=engine.kv_bytes_per_slot(),
+                        max_seq=max_seq) if paged is not None else None)):
+        print(line)
+    if tracer is not None:
+        tracer.write(args.trace_out)
+        print(f"trace: {len(tracer.events)} events -> {args.trace_out} "
+              f"({len(tracer.open_spans())} open spans)")
+    if metrics_reg is not None:
+        metrics_reg.write_prometheus(args.metrics_out)
+        metrics_reg.write_json(args.metrics_out + ".json")
+        print(f"metrics: {len(metrics_reg.names())} families -> "
+              f"{args.metrics_out} (+ .json snapshot)")
+    if prof is not None and prof.windows:
+        print(f"profiler: {prof.windows} capture window(s) -> "
+              f"{', '.join(prof.trace_files)}")
     reasons: dict = {}
     for o in outs:
         reasons[o.finish_reason] = reasons.get(o.finish_reason, 0) + 1
@@ -332,6 +404,13 @@ def main(argv=None) -> dict:
                       prefix_hit_tokens=stats.prefix_hit_tokens,
                       cow_copies=stats.cow_copies, requeues=stats.requeues,
                       kv_bytes_peak=stats.kv_bytes_peak)
+    if prof is not None:
+        report.update(profile_windows=prof.windows,
+                      profile_traces=list(prof.trace_files),
+                      device_time_p50_s=stats.registry.quantile(
+                          "serve_device_time_seconds", 50),
+                      host_gap_p50_s=stats.registry.quantile(
+                          "serve_host_gap_seconds", 50))
     if spec is not None:
         report.update(spec_k=spec.k, spec_draft=spec.draft_source,
                       spec_rounds=stats.spec_rounds,

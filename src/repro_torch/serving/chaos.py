@@ -37,9 +37,9 @@ so low-level modules (``checkpoint/ckpt.py``, the pool) call into it
 without import cycles. The port's injector is its own object: a process
 that also imports the JAX package holds two, installed apart.
 
-Left out beside the reference: the trace instant and the fault counter
-``poke`` publishes when a rule fires (the port has no observability layer
-yet, ROADMAP.md queue 1 item 6); ``log`` keeps every firing.
+A rule that fires is logged (``log``), traced as a ``chaos/fire`` instant
+and counted in ``serve_chaos_faults_total`` by site and replica, on the
+installed sinks of ``repro_torch.obs`` (no-ops when none is installed).
 """
 
 from __future__ import annotations
@@ -50,6 +50,8 @@ from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
+
+from repro_torch import obs
 
 
 SITES = (
@@ -201,6 +203,11 @@ class ChaosInjector:
                 hit = rule
         if hit is not None:
             self.log.append((site, tag, occ))
+            obs.instant("chaos/fire", tag if isinstance(tag, int) else 0,
+                        args={"site": site, "occurrence": occ})
+            obs.count("serve_chaos_faults_total", 1,
+                      "chaos-injected faults fired, by site",
+                      site=site, replica=str(tag))
         return hit
 
     def fire(self, site: str, tag=None) -> None:

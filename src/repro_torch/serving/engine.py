@@ -99,6 +99,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.policy import QuantPlan
 from repro_torch.device import resolve_device
 from repro_torch.models import encdec
@@ -164,15 +165,22 @@ class ChunkedPrefill:
 
 @dataclasses.dataclass
 class ServeStats:
-    """Continuous-batching run statistics (wall clock on the host)."""
+    """Continuous-batching run statistics (wall clock on the host): a
+    snapshot view of the run's published metrics registry
+    (``from_registry``, ``obs/serve_metrics.py``), beside the port's own
+    fields (``serve_metrics.PORT_FIELDS``), which ``finalize`` sets and
+    ``==`` leaves out with the registry."""
     decode_steps: int          # steps executed (chunks * chunk)
     generated_tokens: int      # tokens emitted across all requests
     occupancy: float           # mean fraction of active slots per chunk
     num_chunks: int
     admissions: int            # requests admitted while others decoded
-    wall_s: float              # serve() call, admission to last harvest
-    tokens_per_s: float        # generated_tokens / wall_s
-    ttft_mean_s: float = 0.0   # admission -> first harvested token
+    # the port's own (PORT_FIELDS): no metric family, out of ==. The
+    # serve() call's wall s (admission to last harvest), generated_tokens
+    # / wall_s, and the mean of admission -> first harvested token
+    wall_s: float = dataclasses.field(default=0.0, compare=False)
+    tokens_per_s: float = dataclasses.field(default=0.0, compare=False)
+    ttft_mean_s: float = dataclasses.field(default=0.0, compare=False)
     ttft_p50_s: float = 0.0
     ttft_p95_s: float = 0.0
     tpot_p50_s: float = 0.0    # per-output-token latency after the first
@@ -206,7 +214,11 @@ class ServeStats:
     cow_copies: int = 0            # COW boundary pages written privately
     kv_bytes_peak: float = 0.0     # peak pool bytes referenced, plus the
                                    # slots' KV fields outside the pool
-    requeues: int = 0              # admissions the pool held back
+    # admissions the pool held back (PORT_FIELDS)
+    requeues: int = dataclasses.field(default=0, compare=False)
+    # the autotune cache key the engine's kernels run under; the port has
+    # no autotuner (ROADMAP.md queue 1 item 7), so always "untuned"
+    tuned: str = "untuned"
     # fault tolerance and graceful degradation
     replica_restarts: int = 0      # replicas quarantined and failed over
     redriven_requests: int = 0     # in-flight requests re-driven to survivors
@@ -215,6 +227,19 @@ class ServeStats:
     degraded_steps: int = 0        # decode steps run below tier 0
     degrade_transitions: int = 0   # KV tier changes (spills + promotions)
     kv_tier_steps: tuple = ()      # decode steps per degradation tier
+    # the registry this snapshot was rebuilt from: it carries the
+    # per-priority and per-tier label breakdowns the flat fields sum away.
+    # Out of == and repr, so stats stay comparable across runs.
+    registry: Optional[object] = dataclasses.field(
+        default=None, repr=False, compare=False)
+
+    @classmethod
+    def from_registry(cls, reg, **own) -> "ServeStats":
+        """Snapshot view of a published metrics registry (the field
+        mapping is ``obs/serve_metrics.py``'s); ``own`` sets the port's
+        own fields."""
+        from repro_torch.obs.serve_metrics import stats_fields
+        return cls(registry=reg, **stats_fields(reg), **own)
 
 
 class ServeEngine:
@@ -258,6 +283,9 @@ class ServeEngine:
                                     if f in ("k", "v"))
                               if self.paged is not None else ())
         self.pool: Optional[PoolSession] = None  # built by init_decode_state
+        # the autotune stamp of ServeStats.tuned and the decode/chunk span:
+        # no autotuner yet (ROADMAP.md queue 1 item 7)
+        self.tuned = "untuned"
         self._page_bytes = 0.0
         self._prompt_step: Optional[PromptStep] = None  # built at first use
         if plan is not None:
@@ -305,6 +333,9 @@ class ServeEngine:
                      device=device, **kw)
         engine.plan = compiled.plan
         engine._draft_stamp = compiled.draft   # checked by _ensure_draft
+        obs.instant("engine/from_artifact",
+                    args={"directory": directory,
+                          "family": model.cfg.family})
         return engine
 
     # -- quantized KV cache ----------------------------------------------------

@@ -29,8 +29,9 @@ a freshly allocated private page at insert time (``cow_copies`` counts
 these). The hit is capped at ``prompt_len - 1`` so at least one prompt
 token always runs through the model to produce the next-token logits.
 
-A copy of the JAX package's ``serving/pool.py`` without its trace instants
-(the port has no observability layer yet). ``flush_prefix`` and
+A copy of the JAX package's ``serving/pool.py``, with its trace instants
+(``pool/cow-copy``, ``pool/prefix-hit``, on the owning replica's ``pid``;
+``repro_torch.obs``, off unless a tracer is installed). ``flush_prefix`` and
 ``rebuild`` (with ``PrefixCache.remap``) serve a live repack of the pool
 (graceful degradation, ``ServeEngine.apply_kv_plan``); a rebuilt allocator
 keeps the page map it was rebuilt through (``perm``), with which a match
@@ -45,6 +46,8 @@ from collections import OrderedDict
 from typing import Optional
 
 import numpy as np
+
+from repro_torch import obs
 
 
 class OutOfPages(RuntimeError):
@@ -202,6 +205,9 @@ class PoolSession:
         self._ref = np.zeros(num_pages + 1, np.int64)  # [0] = dump, unused
         self._slot_pages: dict[int, list[int]] = {}
         self.prefix = PrefixCache() if prefix_sharing else None
+        # trace pid: the owning session stamps its replica id, so prefix-hit
+        # and COW instants land on its process
+        self.pid = 0
         # stats
         self.peak_pages = 0
         self.cow_copies = 0
@@ -312,6 +318,7 @@ class PoolSession:
         if m.donor is not None:
             self._decref(m.donor)   # its rows are copied, not mapped
             self.cow_copies += 1
+            obs.instant("pool/cow-copy", self.pid, args={"slot": slot})
         row = np.zeros(self.n_log, np.int32)
         wrow = np.zeros(self.n_log, np.int32)
         row[:n_shared] = m.full_ids          # pinned refs transfer to slot
@@ -323,6 +330,8 @@ class PoolSession:
         if m.hit:
             self.prefix_hits += 1
             self.prefix_hit_tokens += m.hit
+            obs.instant("pool/prefix-hit", self.pid,
+                        args={"slot": slot, "tokens": m.hit})
         self.peak_pages = max(self.peak_pages, self.pages_in_use)
         return row, wrow
 
@@ -381,6 +390,7 @@ class PoolSession:
         if self.prefix is not None:
             ns.prefix = self.prefix.remap(perm)
         ns.peak_pages = self.peak_pages
+        ns.pid = self.pid
         ns.cow_copies = self.cow_copies
         ns.prefix_hits = self.prefix_hits
         ns.prefix_hit_tokens = self.prefix_hit_tokens

@@ -26,9 +26,15 @@ replica: its session aborts leak-free and every unfinished request
 re-drives onto the surviving replicas, where it prefills again from its
 prompt (greedy tokens unchanged).
 
+Telemetry (``repro_torch.obs``): a quarantine is a ``replica/failover``
+span on the failed replica's engine track, and counts
+``serve_replica_restarts_total``, ``serve_redriven_requests_total`` and a
+``serve_recovery_seconds`` sample on the installed registry; the
+aggregate's ``registry`` merges the replicas' run registries (per-replica
+labels) with the same failover events.
+
 Left out beside the reference: ``ReplicaServe.build`` over a device mesh
-(ROADMAP.md queue 1 item 10) and the merged metrics registry with its
-failover events (item 6).
+(ROADMAP.md queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.serving import chaos
 from repro_torch.serving.engine import ServeStats
 from repro_torch.serving.pool import OutOfPages
@@ -126,7 +133,7 @@ class ReplicaServe:
             for i, (eng, bucket) in enumerate(zip(self.engines, buckets))]
         alive = [True] * len(sessions)
         restarts, redriven = 0, 0
-        recovery: list[float] = []
+        failovers: list[tuple] = []    # (replica, recovery_s, orphans)
 
         def tick(i: int, phase: str) -> bool:
             """One session phase under the failover policy; False means
@@ -155,6 +162,8 @@ class ReplicaServe:
 
         def quarantine(i: int) -> None:
             nonlocal restarts, redriven
+            tr = obs.tracer()
+            span_t0 = tr.now_us() if tr is not None else 0.0
             t0 = time.perf_counter()
             orphans = sessions[i].abort()
             alive[i] = False
@@ -175,7 +184,18 @@ class ReplicaServe:
                     req, arrival_step=sessions[j].clock))
                 load[j] += len(req.prompt) + req.max_new_tokens
                 redriven += 1
-            recovery.append(time.perf_counter() - t0)
+            dt = time.perf_counter() - t0
+            failovers.append((i, dt, len(orphans)))
+            # a router-level event no session's publish covers: straight
+            # to the installed sinks
+            if tr is not None:
+                tr.complete("replica/failover", span_t0, i,
+                            args={"orphans": len(orphans),
+                                  "survivors": len(targets)})
+            obs.count("serve_replica_restarts_total", 1, replica=str(i))
+            obs.count("serve_redriven_requests_total", len(orphans),
+                      replica=str(i))
+            obs.observe("serve_recovery_seconds", dt, replica=str(i))
 
         try:
             while any(alive[i] and not s.done
@@ -198,14 +218,40 @@ class ReplicaServe:
         aggregate = dataclasses.replace(
             _merge_stats(outputs, per_replica),
             replica_restarts=restarts, redriven_requests=redriven,
-            recovery_p95_s=(float(np.percentile(recovery, 95))
-                            if recovery else 0.0))
+            recovery_p95_s=(float(np.percentile([f[1] for f in failovers],
+                                                95)) if failovers else 0.0),
+            registry=_merge_registries(per_replica, failovers))
         return outputs, ReplicaStats(
             replicas=len(self.engines),
             aggregate=aggregate,
             per_replica=per_replica,
             assignments=[len(b) for b in buckets],
             occupancy_per_replica=[st.occupancy for st in per_replica])
+
+
+def _merge_registries(per_replica: list, failovers: list):
+    """Roll the replicas' run registries into one and add the router's
+    failover events, which no session's publish covers. The result rides
+    on the aggregate's ``registry``, so its exposition carries per-replica
+    labels."""
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.obs.serve_metrics import SCHEMA
+    merged = MetricsRegistry()
+    for st in per_replica:
+        if st.registry is not None:
+            merged.merge(st.registry)
+    for i, dt, orphans in failovers:
+        r = str(i)
+        merged.counter("serve_replica_restarts_total",
+                       SCHEMA["serve_replica_restarts_total"][1]
+                       ).inc(1, replica=r)
+        merged.counter("serve_redriven_requests_total",
+                       SCHEMA["serve_redriven_requests_total"][1]
+                       ).inc(orphans, replica=r)
+        merged.histogram("serve_recovery_seconds",
+                         SCHEMA["serve_recovery_seconds"][1]
+                         ).observe(dt, replica=r)
+    return merged
 
 
 def _merge_stats(outputs: list, per_replica: list) -> ServeStats:
@@ -265,6 +311,7 @@ def _merge_stats(outputs: list, per_replica: list) -> ServeStats:
         cow_copies=sum(st.cow_copies for st in per_replica),
         kv_bytes_peak=sum(st.kv_bytes_peak for st in per_replica),
         requeues=sum(st.requeues for st in per_replica),
+        tuned=per_replica[0].tuned if per_replica else "untuned",
         watchdog_trips=sum(st.watchdog_trips for st in per_replica),
         degraded_steps=sum(st.degraded_steps for st in per_replica),
         degrade_transitions=sum(st.degrade_transitions

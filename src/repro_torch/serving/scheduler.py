@@ -1,5 +1,5 @@
 """Request lifecycle for the continuous-batching engine (the JAX
-package's ``serving/scheduler.py`` without its trace spans).
+package's ``serving/scheduler.py``).
 
 A request moves queued -> ready -> (reserved) -> assigned (slot) ->
 finished. The scheduler is pure host-side bookkeeping — all tensor state
@@ -23,6 +23,12 @@ The *reserved* state backs chunked prefill interleaving
 (serving/session.py): a slot whose request is still prefilling chunk by
 chunk holds the slot but is not yet decoding, so it must not count as an
 active slot (its DecodeState row still says done) nor be harvested.
+
+Each request's lifecycle is traced (``repro_torch.obs``, off unless a
+tracer is installed) on its own track of the owning replica's process
+(``pid``): ``request/queued`` -> ``request/prefill`` -> ``request/decode``
+spans, closed by a ``finish``, ``preempt`` or ``redrive`` instant, at the
+points the reference's scheduler emits them.
 """
 
 from __future__ import annotations
@@ -33,6 +39,8 @@ import time
 from typing import Optional
 
 import numpy as np
+
+from repro_torch import obs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,6 +114,9 @@ class Scheduler:
 
     def __init__(self, num_slots: int):
         self.num_slots = num_slots
+        # trace pid: the owning session stamps its replica id, so request
+        # lifecycle spans land on that replica's process
+        self.pid = 0
         # future arrivals, by simulated arrival step
         self._arrivals: list[tuple[int, int, Request]] = []
         # arrived and admissible, by (priority, arrival, fifo seq)
@@ -147,6 +158,10 @@ class Scheduler:
         self._seq += 1
         heapq.heappush(self._ready,
                        (req.priority, req.arrival_step, self._seq, req))
+        # every path into the ready queue (arrival, requeue, preemption,
+        # failed insert) opens or reopens the request's "queued" span
+        obs.request_phase(self.pid, req.rid, "queued",
+                          args={"priority": req.priority})
 
     def drop_reason(self, req: Request, clock: int,
                     queued: bool = False) -> Optional[str]:
@@ -191,6 +206,8 @@ class Scheduler:
 
     def _finish_unadmitted(self, req: Request, reason: str,
                            clock: int) -> None:
+        obs.request_done(self.pid, req.rid, "finish",
+                         args={"reason": reason})
         self._count_drop(reason)
         self._ready_wall.pop(req.rid, None)
         self.finished.append(RequestOutput(
@@ -260,6 +277,8 @@ class Scheduler:
         assert self._slots[slot] is None and slot not in self._reserved, \
             f"slot {slot} busy"
         wall = time.perf_counter() if wall is None else wall
+        obs.request_phase(self.pid, req.rid, "prefill",
+                          args={"slot": slot})
         self._reserved[slot] = req
         self._admitted_step[req.rid] = clock
         self._admitted_wall[req.rid] = wall
@@ -274,6 +293,8 @@ class Scheduler:
         req = self._reserved.pop(slot)
         assert self._slots[slot] is None, f"slot {slot} busy"
         self._slots[slot] = req
+        obs.request_phase(self.pid, req.rid, "decode",
+                          args={"slot": slot})
 
     def assign(self, slot: int, req: Request, clock: int,
                wall: Optional[float] = None) -> None:
@@ -294,7 +315,10 @@ class Scheduler:
             # full wait, not just the tail after this failed attempt
             if delay is not None and delay[1] is not None and wall is not None:
                 self._ready_wall[req.rid] = wall - delay[1]
-            self._push_ready(req)
+            self._push_ready(req)  # reopens the queued span
+        else:
+            obs.request_done(self.pid, req.rid, "finish",
+                             args={"reason": "unreserved"})
         return req
 
     def reserved_slots(self) -> list[tuple[int, Request]]:
@@ -307,6 +331,8 @@ class Scheduler:
         """A prefilling request was cancelled / deadlined: finalize it
         with no generated tokens (the caller unpins any prefix match)."""
         req = self._reserved.pop(slot)
+        obs.request_done(self.pid, req.rid, "finish",
+                         args={"reason": reason})
         self._count_drop(reason)
         delay = self._queue_delay.pop(req.rid, (None, None))
         self.finished.append(RequestOutput(
@@ -338,7 +364,9 @@ class Scheduler:
             self._ready_wall[req.rid] = time.perf_counter()
         self._preempt_count[req.rid] = self._preempt_count.get(req.rid, 0) + 1
         self.preemptions += 1
-        self._push_ready(req)
+        obs.request_done(self.pid, req.rid, "preempt",
+                         args={"slot": slot})
+        self._push_ready(req)      # reopens the queued span
         return req
 
     def preempt_victim(self, priority: int) -> Optional[int]:
@@ -373,6 +401,8 @@ class Scheduler:
         req = self._slots[slot]
         assert req is not None
         self._slots[slot] = None
+        obs.request_done(self.pid, req.rid, "finish",
+                         args={"reason": finish_reason})
         if finish_reason in ("cancelled", "timeout", "deadline"):
             self._count_drop(finish_reason)
         admit_wall = self._admitted_wall.pop(req.rid, None)
@@ -426,6 +456,10 @@ class Scheduler:
         self._ready = []
         self._reserved.clear()
         self._slots = [None] * self.num_slots
+        for req in out:
+            # closes whatever phase span is open; the re-drive opens a
+            # fresh queued span on the surviving replica's pid
+            obs.request_done(self.pid, req.rid, "redrive")
         for req in out:
             for d in (self._ready_wall, self._admitted_step,
                       self._admitted_wall, self._first_token_wall,

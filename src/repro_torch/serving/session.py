@@ -51,8 +51,22 @@ pool were full. ``watchdog_s`` counts decode gaps longer than that
 sites, to the harvest (the reference starts it after them, at the chunk's
 launch), so a stalled tick shows in the gap and trips the watchdog.
 
-Left out beside the reference: the tracer, profile and metrics registry
-(ROADMAP.md queue 1 item 6); ``finalize`` builds ``ServeStats`` directly.
+Telemetry (``repro_torch.obs``, off unless installed): the session stamps
+its replica id on the scheduler and the pool (the trace pid) and names the
+trace process before the first submit. Each tick is a ``tick/dispatch``
+and a ``tick/harvest`` span; each decode chunk a ``decode/chunk`` span on
+the decode track, from the tick's start (where the port's gap starts) to
+its harvest, with its steps, KV tier and ``tuned`` stamp; a spec chunk a
+``spec/round`` instant with its counters (read at the harvest, only when
+tracing); a tier transition an ``engine/apply_kv_plan`` span and a
+``degrade/transition`` instant. An installed ``ProfileHooks`` ticks at
+each dispatch, and with device fences the chunk's launch is bracketed by
+two CUDA events on the stream it (or its graph replay) runs on, and waited
+for: ``device_ms`` and ``host_gap_ms`` (the gap less the device time) go
+to the span and to the registry. ``finalize`` publishes the run into a
+fresh registry (``obs/serve_metrics.py``), merges it into an installed
+one, closes a profile window and returns ``ServeStats.from_registry`` with
+the port's own fields set beside the view.
 """
 
 from __future__ import annotations
@@ -64,14 +78,11 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.serving import chaos
 from repro_torch.serving.pool import OutOfPages
 from repro_torch.serving.scheduler import Request, Scheduler, SLOConfig
 from repro_torch.serving.spec import SpecMetrics
-
-
-def _pct(vals: list, q: float) -> float:
-    return float(np.percentile(vals, q)) if vals else 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,7 +131,19 @@ class ServeSession:
         self.slo = slo
         self.spec = engine.spec is not None
         self.sched = Scheduler(num_slots)
+        # the trace pid goes on every emitter before the first submit, so
+        # request spans and pool instants land on this replica's process
         self.replica_id = replica_id
+        self.sched.pid = replica_id
+        if engine.pool is not None:
+            engine.pool.pid = replica_id
+        _tr = obs.tracer()
+        if _tr is not None:
+            _tr.set_process_name(replica_id, f"replica{replica_id}")
+        self.device_times: list[float] = []   # fenced device s per chunk
+        self.host_gaps: list[float] = []      # gap - device s per chunk
+        self._device_s: Optional[float] = None
+        self._pending_spec = None             # a traced chunk's counters
         for r in requests:
             if self.spec:
                 engine._spec_budget_check(len(r.prompt), r.max_new_tokens)
@@ -173,7 +196,22 @@ class ServeSession:
     # -- tick phase 1: policy + launches --------------------------------------
     def dispatch(self) -> None:
         """Admissions, SLO enforcement, one chunk of every in-flight
-        prefill, and the next decode chunk. Never waits for the device."""
+        prefill, and the next decode chunk. Never waits for the device
+        (unless profiler fences are armed)."""
+        pf = obs.profile()
+        if pf is not None:
+            pf.tick(self.clock)
+        tr = obs.tracer()
+        if tr is None:
+            self._dispatch()
+            return
+        tr.begin("tick/dispatch", self.replica_id)
+        try:
+            self._dispatch()
+        finally:
+            tr.end("tick/dispatch", self.replica_id)
+
+    def _dispatch(self) -> None:
         eng, sched = self.engine, self.sched
         self._dispatched = False
         now = time.perf_counter()
@@ -212,11 +250,20 @@ class ServeSession:
         # ahead of the chunk counts: the host dispatches it eagerly, where
         # the reference's asynchronous launch queued it before the chunk
         self._chunk_t0 = now
+        pf = obs.profile()
+        fence = (pf.fence_start(eng.device)
+                 if pf is not None and pf.device_fences else None)
         if self.spec and self.tier == 0:
             self.state, m = eng.decode_chunk(self.state, self.chunk)
             self.spec_m = self.spec_m.plus(m)
+            if obs.tracer() is not None:
+                self._pending_spec = m     # read at the harvest
         else:
             eng.decode_chunk(self.state, self.chunk, plain=True)
+        if fence is not None:
+            # the device's share of this chunk; the harvest takes it from
+            # the gap to leave the host's
+            self._device_s = pf.fence_end(eng.device, fence)
         self.clock += self.chunk
         self.tier_steps[self.tier] += self.chunk
         if self.tier:
@@ -252,10 +299,18 @@ class ServeSession:
     def _transition(self, tier: int) -> bool:
         """Repack the engine's pool at the target tier (False when the
         engine refuses: a promotion without room for the live pages)."""
+        tr = obs.tracer()
+        t0 = tr.now_us() if tr is not None else 0.0
         state = self.engine.apply_kv_plan(self.state, self._ladder[tier])
         if state is None:
             return False
         self.state = state
+        if tr is not None:
+            tr.complete("engine/apply_kv_plan", t0, self.replica_id,
+                        args={"from_tier": self.tier, "to_tier": tier})
+        obs.instant("degrade/transition", self.replica_id,
+                    args={"from_tier": self.tier, "to_tier": tier,
+                          "clock": self.clock})
         # an in-flight chunked prefill's pinned prefix pages moved with
         # the repack (a shrink compacts them): its match follows them
         for task in self.tasks.values():
@@ -270,17 +325,50 @@ class ServeSession:
     # -- tick phase 2: the one blocking read -----------------------------------
     def harvest(self) -> None:
         """Read back the chunk ``dispatch`` launched and complete slots."""
+        tr = obs.tracer()
+        if tr is None:
+            self._harvest()
+            return
+        tr.begin("tick/harvest", self.replica_id)
+        try:
+            self._harvest()
+        finally:
+            tr.end("tick/harvest", self.replica_id)
+
+    def _harvest(self) -> None:
         if not self._dispatched:
             return
         chaos.fire("replica.harvest", tag=self.replica_id)
         self._dispatched = False
-        sched = self.sched
+        eng, sched = self.engine, self.sched
+        if self._pending_spec is not None:
+            delta = dict(zip(self._pending_spec._fields,
+                             (int(v) for v in self._pending_spec)))
+            self._pending_spec = None
+            obs.instant("spec/round", self.replica_id, obs.DECODE_TRACK,
+                        args=delta)
         done_np = self.state.done.cpu().numpy()      # the one device read
         len_np = self.state.lengths.cpu().numpy()
         now = time.perf_counter()
         if self._chunk_t0 is not None:
             gap = now - self._chunk_t0
             self.gaps.append(gap)
+            tr = obs.tracer()
+            if tr is not None or self._device_s is not None:
+                args = {"steps": self.chunk, "tier": self.tier,
+                        "tuned": eng.tuned}
+                if self._device_s is not None:
+                    host = max(0.0, gap - self._device_s)
+                    self.device_times.append(self._device_s)
+                    self.host_gaps.append(host)
+                    args["device_ms"] = round(self._device_s * 1e3, 3)
+                    args["host_gap_ms"] = round(host * 1e3, 3)
+                    self._device_s = None
+                if tr is not None:
+                    # from the tick's start, where the port's gap starts
+                    tr.complete("decode/chunk", tr.now_us() - gap * 1e6,
+                                self.replica_id, obs.DECODE_TRACK,
+                                args=args)
             if self.watchdog_s is not None and gap > self.watchdog_s:
                 # an in-process stall cannot be preempted, so an overrun is
                 # counted rather than aborted mid-read
@@ -455,6 +543,8 @@ class ServeSession:
             eng.release(self.state, slot)
         survivors = sched.drain_unfinished()
         self._dispatched = False
+        self._pending_spec = None
+        self._device_s = None
         if eng.pool is not None:
             eng.pool.check_invariants()
         self._back_to_tier0()
@@ -469,61 +559,70 @@ class ServeSession:
     # -- wrap-up -------------------------------------------------------------
     def finalize(self):
         """Outputs ordered by request id, and the run's ``ServeStats``
-        (call once, after ``done``)."""
+        (call once, after ``done``).
+
+        The run publishes into a fresh per-run registry
+        (``obs/serve_metrics.py``) and ``ServeStats`` is rebuilt from it
+        as a snapshot view, with the port's own fields (wall time,
+        tokens/s, mean TTFT, requeues) set beside it. An installed
+        registry (``obs.metrics()``) takes the run merged in, so serves in
+        turn accumulate with Prometheus counter semantics; an installed
+        profile's open window closes."""
+        from repro_torch.obs.metrics import MetricsRegistry
+        from repro_torch.obs.serve_metrics import publish_session
+        from repro_torch.quant.compiler import kv_tier_labels
         from repro_torch.serving.engine import ServeStats
+        from repro_torch.serving.spec.loop import obs_labels
         eng, sched = self.engine, self.sched
         wall = time.perf_counter() - self.t_start
         outputs = sorted(sched.finished, key=lambda o: o.rid)
         ttfts = [o.ttft_s for o in outputs if o.ttft_s is not None]
-        tpots = [o.tpot_s for o in outputs if o.tpot_s is not None]
-        qdel = [o.queue_delay_s for o in outputs
-                if o.queue_delay_s is not None]
         proposed, accepted, committed, rounds = (int(v) for v in self.spec_m)
-        pool_kw = {}
+        pool_kw = None
         if eng.pool is not None:
             pool = eng.pool
             pool.check_invariants()    # nothing leaked
             self._back_to_tier0()
             pool_kw = dict(
-                pool_pages_total=pool.num_pages,
-                pool_pages_peak=pool.peak_pages,
-                pool_page_size=pool.page_size,
+                pages_total=pool.num_pages,
+                pages_peak=pool.peak_pages,
+                page_size=pool.page_size,
                 prefix_hits=pool.prefix_hits,
                 prefix_hit_tokens=pool.prefix_hit_tokens,
-                prefix_hit_rate=(pool.prefix_hit_tokens / pool.prompt_tokens
-                                 if pool.prompt_tokens else 0.0),
+                prompt_tokens=pool.prompt_tokens,
                 cow_copies=pool.cow_copies,
                 kv_bytes_peak=(pool.peak_pages * eng._page_bytes
                                + self.num_slots
                                * eng._nonpaged_bytes_per_slot()))
-        stats = ServeStats(
-            decode_steps=len(self.occupancy) * self.chunk,
-            generated_tokens=self.generated,
+        local = MetricsRegistry()
+        publish_session(
+            local, replica=self.replica_id, outputs=outputs,
             occupancy=(float(np.mean(self.occupancy)) if self.occupancy
                        else 0.0),
-            num_chunks=len(self.occupancy), admissions=self.admissions,
-            wall_s=wall,
+            num_chunks=len(self.occupancy), chunk=self.chunk,
+            admissions=self.admissions, generated=self.generated,
+            prefill_chunks=self.prefill_chunks, gaps=self.gaps,
+            spec_m=dict(proposed=proposed, accepted=accepted,
+                        committed=committed, rounds=rounds),
+            spec_labels=(obs_labels(eng.spec) if self.spec else None),
+            watchdog_trips=self.watchdog_trips,
+            degraded_steps=self.degraded_steps,
+            transitions=len(self.transitions),
+            tier_steps=self.tier_steps,
+            tier_labels=kv_tier_labels(self._ladder),
+            tuned=eng.tuned, pool=pool_kw,
+            device_times=self.device_times, host_gaps=self.host_gaps)
+        installed = obs.metrics()
+        if installed is not None:
+            installed.merge(local)
+        pf = obs.profile()
+        if pf is not None:
+            pf.stop()
+        stats = ServeStats.from_registry(
+            local, wall_s=wall,
             tokens_per_s=self.generated / wall if wall > 0 else 0.0,
             ttft_mean_s=float(np.mean(ttfts)) if ttfts else 0.0,
-            ttft_p50_s=_pct(ttfts, 50), ttft_p95_s=_pct(ttfts, 95),
-            tpot_p50_s=_pct(tpots, 50), tpot_p95_s=_pct(tpots, 95),
-            queue_delay_p50_s=_pct(qdel, 50),
-            queue_delay_p95_s=_pct(qdel, 95),
-            preemptions=sum(o.preempted for o in outputs),
-            timeouts=sum(o.finish_reason == "timeout" for o in outputs),
-            cancelled=sum(o.finish_reason == "cancelled" for o in outputs),
-            prefill_chunks=self.prefill_chunks,
-            decode_gap_p50_s=_pct(self.gaps, 50),
-            decode_gap_p95_s=_pct(self.gaps, 95),
-            decode_gap_max_s=max(self.gaps) if self.gaps else 0.0,
-            spec_rounds=rounds, draft_proposed=proposed,
-            draft_accepted=accepted,
-            acceptance_rate=accepted / proposed if proposed else 0.0,
-            tokens_per_round=committed / rounds if rounds else 0.0,
-            requeues=self.requeues, watchdog_trips=self.watchdog_trips,
-            degraded_steps=self.degraded_steps,
-            degrade_transitions=len(self.transitions),
-            kv_tier_steps=tuple(self.tier_steps), **pool_kw)
+            requeues=self.requeues)
         return outputs, stats
 
     @torch.no_grad()

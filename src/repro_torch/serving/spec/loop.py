@@ -99,6 +99,12 @@ class SpecConfig:
                     "cache segmentation must match the full target stack")
 
 
+def obs_labels(cfg: SpecConfig) -> dict:
+    """Metric labels of the spec counters (``obs/serve_metrics.py``): the
+    two knobs that change the acceptance / throughput trade-off."""
+    return {"k": str(cfg.k), "source": cfg.draft_source}
+
+
 class SpecMetrics(NamedTuple):
     """Counters summed over rounds and slots (0-d device tensors, read by
     the host once per chunk)."""

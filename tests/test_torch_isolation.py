@@ -1,7 +1,10 @@
 """The PyTorch port stands alone: no JAX, no ``ml_dtypes`` (the card's
 machine has none; bf16 goes to and from disk through a uint16 view), no
-import of the JAX package, and no quiet fallback from the GPU to the CPU."""
+import of the JAX package (the observability layer, ``repro_torch.obs``,
+included), and no quiet fallback from the GPU to the CPU. Its launcher
+traces, meters and profiles a serve in a process that never loads JAX."""
 
+import json
 import pathlib
 import re
 import subprocess
@@ -46,6 +49,77 @@ _FORBIDDEN = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\."
 def test_source_never_imports_jax_or_reference(path):
     src = (ROOT / path).read_text()
     assert not _FORBIDDEN.search(src), path
+
+
+def test_scans_cover_the_obs_package():
+    """The import and source scans above reach the observability layer:
+    each of its modules, the facade included."""
+    obs = {"repro_torch.obs.metrics", "repro_torch.obs.trace",
+           "repro_torch.obs.profile", "repro_torch.obs.serve_metrics",
+           "repro_torch.obs.render"}
+    assert obs <= set(_MODULES)
+    assert (PORT / "obs" / "__init__.py").is_file()
+
+
+def _open_spans(events: list) -> list:
+    """Replays a Chrome trace's B/E events per (pid, tid) track and returns
+    what is left open."""
+    stacks: dict = {}
+    for ev in events:
+        key = (ev["pid"], ev["tid"])
+        if ev["ph"] == "B":
+            stacks.setdefault(key, []).append(ev["name"])
+        elif ev["ph"] == "E":
+            assert stacks.get(key) and stacks[key][-1] == ev["name"], ev
+            stacks[key].pop()
+    return [(k, n) for k, names in stacks.items() for n in names]
+
+
+def test_launcher_writes_trace_metrics_and_profile(tmp_path):
+    """The port's launcher on the smoke config with --trace-out,
+    --metrics-out and --profile-steps, in a process that never loads JAX:
+    the trace reads back with every span closed and a decode/chunk span a
+    chunk carrying its device / host split, the Prometheus text and its
+    JSON snapshot agree, and the profiler window wrote its trace."""
+    trace, prom = tmp_path / "trace.json", tmp_path / "metrics.prom"
+    prof_dir = tmp_path / "profile"
+    code = ("import sys\n"
+            "from repro_torch.launch.serve import main\n"
+            f"main(['--arch', 'llama3.2-3b', '--smoke', '--device', 'cpu', "
+            f"'--trace-out', {str(trace)!r}, '--metrics-out', "
+            f"{str(prom)!r}, '--profile-steps', '8:24', '--profile-dir', "
+            f"{str(prof_dir)!r}])\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+            "print('LOADED', ','.join(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin",
+                              "TMPDIR": str(tmp_path)})
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "LOADED \n" in out.stdout, out.stdout[-2000:]
+    assert "served 8 requests" in out.stdout
+    events = json.loads(trace.read_text())["traceEvents"]
+    assert _open_spans(events) == []
+    chunks = [e for e in events if e["name"] == "decode/chunk"]
+    finishes = [e for e in events if e["name"] == "request/finish"]
+    assert len(finishes) == 8 and chunks
+    for e in chunks:
+        assert 0 < e["args"]["device_ms"] and e["args"]["host_gap_ms"] >= 0
+    text = prom.read_text()
+    snap = json.loads((tmp_path / "metrics.prom.json").read_text())
+    assert "# TYPE serve_generated_tokens_total counter" in text
+    assert set(snap) == {line.split()[2] for line in text.splitlines()
+                         if line.startswith("# TYPE ")}
+    gen = snap["serve_generated_tokens_total"]["samples"][0]["value"]
+    assert f'serve_generated_tokens_total{{replica="0"}} {int(gen)}' in text
+    assert snap["serve_decode_chunks_total"]["samples"][0]["value"] == \
+        len(chunks)
+    assert snap["serve_device_time_seconds"]["samples"][0]["count"] == \
+        len(chunks)
+    (window,) = list(prof_dir.glob("*.json"))
+    assert json.loads(window.read_text())["traceEvents"]
 
 
 def test_engine_without_gpu_raises(monkeypatch):
