@@ -76,6 +76,29 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    versions with only the order of their f32 sums changed, and the kernels
    on params with one int4 layer's nibbles swapped (a planted fault the
    limit must catch).
+4k. (after 4, before 4b) FastEWQ, the paper's second method, on phase 4's
+   llama3.2-3b FULL model, params, requests and EWQ plan (no second
+   load or analysis; ``serve_fastewq``). (a) A random forest trained by
+   ``train_fastewq`` on 30 seeded models shaped like the paper's dataset
+   (``fastewq_rows``, ~700 block rows): held-out accuracy beside the
+   majority baseline, ``evaluate_all_classifiers``' accuracy and AUC for
+   the six classifiers, the forest's feature importances. (b) The
+   classifier's plan of llama from its block sizes alone (host us beside
+   phase 4's EWQ analysis s), its block agreement with the EWQ plan
+   (quantized or not: the paper's measure; no limit, the weights are
+   seeded random), compiled and served from CUDA graphs with int8 KV: 32
+   valid tokens a request, every kernel its precisions reach launched,
+   its weight bytes beside the plan's and the EWQ run's. (c) Algorithm 2
+   (``fastewq_resource_adjust``) of that plan against the card's memory,
+   and of grok-1-314b's and arctic-480b's FastEWQ plans at full depth
+   from meta-device sizes (no byte allocated, asserted). (d) Algorithm 1
+   (``fit_plan_to_hbm``) of the EWQ plan to a 3 GiB weight budget (4 GiB
+   less a quarter), which demotes blocks: compiled (the plan's bytes,
+   ``weight_bytes`` and the rise of ``memory_allocated`` across the
+   compile, each at most 3 GiB, beside the bytes the engine's tensors
+   hold) and served from graphs as in (b). (e) The FastEWQ KV spill
+   ladder of llama from an int8 base at (b)'s engine's cuts: each tier
+   lower than the last, the last all int4.
 4b. speculative serve: the EWQ plan with int8 KV and SpecConfig(k=4),
    once with the int4 self-draft (fused propose) and once with the ngram
    draft, on the same requests, each from CUDA graphs and eagerly (equal to
@@ -1632,7 +1655,6 @@ def cache_tensors(cache) -> list:
 def serve_full_width(torch, build, report: dict, smoke: bool = False,
                      device: str = "cuda") -> dict:
     """Phase 4 (``smoke``/``device`` rehearse it at SMOKE size on a CPU)."""
-    import numpy as np
     from repro_torch.configs.registry import get_config
     from repro_torch.models.model import build as build_model
     from repro_torch.quant.kvcache import clone_cache
@@ -1661,8 +1683,8 @@ def serve_full_width(torch, build, report: dict, smoke: bool = False,
         t0 = time.perf_counter()
         ewq = plan_for_variant(model, params, "4bit/8bit")
         sync()
-        log(f"serve: EWQ analysis on the card "
-            f"({time.perf_counter() - t0:.1f} s): "
+        ewq_s = time.perf_counter() - t0
+        log(f"serve: EWQ analysis on the card ({ewq_s:.1f} s): "
             f"4bit/8bit plan counts {ewq.counts()} "
             f"precisions {ewq.precisions()}")
         tiers = ["raw", "int8", "int4", "ternary"]
@@ -1693,13 +1715,7 @@ def serve_full_width(torch, build, report: dict, smoke: bool = False,
             counts = dict(build.LAUNCHES)
             for k, v in counts.items():
                 launches[k] += v
-            for o in outs:
-                gen_toks = o.generated
-                if (len(gen_toks) != 32 or gen_toks.min() < 0
-                        or gen_toks.max() >= cfg.vocab_size
-                        or not np.all(np.isfinite(o.logprobs))):
-                    raise AssertionError(f"{label}: bad output for request "
-                                         f"{o.rid}: {gen_toks}")
+            check_outputs(label, outs, cfg.vocab_size)
             run = dict(run=label, kv=kv, cuda_graphs=engine.graphs is not None,
                        requests=len(outs),
                        generated=stats.generated_tokens,
@@ -1776,7 +1792,8 @@ def serve_full_width(torch, build, report: dict, smoke: bool = False,
             raise AssertionError(f"the logit limit {LOGIT_REL_L2} misses a "
                                  f"planted fault (relative L2 {rel_fault})")
 
-        report.update(runs=runs, launches=launches, logit_rel_l2=rel,
+        report.update(runs=runs, launches=launches, ewq_analysis_s=ewq_s,
+                      logit_rel_l2=rel,
                       logit_rel_l2_unrounded=rel_unrounded,
                       logit_rel_l2_reordered=rel_reordered,
                       logit_rel_l2_planted_fault=rel_fault,
@@ -1785,6 +1802,11 @@ def serve_full_width(torch, build, report: dict, smoke: bool = False,
         if device == "cuda":
             decode_step_times(torch, model, eng, state, toks, report)
         eng = engine = state = None
+    with phase(report, "4k llama FastEWQ"):
+        fast_launches = serve_fastewq(torch, build, report, model, params,
+                                      ewq, prompts, smoke, device)
+    for k, v in fast_launches.items():
+        launches[k] += v
     with phase(report, "4b llama spec"):
         spec_launches, spec_outs, draft_stamp = serve_speculative(
             torch, build, report, model, params, ewq, prompts, base_outs,
@@ -1824,6 +1846,297 @@ def serve_full_width(torch, build, report: dict, smoke: bool = False,
             raise AssertionError(f"kernel {k} never launched on llama's "
                                  "serve and analysis paths")
     return launches
+
+
+FIT_HBM = 4 * 2**30      # 4d's device memory for Algorithm 1, bytes
+FIT_RESERVED = 0.25      # its share kept for activations and caches
+FASTEWQ_ARCHS = ("grok-1-314b", "arctic-480b")   # 4k (c) at full depth
+
+
+def fastewq_rows(n_models: int = 30, seed: int = 0) -> list:
+    """Block rows shaped like the paper's FastEWQ dataset (the JAX
+    package's tests/test_fastewq.py ``_synthetic_rows``): later and larger
+    blocks quantize more often."""
+    import numpy as np
+    from repro_torch.core.dataset import BlockRow
+    rng = np.random.default_rng(seed)
+    rows = []
+    for m in range(n_models):
+        nb = int(rng.integers(8, 40))
+        base = rng.uniform(3e7, 5e8)
+        for i in range(nb):
+            size = int(base * rng.uniform(0.8, 1.2))
+            rel = i / nb
+            p_q = 0.05 + 0.9 * rel  # exec_index dominates (paper: 66%)
+            q = int(rng.random() < p_q)
+            rows.append(BlockRow(model_name=f"m{m}", num_blocks=nb,
+                                 exec_index=i + 1, num_parameters=size,
+                                 quantization_type="8-bit" if q else "raw",
+                                 quantized=q))
+    return rows
+
+
+def block_sizes(model, params) -> list:
+    """Each block's parameter count as EWQ counts it (its matrices), in
+    ``compile_plan``'s block order; ``params`` may lie on the meta
+    device."""
+    from repro_torch.core.entropy import flatten_block_params
+    return [sum(w.numel() for w in flatten_block_params(b).values()
+                if w.ndim >= 2) for b in model.block_params(params)]
+
+
+def held_bytes(params, raw) -> tuple[int, int]:
+    """(bytes every tensor of a compiled tree holds, ternary at its 8-bit
+    carrier; of those, the bytes of views into ``raw``'s storage)."""
+    from repro_torch.quant.apply import SegmentedParams
+    from repro_torch.quant.qtypes import QTensor
+    from repro_torch.tree import tree_leaves
+    raw_ptrs = {t.untyped_storage().data_ptr() for t in tree_leaves(raw)}
+    total = shared = 0
+    for v in params.values():
+        trees = ([g.params for g in v.segments]
+                 if isinstance(v, SegmentedParams) else [v])
+        for leaf in (x for t in trees for x in tree_leaves(t)):
+            for t in ((leaf.data, leaf.scale) if isinstance(leaf, QTensor)
+                      else (leaf,)):
+                n = t.numel() * t.element_size()
+                total += n
+                if t.untyped_storage().data_ptr() in raw_ptrs:
+                    shared += n
+    return total, shared
+
+
+def plan_kernels(plan) -> tuple:
+    """The kernels a dense plan's precisions reach in a serve with an int8
+    (or int4) dense cache: decode attention always, the attention and MLP
+    kernels for a quantized layer, qmatmul for a quantized (tied)
+    embedding's lm_head."""
+    precs = plan.precisions()
+    need = ["decode_attn"]
+    if any(p != "raw" for p in precs[1:]):
+        need += ["qkv", "qmlp", "qmatmul"]
+    elif precs[0] != "raw":
+        need.append("qmatmul")
+    return tuple(need)
+
+
+def fastewq_serve(torch, build, launches: dict, label: str, model, params,
+                  plan, prompts, device: str) -> tuple:
+    """The plan compiled into a graph engine with int8 KV and phase 4's
+    requests served (launch counts from 0 just before the serve): valid
+    outputs, every kernel of ``plan_kernels`` launched. Returns the run's
+    readings and the engine."""
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.scheduler import Request
+    fresh_memory(torch, device)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
+    before = torch.cuda.memory_allocated() if device == "cuda" else None
+    t0 = time.perf_counter()
+    engine = ServeEngine(model, params, max_seq=1024, plan=plan,
+                         kv_precision="int8", device=device)
+    sync()
+    compile_s = time.perf_counter() - t0
+    rise = (torch.cuda.memory_allocated() - before
+            if device == "cuda" else None)
+    requests = [Request(rid=i, prompt=p, max_new_tokens=32)
+                for i, p in enumerate(prompts)]
+    need = plan_kernels(plan)
+    outs, stats = _counted(
+        build, launches, label, lambda: engine.serve(
+            requests, num_slots=SLOTS, chunk=CHUNK), device, path=need)
+    check_outputs(label, outs, model.cfg.vocab_size)
+    held, shared = held_bytes(engine.params, params)
+    run = dict(run=label, kv="int8", cuda_graphs=engine.graphs is not None,
+               counts=plan.counts(), precisions=plan.precisions(),
+               plan_total_bytes=plan.total_bytes(),
+               weight_bytes=engine.weight_bytes(),
+               allocated_rise_bytes=rise, held_bytes=held,
+               held_raw_view_bytes=shared, compile_s=compile_s,
+               tokens_per_s=stats.tokens_per_s, wall_s=stats.wall_s,
+               generated=stats.generated_tokens, kernels_needed=list(need))
+    log(f"fastewq: {label}: " + json.dumps(run))
+    return run, engine
+
+
+def serve_fastewq(torch, build, report: dict, model, params, ewq, prompts,
+                  smoke: bool, device: str) -> dict:
+    """Phase 4k (see the module docstring); returns its launch counts."""
+    import numpy as np
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.cluster import (Machine, fastewq_resource_adjust,
+                                          fit_plan_to_hbm)
+    from repro_torch.core.dataset import to_xy, train_test_split
+    from repro_torch.core.fastewq import evaluate_all_classifiers, train_fastewq
+    from repro_torch.models.model import build as build_model
+    from repro_torch.quant.compiler import (compile_kv_plan,
+                                            degrade_kv_ladder, kv_tier_labels)
+    card = report.get("nvidia_smi", f"{device} (no card)")
+    launches = {k: 0 for k in build.LAUNCHES}
+    out: dict = {"card": card}
+    report["fastewq"] = out
+
+    # (a) the classifier
+    t0 = time.perf_counter()
+    rows = fastewq_rows()
+    fq = train_fastewq(rows, classifier="random forest", full_dataset=False,
+                       seed=0)
+    train_s = time.perf_counter() - t0
+    x, y = to_xy(rows)
+    _, _, xte, yte = train_test_split(x, y, 0.3, 0)
+    acc = float((fq.clf.predict(fq.scaler.transform(xte)) == yte).mean())
+    majority = float(max(yte.mean(), 1 - yte.mean()))
+    t0 = time.perf_counter()
+    table = evaluate_all_classifiers(rows, seed=0)
+    classifiers = {k: dict(accuracy=v["accuracy"], auc=v["auc"])
+                   for k, v in table.items()}
+    out.update(rows=len(rows), train_s=train_s,
+               evaluate_s=time.perf_counter() - t0, heldout_accuracy=acc,
+               majority_baseline=majority, classifiers=classifiers,
+               rf_feature_importances=table["random forest"][
+                   "feature_importances"])
+    log(f"fastewq: (a) random forest on {len(rows)} seeded rows: held-out "
+        f"accuracy {acc:.4f} against the majority baseline {majority:.4f} "
+        f"[{card}]")
+    log(f"fastewq: (a) six classifiers (accuracy, AUC): "
+        + json.dumps(classifiers))
+    log(f"fastewq: (a) random forest feature importances "
+        + json.dumps(out["rf_feature_importances"]))
+    if acc <= majority:
+        raise AssertionError(f"FastEWQ's forest ({acc}) does not beat the "
+                             f"majority baseline ({majority})")
+
+    # (b) the FastEWQ plan of llama from its sizes, compiled and served
+    cfg = model.cfg
+    sizes = block_sizes(model, params)
+    if sizes != [d.num_parameters for d in ewq.decisions]:
+        raise AssertionError("block sizes differ from the EWQ plan's")
+    t0 = time.perf_counter()
+    fast = fq.plan(sizes, variant="4bit/8bit")
+    decide_us = (time.perf_counter() - t0) * 1e6
+    agree = float(np.mean([f.quantized == e.quantized for f, e in
+                           zip(fast.decisions, ewq.decisions)]))
+    same = float(np.mean([f.precision == e.precision for f, e in
+                          zip(fast.decisions, ewq.decisions)]))
+    log(f"fastewq: (b) plan of {cfg.name} from {len(sizes)} block sizes in "
+        f"{decide_us:.0f} host us, beside phase 4's EWQ analysis "
+        f"{report['ewq_analysis_s']:.3f} s; counts {fast.counts()}; "
+        f"quantized-or-not agreement with the EWQ plan {agree:.4f} "
+        f"(precision agreement {same:.4f}) [{card}]")
+    fast_run, fast_engine = fastewq_serve(torch, build, launches,
+                                          "fastewq-4bit/8bit", model, params,
+                                          fast, prompts, device)
+    ewq_bytes = next(r["weight_bytes"] for r in report["runs"]
+                     if r["run"] == "ewq-4bit/8bit")
+    log(f"fastewq: (b) weight bytes {fast_run['weight_bytes']:.0f} "
+        f"(plan {fast.total_bytes():.0f}) beside the EWQ run's "
+        f"{ewq_bytes:.0f}; {fast_run['tokens_per_s']:.2f} tokens/s [{card}]")
+    out.update(decide_us=decide_us, ewq_analysis_s=report["ewq_analysis_s"],
+               block_agreement=agree, precision_agreement=same,
+               fast_run=fast_run, ewq_weight_bytes=ewq_bytes)
+
+    cuts = fast_engine._kv_cuts()      # for (e)
+    fast_engine = None
+
+    # (c) Algorithm 2 against the card's memory
+    if device == "cuda":
+        _, total = torch.cuda.mem_get_info()
+    else:
+        total = 2 * ewq.raw_bytes()     # the rehearsal's stand-in budget
+    machine = Machine("h100", total, total)
+    adjust = {}
+
+    def algorithm2(name, plan):
+        res = fastewq_resource_adjust(plan, [machine])
+        adjust[name] = dict(fits=res["fits"], total_bytes=res["total_bytes"],
+                            budget=res["budget"],
+                            counts=res["plan"].counts(),
+                            classifier_counts=plan.counts())
+        log(f"fastewq: (c) Algorithm 2, {name}: fits {res['fits']} at "
+            f"{res['total_bytes']:.0f} of {res['budget']:.0f} bytes, counts "
+            f"{res['plan'].counts()} (classifier {plan.counts()}) [{card}]")
+
+    algorithm2(cfg.name, fast)
+    for arch in FASTEWQ_ARCHS:
+        before = torch.cuda.memory_allocated() if device == "cuda" else 0
+        big = build_model(get_config(arch))
+        meta = big.init(torch.Generator(), "meta")
+        big_sizes = block_sizes(big, meta)
+        meta = None
+        after = torch.cuda.memory_allocated() if device == "cuda" else 0
+        if after != before:
+            raise AssertionError(f"{arch}'s meta-device sizes allocated "
+                                 f"{after - before} bytes")
+        algorithm2(f"{arch} ({big.cfg.num_layers} layers)",
+                   fq.plan(big_sizes, variant="4bit/8bit"))
+    out["algorithm2"] = adjust
+
+    # (d) Algorithm 1 to a weight budget that forces demotion
+    hbm = FIT_HBM if not smoke else ewq.total_bytes() * 0.6 / (
+        1 - FIT_RESERVED)
+    budget = hbm * (1 - FIT_RESERVED)
+    fitted = fit_plan_to_hbm(ewq, hbm_bytes_per_device=hbm, devices=1,
+                             reserved_fraction=FIT_RESERVED)
+    if fitted.total_bytes() > budget or \
+            fitted.total_bytes() >= ewq.total_bytes():
+        raise AssertionError(f"Algorithm 1 did not demote to the budget: "
+                             f"{fitted.total_bytes()} of {budget}")
+    fit_run, _ = fastewq_serve(torch, build, launches, "fit-3GiB", model,
+                               params, fitted, prompts, device)
+    measured = {"weight_bytes": fit_run["weight_bytes"],
+                "allocated_rise_bytes": fit_run["allocated_rise_bytes"]}
+    for k, v in measured.items():
+        if v is not None and v > budget:
+            raise AssertionError(f"the fitted plan's {k} {v} exceed the "
+                                 f"budget {budget}")
+    rise = fit_run["allocated_rise_bytes"]
+    if rise is not None and abs(fit_run["held_bytes"] - fit_run[
+            "held_raw_view_bytes"] - rise) > 0.01 * rise:
+        raise AssertionError(f"the compile's rise {rise} is not the bytes "
+                             f"its new tensors hold")
+    out.update(fit_budget=budget, fit_hbm=hbm, fit_run=fit_run)
+    held = fit_run["held_bytes"]
+    log(f"fastewq: (d) Algorithm 1 to {budget:.0f} bytes: counts "
+        f"{fitted.counts()}, plan {fitted.total_bytes():.0f}, weight_bytes "
+        f"{fit_run['weight_bytes']:.0f}, allocated rise {rise}; the "
+        f"engine's tensors hold {held} bytes "
+        f"({'over' if held > budget else 'within'} the budget: ternary "
+        f"rides an 8-bit carrier; {fit_run['held_raw_view_bytes']} of them "
+        f"are views of the raw params); {fit_run['tokens_per_s']:.2f} "
+        f"tokens/s [{card}]")
+
+    # (e) the FastEWQ KV spill ladder, at the FastEWQ engine's cuts
+    base = compile_kv_plan(cfg, None, "int8")
+    ladder = degrade_kv_ladder(cfg, None, base, fastewq=fq,
+                               block_sizes=sizes[1:], cuts=cuts)
+    labels = kv_tier_labels(ladder)
+    rank = {"bf16": 2, "int8": 1, "int4": 0}
+    tiers = [[rank[p] for p in kv.precisions] for kv in ladder]
+    if ladder[-1].precisions != ("int4",) * cfg.num_layers or len(tiers) < 2:
+        raise AssertionError(f"FastEWQ ladder does not end all int4: {labels}")
+    for lo, hi in zip(tiers[1:], tiers[:-1]):
+        if any(a > b for a, b in zip(lo, hi)) or sum(lo) >= sum(hi):
+            raise AssertionError(f"a FastEWQ tier does not lower the "
+                                 f"precision: {labels}")
+    out["ladder"] = dict(labels=labels, cuts=list(cuts),
+                         tiers=[list(kv.precisions) for kv in ladder],
+                         spill_order=fq.kv_spill_order(sizes[1:]))
+    log(f"fastewq: (e) KV ladder from int8 at cuts {list(cuts)}: {labels}; "
+        f"tier 1 {list(ladder[1].precisions)}")
+    return launches
+
+
+def check_outputs(label: str, outs, vocab: int, max_new: int = 32) -> None:
+    """Each request generated ``max_new`` tokens in the vocabulary, with
+    finite log-probs."""
+    import numpy as np
+    for o in outs:
+        gen_toks = o.generated
+        if (len(gen_toks) != max_new or gen_toks.min() < 0
+                or gen_toks.max() >= vocab
+                or not np.all(np.isfinite(o.logprobs))):
+            raise AssertionError(f"{label}: bad output for request "
+                                 f"{o.rid}: {gen_toks}")
 
 
 def fresh_memory(torch, device: str) -> None:

@@ -168,13 +168,12 @@ def degrade_kv_ladder(cfg: ModelConfig, plan: Optional[QuantPlan],
     Decode reads the cache one pool run per parameter segment, so a tier's
     precision is uniform within each segment of ``cuts`` (no cuts: one
     segment over the stack); a segment spills when at least half of its
-    layers' decisions say so. Without a plan the deeper half of the layers
-    spills first. The FastEWQ order (``fastewq``, ``block_sizes``) waits
-    for the port's FastEWQ classifier (ROADMAP.md queue 1 item 9)."""
-    if fastewq is not None or block_sizes is not None:
-        raise NotImplementedError(
-            "the FastEWQ spill order needs the FastEWQ classifier, which "
-            "the port does not have yet (ROADMAP.md queue 1 item 9)")
+    layers' decisions say so. Without a plan, a FastEWQ classifier
+    (``fastewq``) orders the layers from their sizes alone
+    (``block_sizes``, O(1) a block; ``FastEWQ.kv_spill_order``) and the
+    first half of that order spills first; the order's indices are read
+    as KV-layer indices, so ``block_sizes`` gives one size per KV layer.
+    With neither, the deeper half of the layers spills first."""
     n = kv_cache_layers(cfg)
     if n == 0:
         return []
@@ -190,6 +189,10 @@ def degrade_kv_ladder(cfg: ModelConfig, plan: Optional[QuantPlan],
                      for d in plan.decisions[1 + ne:1 + ne + cfg.num_layers]]
         else:
             spill = [d.quantized for d in plan.decisions[1:1 + cfg.num_layers]]
+    elif fastewq is not None and block_sizes is not None:
+        order = fastewq.kv_spill_order(block_sizes)
+        first = set(order[:max(1, len(order) // 2)])
+        spill = [i in first for i in range(n)]
     else:
         spill = [i >= n // 2 for i in range(n)]
     bounds = [0] + [c for c in sorted(set(cuts)) if 0 < c < n] + [n]

@@ -20,7 +20,8 @@ def fastewq_metadata_plan(cfg: ModelConfig, variant: str = "8bit-mixed",
     ``quant_fraction`` of transformer blocks are selected, int8 by default;
     the final block drops to int4 under the "4bit/8bit" variant (paper 6.3).
     The closed form equals the FastEWQ classifier's majority behavior on the
-    paper's dataset (the trained classifiers are still to be ported)."""
+    paper's dataset; a trained classifier's plan, whose decisions carry the
+    blocks' sizes, is ``core.fastewq.FastEWQ.plan``."""
     blocks = []
     n_layers = cfg.num_layers + (cfg.num_encoder_layers or 0)
     extra = 1 if cfg.family == "hybrid" else 0

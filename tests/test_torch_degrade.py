@@ -4,7 +4,8 @@ SMOKE model trained as tests/test_torch_session.py trains it (f32):
 
 * ``degrade_kv_ladder`` and ``kv_tier_labels`` equal to JAX's for the
   dense, MoE, enc-dec and hybrid SMOKE configs, with and without a plan,
-  at every base KV policy, with and without segment cuts;
+  and in the FastEWQ spill order of a classifier trained alike in both
+  packages, at every base KV policy, with and without segment cuts;
 * ``repack_pool_field`` equal to the bit (payloads, scales, tables) on
   int8 -> int4, bf16 -> int8 and int4 -> int8, growth and compaction,
   pools of several runs;
@@ -36,6 +37,8 @@ import torch
 
 from repro.configs.base import RunConfig
 from repro.configs.registry import get_config as jget_config
+from repro.core import fastewq as JF
+from repro.core.dataset import BlockRow as JBlockRow
 from repro.quant import compiler as JC
 from repro.quant import paged as JPG
 from repro.quant.kvcache import PagedKV as JPagedKV
@@ -51,6 +54,8 @@ from repro.serving.spec import SpecConfig as JSpecConfig
 from repro.train.loop import train
 from repro_torch.bridge import from_jax
 from repro_torch.configs.registry import get_config
+from repro_torch.core import fastewq as TF
+from repro_torch.core.dataset import BlockRow as TBlockRow
 from repro_torch.models.model import build
 from repro_torch.quant import compiler as TC
 from repro_torch.quant import paged as TPG
@@ -183,11 +188,64 @@ def test_ladder_and_labels_match_reference(family, arch):
     assert seen > 0
 
 
-def test_ladder_refuses_the_fastewq_order():
-    cfg = get_config("llama3.2-3b", smoke=True)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TC.degrade_kv_ladder(cfg, None, None, fastewq=object(),
-                             block_sizes=[1, 2])
+def _fastewq_pair():
+    """A FastEWQ classifier in each package, trained on the same seeded
+    rows (paper-like: later and larger blocks quantize more often)."""
+    rng = np.random.default_rng(0)
+    rows = []
+    for m in range(10):
+        nb = int(rng.integers(6, 30))
+        base = rng.uniform(3e7, 5e8)
+        for i in range(nb):
+            q = int(rng.random() < 0.05 + 0.9 * i / nb)
+            rows.append((f"m{m}", nb, i + 1, int(base * rng.uniform(0.8, 1.2)),
+                         "8-bit" if q else "raw", q))
+    return (JF.train_fastewq([JBlockRow(*r) for r in rows]),
+            TF.train_fastewq([TBlockRow(*r) for r in rows]))
+
+
+def test_fastewq_ladder_matches_reference():
+    """The FastEWQ spill order: the classifier orders the KV layers from
+    their sizes alone, and the first half spills first. Ladders and labels
+    equal to JAX's for every family with a cache, at every base KV policy,
+    with no cut, one cut and two cuts; one size per KV layer, and a list
+    that also leads with the embedding block (whose order the ladder reads
+    shifted by one, as the reference does). mamba2 has no cache."""
+    jfq, tfq = _fastewq_pair()
+    seen, moved = set(), 0
+    for family, arch in FAMILIES:
+        jcfg, tcfg = (dataclasses.replace(c, num_layers=4 * (
+            c.shared_attn_period if family == "hybrid" else 2))
+            for c in (jget_config(arch, smoke=True),
+                      get_config(arch, smoke=True)))
+        n = TC.kv_cache_layers(tcfg)
+        assert n == JC.kv_cache_layers(jcfg) == (4 if family == "hybrid"
+                                                 else 8)
+        sizes = [int(3e7 * (1 + (7 * i) % 5)) for i in range(n)]
+        for block_sizes in (sizes, [int(4e8)] + sizes):
+            for kv in ("bf16", "int8", "int4"):
+                jbase = JC.compile_kv_plan(jcfg, None, kv)
+                tbase = TC.compile_kv_plan(tcfg, None, kv)
+                for cuts in ((), (n // 2,), (1, n - 1)):
+                    jl = JC.degrade_kv_ladder(jcfg, None, jbase, fastewq=jfq,
+                                              block_sizes=block_sizes,
+                                              cuts=cuts)
+                    tl = TC.degrade_kv_ladder(tcfg, None, tbase, fastewq=tfq,
+                                              block_sizes=block_sizes,
+                                              cuts=cuts)
+                    assert _ladder_key(tl) == _ladder_key(jl), (arch, kv, cuts)
+                    assert TC.kv_tier_labels(tl) == JC.kv_tier_labels(jl)
+                    assert tl[-1].precisions == ("int4",) * n
+                    seen.add(tuple(map(str, TC.kv_tier_labels(tl))))
+                    # the classifier's order, not the deeper-half default
+                    unordered = TC.degrade_kv_ladder(tcfg, None, tbase,
+                                                     cuts=cuts)
+                    moved += _ladder_key(tl) != _ladder_key(unordered)
+    assert ("bf16", "mixed", "mixed", "int4") in seen
+    assert moved > 0
+    assert TC.degrade_kv_ladder(get_config("mamba2-780m", smoke=True),
+                                None, None, fastewq=tfq,
+                                block_sizes=[1, 2]) == []
     assert TC.degrade_kv_ladder(get_config("mamba2-780m", smoke=True),
                                 None, None) == []
 

@@ -61,6 +61,18 @@ def test_scans_cover_the_obs_package():
     assert (PORT / "obs" / "__init__.py").is_file()
 
 
+def test_scans_cover_the_fastewq_modules():
+    """The import and source scans above reach FastEWQ, its classifiers
+    and Algorithms 1 and 2 (each a numpy copy of the JAX package's)."""
+    core = {"repro_torch.core.fastewq", "repro_torch.core.cluster",
+            "repro_torch.core.dataset"} | {
+        f"repro_torch.core.classifiers.{m}" for m in (
+            "scaler", "tree", "rf", "boosted", "linear", "knn", "gnb",
+            "metrics")}
+    assert core <= set(_MODULES)
+    assert (PORT / "core" / "classifiers" / "__init__.py").is_file()
+
+
 def _open_spans(events: list) -> list:
     """Replays a Chrome trace's B/E events per (pid, tid) track and returns
     what is left open."""
