@@ -249,6 +249,34 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    queue_timeout_steps on the decode-step clock: the finish reasons and
    preemption / timeout / cancel counts the stream dictates, graph and
    eager serves equal to the bit, no page leaked after either.
+4l. (after 4g, phase 4's params dropped) training, the first step of the
+   reference's serve launcher: llama3.2-3b FULL from its own
+   ``torch.Generator`` init (seed 0) trained 30 steps of 4 x 256 tokens
+   (``train``: lr 1e-3, warmup 3, no remat, f32 moments; every loss
+   finite, the last below the first, and each of the last five below
+   the init's loss on the same batch, their mean by more than
+   TRAIN_GAIN_MIN; each step's loss and ms, the median step and
+   ``max_memory_allocated`` beside the reckoning in PERF.md), then 2
+   steps from the same init with int8 moments (their own peak); the
+   trained weights planned 4bit/8bit as the serve launcher plans them
+   (``plan_for_variant``, paper mode: no entropy kernel), with the
+   kernel-mode analysis beside it (one grouped entropy launch, asserted;
+   its plan and its agreement reported), compiled and served
+   from CUDA graphs with int8 KV (phase 4's requests; qmatmul, qkv, qmlp
+   and decode attention must launch); held-out ``evaluate`` (8 x 64, 4
+   steps) of the raw, EWQ, 8bit-mixed and uniform 4bit params (each plan
+   the launcher's), each
+   quantized one through the kernels at M = 512 (its first eval batch
+   held to the plain versions within LOGIT_REL_L2), the perplexities and
+   their order reported, not asserted; FastEWQ's plan (phase 4k's, from
+   block sizes) against the trained EWQ plan.
+4m. (after 4l) the FastEWQ dataset on the card: ``build_dataset(steps=30,
+   seeds=(0, 1))`` over every arch of the registry
+   (benchmarks/common.py:120's arguments; each model planned with the
+   reference's analysis, paper mode, which launches no entropy kernel),
+   its rows, seconds and quantized share, and
+   ``evaluate_all_classifiers`` on those rows (the six accuracies and
+   AUCs; smoke-size models).
 6. a JSON line naming each kernel, then the device line last. Every
    kernel's launch count must have risen on the serve and analysis paths,
    except the int8 quantize kernel, which no path runs. No single PyTorch
@@ -1841,6 +1869,17 @@ def serve_full_width(torch, build, report: dict, smoke: bool = False,
             draft_stamp, min(report["analysis"][-1]["kernel_s"]), device)
     for k, v in session_launches.items():
         launches[k] += v
+    params = None                 # 4l trains its own llama from its init
+    with phase(report, "4l llama train + EWQ + perplexity + serve"):
+        train_launches = train_serve(torch, build, report, prompts, smoke,
+                                     device)
+    for k, v in train_launches.items():
+        launches[k] += v
+    with phase(report, "4m FastEWQ dataset"):
+        dataset_launches = fastewq_dataset(torch, build, report, smoke,
+                                           device)
+    for k, v in dataset_launches.items():
+        launches[k] += v
     for k in LLAMA_PATH:
         if launches[k] <= 0 and device == "cuda":
             raise AssertionError(f"kernel {k} never launched on llama's "
@@ -1885,14 +1924,17 @@ def block_sizes(model, params) -> list:
                 if w.ndim >= 2) for b in model.block_params(params)]
 
 
-def held_bytes(params, raw) -> tuple[int, int]:
+def held_bytes(params, raw) -> tuple[int, int, int]:
     """(bytes every tensor of a compiled tree holds, ternary at its 8-bit
-    carrier; of those, the bytes of views into ``raw``'s storage)."""
+    carrier; of those, the bytes of views into ``raw``'s storage; the bytes
+    of the distinct storages the tree keeps alive once ``raw`` is
+    dropped, which counts a view's whole stack)."""
     from repro_torch.quant.apply import SegmentedParams
     from repro_torch.quant.qtypes import QTensor
     from repro_torch.tree import tree_leaves
     raw_ptrs = {t.untyped_storage().data_ptr() for t in tree_leaves(raw)}
     total = shared = 0
+    storages = {}
     for v in params.values():
         trees = ([g.params for g in v.segments]
                  if isinstance(v, SegmentedParams) else [v])
@@ -1901,9 +1943,28 @@ def held_bytes(params, raw) -> tuple[int, int]:
                       else (leaf,)):
                 n = t.numel() * t.element_size()
                 total += n
-                if t.untyped_storage().data_ptr() in raw_ptrs:
+                st = t.untyped_storage()
+                storages[st.data_ptr()] = st.nbytes()
+                if st.data_ptr() in raw_ptrs:
                     shared += n
-    return total, shared
+    return total, shared, sum(storages.values())
+
+
+def ternary_carrier_bytes(params) -> float:
+    """Bytes a compiled tree's ternary payloads hold beyond the 1.58 bits a
+    weight that ``nbytes_effective`` counts: ternary rides an 8-bit
+    carrier (the reference's format)."""
+    from repro_torch.quant.apply import SegmentedParams
+    from repro_torch.quant.qtypes import QTensor
+    from repro_torch.tree import tree_leaves
+    total = 0.0
+    for v in params.values():
+        trees = ([g.params for g in v.segments]
+                 if isinstance(v, SegmentedParams) else [v])
+        for leaf in (x for t in trees for x in tree_leaves(t)):
+            if isinstance(leaf, QTensor) and leaf.precision == "ternary":
+                total += leaf.data.numel() * (1 - 1.58 / 8)
+    return total
 
 
 def plan_kernels(plan) -> tuple:
@@ -1946,13 +2007,15 @@ def fastewq_serve(torch, build, launches: dict, label: str, model, params,
         build, launches, label, lambda: engine.serve(
             requests, num_slots=SLOTS, chunk=CHUNK), device, path=need)
     check_outputs(label, outs, model.cfg.vocab_size)
-    held, shared = held_bytes(engine.params, params)
+    held, shared, pinned = held_bytes(engine.params, params)
     run = dict(run=label, kv="int8", cuda_graphs=engine.graphs is not None,
                counts=plan.counts(), precisions=plan.precisions(),
                plan_total_bytes=plan.total_bytes(),
                weight_bytes=engine.weight_bytes(),
                allocated_rise_bytes=rise, held_bytes=held,
-               held_raw_view_bytes=shared, compile_s=compile_s,
+               held_raw_view_bytes=shared, held_storage_bytes=pinned,
+               ternary_carrier_bytes=ternary_carrier_bytes(engine.params),
+               compile_s=compile_s,
                tokens_per_s=stats.tokens_per_s, wall_s=stats.wall_s,
                generated=stats.generated_tokens, kernels_needed=list(need))
     log(f"fastewq: {label}: " + json.dumps(run))
@@ -2032,6 +2095,7 @@ def serve_fastewq(torch, build, report: dict, model, params, ewq, prompts,
         f"(plan {fast.total_bytes():.0f}) beside the EWQ run's "
         f"{ewq_bytes:.0f}; {fast_run['tokens_per_s']:.2f} tokens/s [{card}]")
     out.update(decide_us=decide_us, ewq_analysis_s=report["ewq_analysis_s"],
+               fast_quantized=[int(d.quantized) for d in fast.decisions],
                block_agreement=agree, precision_agreement=same,
                fast_run=fast_run, ewq_weight_bytes=ewq_bytes)
 
@@ -2083,13 +2147,24 @@ def serve_fastewq(torch, build, report: dict, model, params, ewq, prompts,
                              f"{fitted.total_bytes()} of {budget}")
     fit_run, _ = fastewq_serve(torch, build, launches, "fit-3GiB", model,
                                params, fitted, prompts, device)
+    # the compile allocates every block it keeps (raw segments that cover
+    # part of a stack are copies), ternary at its 8-bit carrier: set that
+    # carrier's excess aside, the rest must fit the budget
+    rise = fit_run["allocated_rise_bytes"]
+    carrier = fit_run["ternary_carrier_bytes"]
     measured = {"weight_bytes": fit_run["weight_bytes"],
-                "allocated_rise_bytes": fit_run["allocated_rise_bytes"]}
+                "allocated_rise_bytes less the ternary carrier":
+                None if rise is None else rise - carrier}
     for k, v in measured.items():
         if v is not None and v > budget:
             raise AssertionError(f"the fitted plan's {k} {v} exceed the "
                                  f"budget {budget}")
-    rise = fit_run["allocated_rise_bytes"]
+    if abs(fit_run["held_bytes"] - carrier - fit_run["weight_bytes"]) > \
+            1e-3 * fit_run["weight_bytes"]:
+        raise AssertionError(f"the engine's tensors hold "
+                             f"{fit_run['held_bytes']} bytes: more than "
+                             f"weight_bytes and the ternary carrier "
+                             f"({carrier:.0f})")
     if rise is not None and abs(fit_run["held_bytes"] - fit_run[
             "held_raw_view_bytes"] - rise) > 0.01 * rise:
         raise AssertionError(f"the compile's rise {rise} is not the bytes "
@@ -2102,8 +2177,15 @@ def serve_fastewq(torch, build, report: dict, model, params, ewq, prompts,
         f"engine's tensors hold {held} bytes "
         f"({'over' if held > budget else 'within'} the budget: ternary "
         f"rides an 8-bit carrier; {fit_run['held_raw_view_bytes']} of them "
-        f"are views of the raw params); {fit_run['tokens_per_s']:.2f} "
-        f"tokens/s [{card}]")
+        f"are views of the raw params: whole leaves, every partial raw "
+        f"segment a copy); distinct storages kept alive "
+        f"{fit_run['held_storage_bytes']} bytes, of which the ternary "
+        f"carrier {carrier:.0f}; "
+        f"{fit_run['tokens_per_s']:.2f} tokens/s [{card}]")
+    if fit_run["held_storage_bytes"] > held:
+        raise AssertionError(f"the compiled tree pins "
+                             f"{fit_run['held_storage_bytes']} bytes of "
+                             f"storage for {held} bytes of tensors")
 
     # (e) the FastEWQ KV spill ladder, at the FastEWQ engine's cuts
     base = compile_kv_plan(cfg, None, "int8")
@@ -2123,6 +2205,270 @@ def serve_fastewq(torch, build, report: dict, model, params, ewq, prompts,
                          spill_order=fq.kv_spill_order(sizes[1:]))
     log(f"fastewq: (e) KV ladder from int8 at cuts {list(cuts)}: {labels}; "
         f"tier 1 {list(ladder[1].precisions)}")
+    return launches
+
+
+TRAIN_STEPS = 30        # 4l: the serve launcher's --train-steps default
+TRAIN_BATCH, TRAIN_SEQ = 4, 256
+EVAL = dict(batch=8, seq=64, steps=4)     # tests/test_system.py's evaluate
+DATASET_STEPS, DATASET_SEEDS = 30, (0, 1)  # benchmarks/common.py:120
+# 4l: the least mean fall, in nats, of the last five steps' losses below
+# the init's loss on the same batches (an update not applied gives 0, one
+# of the wrong sign less than 0)
+TRAIN_GAIN_MIN = 0.05
+
+
+def train_serve(torch, build, report: dict, prompts, smoke: bool,
+                device: str) -> dict:
+    """Phase 4l: llama3.2-3b FULL trained, then EWQ-planned as the serve
+    launcher plans it (the kernel-mode analysis, one grouped entropy
+    launch, beside it), compiled, served and evaluated. Returns its launch
+    counts."""
+    import numpy as np
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.planner import plan_model
+    from repro_torch.data.synthetic import synthetic_batch
+    from repro_torch.models.model import build as build_model
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.quantized import (apply_plan_to_params,
+                                               plan_for_variant)
+    from repro_torch.serving.scheduler import Request
+    from repro_torch.train.loop import evaluate, train
+    from repro_torch.train.step import make_eval_step
+    from repro_torch.tree import tree_leaves
+    card = report.get("nvidia_smi", f"{device} (no card)")
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    launches = {k: 0 for k in build.LAUNCHES}
+    out: dict = {"card": card}
+    report["train_serve"] = out
+    cfg = get_config("llama3.2-3b", smoke=smoke)
+    seq = TRAIN_SEQ if not smoke else 32
+
+    def allocated():
+        return torch.cuda.memory_allocated() if cuda else None
+
+    def peak():
+        return torch.cuda.max_memory_allocated() if cuda else None
+
+    # the init's loss on each step's batch: what an lr=0 run of the same
+    # steps reports (its params never move), so the trained run is held to
+    # it batch by batch (train() draws the init from seed 0 and its
+    # DataLoader gives step i's synthetic_batch)
+    fresh_memory(torch, device)
+    model = build_model(cfg)
+    init = model.init(torch.Generator(device=device).manual_seed(0), device)
+    eval_step = make_eval_step(model)
+    init_losses = [float(eval_step(init, synthetic_batch(
+        cfg, batch=TRAIN_BATCH, seq=seq, step=i, device=device))["loss"])
+        for i in range(TRAIN_STEPS)]
+    init = eval_step = model = None
+    out["init_losses"] = init_losses
+
+    # the launcher's run: lr 1e-3, warmup 3, no remat, f32 moments
+    runs = {}
+    params = model = None
+    for label, steps, moments in (("f32-moments", TRAIN_STEPS, "float32"),
+                                  ("int8-moments", 2, "int8")):
+        fresh_memory(torch, device)
+        before = allocated()
+        run = RunConfig(steps=steps, learning_rate=1e-3, warmup_steps=3,
+                        remat=False, moment_dtype=moments)
+        t0 = time.perf_counter()
+        res = train(cfg, run, batch=TRAIN_BATCH, seq=seq, device=device,
+                    log_every=10, log_fn=lambda line: log(f"train: {line}"))
+        sync()
+        losses = res["losses"]
+        runs[label] = dict(
+            steps=steps, batch=TRAIN_BATCH, seq=seq, moment_dtype=moments,
+            losses=losses, step_ms=[s * 1e3 for s in res["step_s"]],
+            median_step_ms=float(np.median(res["step_s"]) * 1e3),
+            seconds=time.perf_counter() - t0, allocated_before=before,
+            max_memory_allocated=peak(),
+            params=sum(p.numel() for p in tree_leaves(res["params"])))
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"train {label}: a non-finite loss {losses}")
+        if label == "f32-moments":
+            if not losses[-1] < losses[0]:
+                raise AssertionError(f"train: the loss did not fall: {losses}")
+            below = [a - b for a, b in zip(losses[-5:], init_losses[-5:])]
+            gain = -float(np.mean(below))
+            runs[label].update(below_init_last5=below, gain_last5=gain)
+            if not (all(d < 0 for d in below) and gain > TRAIN_GAIN_MIN):
+                raise AssertionError(
+                    f"train: the last five losses against the init's on the "
+                    f"same batches {below} (mean fall {gain}, at least "
+                    f"{TRAIN_GAIN_MIN} wanted)")
+            log(f"train: last five steps below the init's loss on the same "
+                f"batches by {[round(-d, 4) for d in below]} (mean {gain:.4f}"
+                f" nats); the init's losses over the 30 batches span "
+                f"{min(init_losses):.4f}-{max(init_losses):.4f} [{card}]")
+            params, model = res["params"], res["model"]
+        res = None
+        log(f"train: {cfg.name} {label}: loss {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f} over {steps} steps of {TRAIN_BATCH}x{seq}; "
+            f"median step {runs[label]['median_step_ms']:.1f} ms; peak "
+            f"{runs[label]['max_memory_allocated']} B allocated (from "
+            f"{before} B) [{card}]")
+    out["runs"] = runs
+    sync()
+    fresh_memory(torch, device)
+
+    # EWQ of the trained weights as the serve launcher plans them
+    # (plan_for_variant: paper mode, plain PyTorch, no entropy kernel)
+    build.reset_launches()
+    t0 = time.perf_counter()
+    ewq = plan_for_variant(model, params, "4bit/8bit")
+    sync()
+    ewq_s = time.perf_counter() - t0
+    paper_launches = build.LAUNCHES["entropy"]
+    if not any(p != "raw" for p in ewq.precisions()[1:]):
+        raise AssertionError(f"EWQ quantized no layer: {ewq.precisions()}")
+    # beside it, the kernel-mode analysis: one grouped entropy launch
+    build.reset_launches()
+    t0 = time.perf_counter()
+    kernel = plan_model(model, params, variant="4bit/8bit", mode="kernel")
+    sync()
+    kernel_s = time.perf_counter() - t0
+    entropy_launches = build.LAUNCHES["entropy"]
+    launches["entropy"] += entropy_launches
+    if cuda and entropy_launches != 1:
+        raise AssertionError(f"the trained model's kernel-mode analysis took "
+                             f"{entropy_launches} entropy launches, not 1")
+    mode_agree = float(np.mean([a.quantized == b.quantized for a, b in
+                                zip(kernel.decisions, ewq.decisions)]))
+    fast_q = report.get("fastewq", {}).get("fast_quantized")
+    fast_random = report.get("fastewq", {}).get("block_agreement")
+    fast_agree = (None if fast_q is None else float(np.mean(
+        [f == int(e.quantized) for f, e in zip(fast_q, ewq.decisions)])))
+    fast_agree_kernel = (None if fast_q is None else float(np.mean(
+        [f == int(e.quantized) for f, e in zip(fast_q, kernel.decisions)])))
+    out.update(ewq_analysis_s=ewq_s, ewq_entropy_launches=paper_launches,
+               ewq_counts=ewq.counts(), ewq_precisions=ewq.precisions(),
+               kernel_analysis_s=kernel_s, entropy_launches=entropy_launches,
+               kernel_counts=kernel.counts(),
+               kernel_ewq_agreement=mode_agree,
+               fastewq_agreement=fast_agree,
+               fastewq_agreement_kernel_mode=fast_agree_kernel,
+               fastewq_agreement_random_weights=fast_random)
+    log(f"train: EWQ of the trained weights (the launcher's plan_for_variant,"
+        f" paper mode, {ewq_s:.3f} s, {paper_launches} entropy launches): "
+        f"{ewq.counts()} {ewq.precisions()}; kernel mode beside it "
+        f"({kernel_s:.3f} s, {entropy_launches} entropy launches) "
+        f"{kernel.counts()} (blocks agreeing {mode_agree:.4f}); FastEWQ's "
+        f"plan agrees on {fast_agree} of the blocks (kernel mode "
+        f"{fast_agree_kernel}; phase 4k on the random weights {fast_random})"
+        f" [{card}]")
+    kernel = None
+
+    # compiled and served from CUDA graphs with int8 KV: phase 4's requests
+    fresh_memory(torch, device)
+    engine = ServeEngine(model, params, max_seq=1024, plan=ewq,
+                         kv_precision="int8", device=device)
+    requests = [Request(rid=i, prompt=p, max_new_tokens=32)
+                for i, p in enumerate(prompts)]
+    serve_path = ("qmatmul", "qkv", "qmlp", "decode_attn")
+    outs, stats = _counted(build, launches, "trained ewq serve", lambda:
+                           engine.serve(requests, num_slots=SLOTS,
+                                        chunk=CHUNK), device, path=serve_path)
+    check_outputs("trained ewq serve", outs, cfg.vocab_size)
+    out["serve"] = dict(
+        kv="int8", cuda_graphs=engine.graphs is not None,
+        generated=stats.generated_tokens, tokens_per_s=stats.tokens_per_s,
+        ttft_mean_s=stats.ttft_mean_s, wall_s=stats.wall_s,
+        weight_bytes=engine.weight_bytes(), max_memory_allocated=peak(),
+        repeat_share=repeat_share(outs))
+    log("train: served the trained EWQ weights: " + json.dumps(out["serve"]))
+
+    # held-out perplexity: raw, EWQ, 8bit-mixed, uniform 4bit; the eval
+    # batch through the kernels held to the plain versions once
+    evals = {}
+    ev_launches = {k: 0 for k in build.LAUNCHES}
+    # the first held-out batch evaluate reads
+    eval_tokens = synthetic_batch(cfg, batch=EVAL["batch"], seq=EVAL["seq"],
+                                  step=100_000, device=device)["tokens"]
+    for label, variant in (("raw", None), ("ewq-4bit/8bit", "4bit/8bit"),
+                           ("8bit-mixed", "8bit-mixed"), ("4bit", "4bit")):
+        if variant is None:
+            q = params
+        elif variant == "4bit/8bit":
+            q = engine.params
+        else:
+            q = apply_plan_to_params(
+                model, params, plan_for_variant(model, params, variant))
+        t0 = time.perf_counter()
+        path = () if variant is None else ("qmatmul", "qkv", "qmlp")
+        ev = _counted(build, ev_launches, f"evaluate {label}", lambda:
+                      evaluate(model, q, device=device, **EVAL), device,
+                      path=path)
+        sync()
+        ev["seconds"] = time.perf_counter() - t0
+        if variant is not None:
+            with torch.no_grad():
+                k_logits = model.apply(q, eval_tokens).float()
+                p_logits = model.apply(q, eval_tokens, plain=True).float()
+            ev["logit_rel_l2_vs_plain"] = rel_l2(k_logits, p_logits)
+            if ev["logit_rel_l2_vs_plain"] > LOGIT_REL_L2:
+                raise AssertionError(f"evaluate {label}: kernels vs plain "
+                                     f"{ev['logit_rel_l2_vs_plain']}")
+            k_logits = p_logits = None
+        evals[label] = ev
+        q = None
+    for k, v in ev_launches.items():
+        launches[k] += v
+    engine = None
+    order = sorted(evals, key=lambda k: evals[k]["perplexity"])
+    out.update(evaluate=evals, evaluate_launches=ev_launches,
+               perplexity_order=order)
+    log(f"train: held-out perplexity ({EVAL['batch']}x{EVAL['seq']}, "
+        f"{EVAL['steps']} steps): " + ", ".join(
+            f"{k} {v['perplexity']:.4f}" for k, v in evals.items())
+        + f"; lowest first {order}; the evaluations launched "
+        f"{ {k: v for k, v in ev_launches.items() if v} } [{card}]")
+    params = model = None
+    fresh_memory(torch, device)
+    return launches
+
+
+def fastewq_dataset(torch, build, report: dict, smoke: bool,
+                    device: str) -> dict:
+    """Phase 4m: ``build_dataset`` on the card over every arch of the
+    registry (each model planned with the reference's analysis, paper mode,
+    which launches no entropy kernel), and the six classifiers on its rows.
+    Returns its launch counts."""
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.core.dataset import build_dataset, to_xy
+    from repro_torch.core.fastewq import evaluate_all_classifiers
+    card = report.get("nvidia_smi", f"{device} (no card)")
+    launches = {k: 0 for k in build.LAUNCHES}
+    steps = DATASET_STEPS if not smoke else 2
+    t0 = time.perf_counter()
+    rows = _counted(build, launches, "build_dataset", lambda: build_dataset(
+        steps=steps, seeds=DATASET_SEEDS, device=device), device, path=())
+    if device == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    models = len(ARCHS) * len(DATASET_SEEDS)
+    _, y = to_xy(rows)
+    t0 = time.perf_counter()
+    table = evaluate_all_classifiers(rows, seed=0)
+    classifiers = {k: dict(accuracy=v["accuracy"], auc=v["auc"])
+                   for k, v in table.items()}
+    out = dict(card=card, archs=list(ARCHS), seeds=list(DATASET_SEEDS),
+               steps=steps, models=models, rows=len(rows),
+               quantized_share=float(y.mean()), seconds=seconds,
+               entropy_launches=launches["entropy"],
+               evaluate_s=time.perf_counter() - t0, classifiers=classifiers)
+    report["fastewq_dataset"] = out
+    log(f"dataset: {len(rows)} rows from {models} models ({len(ARCHS)} "
+        f"archs x seeds {list(DATASET_SEEDS)}, {steps} steps each) in "
+        f"{seconds:.1f} s, {launches['entropy']} entropy launches; "
+        f"quantized share {out['quantized_share']:.4f} [{card}]")
+    seeded = report.get("fastewq", {}).get("heldout_accuracy")
+    log(f"dataset: six classifiers on these rows (accuracy, AUC; smoke-size "
+        f"models, beside phase 4k's forest at {seeded} on seeded rows and "
+        f"the paper's 80%): " + json.dumps(classifiers))
     return launches
 
 

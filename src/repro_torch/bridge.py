@@ -16,6 +16,9 @@ module imports nothing of the JAX package:
   (``(k, v, pos)``: ``DecodeCache``; ``(k, v, cross_k, cross_v, pos)``:
   ``EncDecCache``; ``(conv, state, pos)``: ``SSMLMCache``;
   ``(conv, state, k, v, pos)``: ``HybridCache``);
+* ``(count, m, v)``                              -> ``AdamWState`` (the
+  0-d count, and moments in f32, bf16 or int8 ``QTensor``s), so an
+  optimizer state the JAX package produced continues in the port;
 * dicts, lists, tuples and other NamedTuples keep their structure.
 
 So an enc-dec model's params (two segmented stacks, ``enc_layers`` and
@@ -42,6 +45,7 @@ from repro_torch.models.encdec import EncDecCache
 from repro_torch.models.hybrid import HybridCache
 from repro_torch.models.ssm_lm import SSMLMCache
 from repro_torch.models.transformer import DecodeCache
+from repro_torch.optim.adamw import AdamWState
 from repro_torch.quant.apply import Segment, SegmentedParams
 from repro_torch.quant.kvcache import KVPage, PagedKV
 from repro_torch.quant.qtypes import QTensor
@@ -66,8 +70,9 @@ def to_torch(a, device=None) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
-_CACHES = {cls._fields: cls for cls in (DecodeCache, EncDecCache,
-                                        SSMLMCache, HybridCache)}
+_NAMED = {cls._fields: cls for cls in (DecodeCache, EncDecCache,
+                                        SSMLMCache, HybridCache,
+                                        AdamWState)}
 
 
 def _has(x, *names) -> bool:
@@ -109,7 +114,7 @@ def from_jax(tree: Any, device=None) -> Any:
         return Segment(precision=tree.precision, start=tree.start,
                        stop=tree.stop, params=from_jax(tree.params, device))
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        cls = _CACHES.get(tuple(tree._fields), type(tree))
+        cls = _NAMED.get(tuple(tree._fields), type(tree))
         return cls(*(from_jax(v, device) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(from_jax(v, device) for v in tree)

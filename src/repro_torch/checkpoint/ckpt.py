@@ -14,7 +14,10 @@ Leaf keys are the JAX package's pytree paths joined by ``/``. The port's
 here spells out the reference's child order: a stack's leaves sit under
 ``<stack>/0/<segment index>/0/...`` (``SegmentedParams`` child 0 is its
 segment list, ``Segment`` child 0 is its params), every other leaf under its
-dict path (``embed/tok``, ``final/norm``). A ``QTensor`` is stored as two
+dict path (``embed/tok``, ``final/norm``), a NamedTuple's by field name and
+a tuple's by index: a training checkpoint of ``(params, AdamWState)``
+keeps ``0/embed/tok``, ``1/count``, ``1/m/embed/tok``, as the reference
+writes them. A ``QTensor`` is stored as two
 arrays, ``<key>.__qdata`` and ``<key>.__qscale``. npz cannot hold bfloat16,
 so bf16 payloads go to disk as their uint16 bits with ``"bfloat16"`` in the
 manifest, through a torch view (no ``ml_dtypes``).
@@ -31,7 +34,6 @@ import os
 import pathlib
 import shutil
 import tempfile
-import time
 import zlib
 from typing import Any, Callable, Optional
 
@@ -40,6 +42,7 @@ import torch
 
 from repro_torch.quant.apply import Segment, SegmentedParams
 from repro_torch.quant.qtypes import QTensor
+from repro_torch.runtime.fault import retry
 
 # numpy dtypes npz stores as they are; bfloat16 is carried as uint16 bits
 _NP_OF_TORCH = {torch.float32: np.float32, torch.float64: np.float64,
@@ -101,8 +104,9 @@ def _to_storable(t: torch.Tensor) -> tuple[np.ndarray, str]:
 
 
 def _from_storable(arr: np.ndarray, dtype: str, device) -> torch.Tensor:
-    """Stored array -> tensor on ``device`` (bf16 from its uint16 bits)."""
-    arr = np.ascontiguousarray(arr)
+    """Stored array -> tensor on ``device`` (bf16 from its uint16 bits); a
+    0-d array stays 0-d (``ascontiguousarray`` alone would make it 1-d)."""
+    arr = np.ascontiguousarray(arr).reshape(arr.shape)
     if dtype == "bfloat16":
         t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     else:
@@ -110,21 +114,6 @@ def _from_storable(arr: np.ndarray, dtype: str, device) -> torch.Tensor:
         if str(arr.dtype) != dtype:
             raise ValueError(f"stored dtype {arr.dtype} != manifest {dtype}")
     return t.to(device)
-
-
-def retry(fn: Callable, *, attempts: int = 3, base_delay: float = 0.5,
-          retriable=(RuntimeError, TimeoutError)):
-    """Bounded retry with exponential backoff for transient errors (the
-    JAX package's ``runtime/fault.retry``)."""
-    last = None
-    for i in range(attempts):
-        try:
-            return fn()
-        except retriable as e:  # noqa: PERF203
-            last = e
-            if i + 1 < attempts:
-                time.sleep(base_delay * (2 ** i))
-    raise last
 
 
 def _children(node: Any) -> Optional[list]:
@@ -136,6 +125,8 @@ def _children(node: Any) -> Optional[list]:
         return [("0", node.segments)]
     if isinstance(node, Segment):
         return [("0", node.params)]
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return list(zip(node._fields, node))
     if isinstance(node, (list, tuple)):
         return [(str(i), v) for i, v in enumerate(node)]
     return None
@@ -166,6 +157,9 @@ def _rebuild(tree: Any, fn: Callable[[str, Any], Any], prefix: str = ""):
         return Segment(precision=tree.precision, start=tree.start,
                        stop=tree.stop, params=_rebuild(tree.params, fn,
                                                        key(0)))
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_rebuild(v, fn, key(k))
+                            for k, v in zip(tree._fields, tree)))
     if isinstance(tree, (list, tuple)):
         return type(tree)(_rebuild(v, fn, key(i)) for i, v in enumerate(tree))
     if tree is None:

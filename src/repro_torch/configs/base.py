@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 
 def _round_up(x: int, m: int) -> int:
@@ -147,3 +148,22 @@ SHAPES = {
     "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
     "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    """Training/serving run options (see repro_torch/launch/train.py)."""
+    steps: int = 100
+    learning_rate: float = 3e-4
+    warmup_steps: int = 10
+    schedule: str = "cosine"          # "cosine" | "wsd" | "linear"
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    seed: int = 0
+    microbatch: Optional[int] = None  # grad-accum microbatch size
+    moment_dtype: str = "float32"     # "float32" | "bfloat16" | "int8"
+    grad_compression: Optional[str] = None  # None | "int8_ef"
+    remat: bool = True
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 50
+    keep_checkpoints: int = 3

@@ -29,9 +29,14 @@
         --trace-out trace.json --metrics-out metrics.prom \
         --profile-steps 8:24   # traced, metered and profiled serve
 
-Weights are random, drawn from a seeded ``torch.Generator`` at the JAX
-package's init scales (real checkpoints are not in the repository), so the
-run shows the serving path, its memory and its speed, not model quality.
+Weights start from a seeded ``torch.Generator`` init at the JAX package's
+scales (real checkpoints are not in the repository) and train
+``--train-steps`` steps (default 30, batch ``--batch``, sequences of twice
+``--prompt-len``; lr 1e-3, warmup 3, as the reference's launcher) on the
+synthetic stream before the analysis, so the weights are not degenerate;
+``--train-steps 0`` plans the seeded init itself. A cold boot from an
+artifact trains nothing. The run shows the serving path, its memory and
+its speed, not model quality.
 An enc-dec model (whisper) gets one block of (encoder_seq, d_model) frame
 embeddings per request, standard normal from ``--seed``, in place of the
 audio frontend. An SSM or hybrid model also reports the conv/state bytes
@@ -74,6 +79,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.checkpoint import ckpt
+from repro_torch.configs.base import RunConfig
 from repro_torch.configs.registry import ARCHS, get_config
 from repro_torch.models.model import build
 from repro_torch.obs import render
@@ -85,6 +91,7 @@ from repro_torch.serving.quantized import plan_for_variant
 from repro_torch.serving.scheduler import SLOConfig, synthetic_stream
 from repro_torch.serving.session import DegradeConfig
 from repro_torch.serving.spec import SpecConfig
+from repro_torch.train.loop import train
 
 
 def main(argv=None) -> dict:
@@ -106,6 +113,11 @@ def main(argv=None) -> dict:
     ap.add_argument("--plan-artifact", default=None,
                     help="compiled-plan artifact dir: boot from it when it "
                          "holds one, else compile the plan and save it there")
+    ap.add_argument("--train-steps", type=int, default=30,
+                    help="brief training so weights are non-degenerate "
+                         "(0: plan the seeded init)")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="training batch (with --train-steps)")
     ap.add_argument("--num-requests", type=int, default=8)
     ap.add_argument("--num-slots", type=int, default=4)
     ap.add_argument("--chunk", type=int, default=8)
@@ -244,9 +256,20 @@ def main(argv=None) -> dict:
         boot_s = time.perf_counter() - t0
         print(f"booted from artifact {args.plan_artifact} in {boot_s:.2f} s")
     else:
-        gen = torch.Generator(device=device)
-        gen.manual_seed(args.seed)
-        params = model.init(gen, device)
+        if args.train_steps > 0:
+            run = RunConfig(steps=args.train_steps, learning_rate=1e-3,
+                            warmup_steps=3, remat=False, seed=args.seed)
+            t0 = time.perf_counter()
+            result = train(cfg, run, batch=args.batch,
+                           seq=args.prompt_len * 2, device=device,
+                           log_fn=lambda line: None)
+            params = result["params"]
+            result = None                   # the optimizer state goes
+            print(f"trained {args.train_steps} steps [{time.perf_counter() - t0:.2f} s]")
+        else:
+            gen = torch.Generator(device=device)
+            gen.manual_seed(args.seed)
+            params = model.init(gen, device)
         t0 = time.perf_counter()
         plan = plan_for_variant(model, params, args.variant, fast=args.fast)
         if plan is not None:

@@ -49,6 +49,16 @@ def select_snapshot(snaps: torch.Tensor, idx: torch.Tensor,
     return out.movedim(0, batch_axis - 1)
 
 
+def remat_call(fn, *args, remat: bool = False):
+    """``fn(*args)``; with ``remat`` under activation checkpointing: its
+    activations are recomputed in the backward pass instead of kept (the
+    reference's ``jax.checkpoint`` of a layer)."""
+    if not remat:
+        return fn(*args)
+    from torch.utils.checkpoint import checkpoint
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
 # --------------------------------------------------------------------------
 # Initializers (the JAX package's scales; seeded torch.Generator)
 # --------------------------------------------------------------------------

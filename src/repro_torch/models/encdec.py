@@ -31,10 +31,11 @@ from repro_torch.models import attention as A
 from repro_torch.models import mlp as M
 from repro_torch.models.common import (decode_positions, dtype_of,
                                        embed_init, embed_lookup, layer_norm,
-                                       lm_head, sinusoidal_positions)
+                                       lm_head, remat_call,
+                                       sinusoidal_positions)
 from repro_torch.quant.apply import segment_slices
 from repro_torch.quant.kvcache import is_kv_page, kv_layer, kv_segment
-from repro_torch.tree import tree_index, tree_leaves
+from repro_torch.tree import tree_index, tree_leaves, tree_unstack
 
 
 class EncDecCache(NamedTuple):
@@ -84,20 +85,24 @@ def init(cfg, gen: torch.Generator, device) -> dict:
                       "norm": torch.ones((d,), dtype=dtype, device=device)}}
 
 
-def encode(params, frames: torch.Tensor, cfg, *, plain: bool = False
-           ) -> torch.Tensor:
-    """frames (B, S_enc, D) precomputed embeddings -> (B, S_enc, D)."""
+def encode(params, frames: torch.Tensor, cfg, *, plain: bool = False,
+           remat: bool = False) -> torch.Tensor:
+    """frames (B, S_enc, D) precomputed embeddings -> (B, S_enc, D);
+    ``remat`` recomputes each layer in the backward pass."""
     dtype = dtype_of(cfg)
     s = frames.shape[1]
     h = (frames.to(dtype)
          + sinusoidal_positions(s, cfg.d_model, frames.device).to(dtype)[None])
+
+    def layer(p, h):
+        a, _ = A.attention(p["attn"], _ln(h, p["ln1"], cfg),
+                           causal=False, plain=plain, **_heads(cfg))
+        h = h + a
+        return h + M.mlp(p["mlp"], _ln(h, p["ln2"], cfg), "gelu", plain)
+
     for part, lo, hi in segment_slices(params["enc_layers"]):
-        for i in range(hi - lo):
-            p = tree_index(part, i)
-            a, _ = A.attention(p["attn"], _ln(h, p["ln1"], cfg),
-                               causal=False, plain=plain, **_heads(cfg))
-            h = h + a
-            h = h + M.mlp(p["mlp"], _ln(h, p["ln2"], cfg), "gelu", plain)
+        for p in tree_unstack(part, hi - lo):
+            h = remat_call(layer, p, h, remat=remat)
     return _ln(h, params["final"]["enc_norm"], cfg)
 
 
@@ -125,21 +130,28 @@ def _head(params, h, cfg, plain):
 
 
 def apply(params, tokens: torch.Tensor, frames: torch.Tensor, cfg, *,
-          last_only: bool = False, plain: bool = False) -> torch.Tensor:
+          last_only: bool = False, plain: bool = False, remat: bool = False,
+          with_aux: bool = False):
     """Full forward: (B, S) tokens + (B, S_enc, D) frames -> logits
-    (B, S, V_pad) f32 (``last_only``: the final position only)."""
+    (B, S, V_pad) f32 (``last_only``: the final position only). ``remat``
+    recomputes each encoder and decoder layer in the backward pass;
+    ``with_aux`` returns (logits, {})."""
     dtype = dtype_of(cfg)
     s = tokens.shape[1]
-    enc_out = encode(params, frames, cfg, plain=plain)
+    enc_out = encode(params, frames, cfg, plain=plain, remat=remat)
     h = embed_lookup(params["embed"]["tok"], tokens, dtype)
     h = h + sinusoidal_positions(s, cfg.d_model, tokens.device).to(dtype)[None]
+
+    def layer(p, h, enc_out):
+        return _dec_layer(p, h, cfg, enc_out=enc_out, plain=plain)
+
     for part, lo, hi in segment_slices(params["dec_layers"]):
-        for i in range(hi - lo):
-            h = _dec_layer(tree_index(part, i), h, cfg, enc_out=enc_out,
-                           plain=plain)
+        for p in tree_unstack(part, hi - lo):
+            h = remat_call(layer, p, h, enc_out, remat=remat)
     if last_only:
         h = h[:, -1:, :]
-    return _head(params, h, cfg, plain)
+    logits = _head(params, h, cfg, plain)
+    return (logits, {}) if with_aux else logits
 
 
 def init_cache(cfg, batch: int, max_seq: int, device) -> EncDecCache:

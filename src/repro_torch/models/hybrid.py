@@ -29,13 +29,13 @@ from repro_torch.models import mlp as M
 from repro_torch.models import ssm as S
 from repro_torch.models.common import (decode_positions, dense_init,
                                        dtype_of, embed_init, embed_lookup,
-                                       lm_head, norm)
+                                       lm_head, norm, remat_call)
 # the commit is the SSM family's: conv/state take each slot's snapshot in
 # place and the position moves (K/V rows past it stay, masked invalid)
 from repro_torch.models.ssm_lm import snapshot_verify, spec_commit  # noqa: F401
 from repro_torch.quant.apply import SegmentedParams, segment_slices
 from repro_torch.quant.kvcache import is_kv_page, kv_layer
-from repro_torch.tree import tree_index, tree_leaves
+from repro_torch.tree import tree_index, tree_leaves, tree_unstack
 
 
 class HybridCache(NamedTuple):
@@ -116,21 +116,33 @@ def _head(params, h, cfg, plain):
 
 
 def apply(params, tokens: torch.Tensor, cfg, *, last_only: bool = False,
-          plain: bool = False) -> torch.Tensor:
-    """tokens (B, S) -> logits (B, S, V_pad) f32."""
+          plain: bool = False, remat: bool = False, with_aux: bool = False):
+    """tokens (B, S) -> logits (B, S, V_pad) f32. ``remat`` recomputes each
+    shared-block site and each Mamba2 layer in the backward pass (the
+    shared weights' gradients sum over the sites); ``with_aux`` returns
+    (logits, {})."""
     b, s = tokens.shape
     h = embed_lookup(params["embed"]["tok"], tokens, dtype_of(cfg))
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device)[None].expand(b, s)
     shared = params["shared"]
+
+    def site(shared, h):
+        return _shared_block(shared, h, positions, cfg, plain=plain)
+
+    def mamba(p, h):
+        return h + S.ssm_block(p, norm(h, p["ln"], cfg), cfg, plain)
+
+    layers = {id(part): tree_unstack(part, hi - lo)
+              for part, lo, hi in segment_slices(params["layers"])}
     for unit in _layer_stack(params["layers"], cfg):
-        h = _shared_block(shared, h, positions, cfg, plain=plain)
+        h = remat_call(site, shared, h, remat=remat)
         for part, i, _ in unit:
-            p = tree_index(part, i)
-            h = h + S.ssm_block(p, norm(h, p["ln"], cfg), cfg, plain)
+            h = remat_call(mamba, layers[id(part)][i], h, remat=remat)
     if last_only:
         h = h[:, -1:, :]
-    return _head(params, h, cfg, plain)
+    logits = _head(params, h, cfg, plain)
+    return (logits, {}) if with_aux else logits
 
 
 def init_cache(cfg, batch: int, max_seq: int, device) -> HybridCache:

@@ -38,18 +38,23 @@ class Model:
 
     # ---- forward ----------------------------------------------------------
     def apply(self, params, tokens: torch.Tensor, *, frames=None,
-              last_only: bool = False, plain: bool = False) -> torch.Tensor:
+              last_only: bool = False, plain: bool = False,
+              remat: bool = False, with_aux: bool = False):
         """tokens (B, S) (+ ``frames`` (B, S_enc, D) for enc-dec) ->
-        logits (B, S, V_pad) f32."""
+        logits (B, S, V_pad) f32; with ``with_aux`` -> (logits, aux), the
+        aux dict holding an MoE model's ``moe_aux_loss`` summed over its
+        layers (empty for the other families). ``remat`` recomputes each
+        layer's activations in the backward pass
+        (``torch.utils.checkpoint``)."""
+        kw = dict(last_only=last_only, plain=plain, remat=remat,
+                  with_aux=with_aux)
         if self.cfg.family == "encdec":
             if frames is None:
                 raise ValueError("an enc-dec model needs frames")
-            return self.module.apply(params, tokens, frames, self.cfg,
-                                     last_only=last_only, plain=plain)
+            return self.module.apply(params, tokens, frames, self.cfg, **kw)
         if frames is not None:
             raise ValueError("frames only apply to enc-dec models")
-        return self.module.apply(params, tokens, self.cfg,
-                                 last_only=last_only, plain=plain)
+        return self.module.apply(params, tokens, self.cfg, **kw)
 
     # ---- decode -----------------------------------------------------------
     def init_cache(self, batch: int, max_seq: int, device):

@@ -16,9 +16,10 @@ import torch
 
 from repro_torch.models import ssm as S
 from repro_torch.models.common import (dtype_of, embed_init, embed_lookup,
-                                       lm_head, norm, select_snapshot)
+                                       lm_head, norm, remat_call,
+                                       select_snapshot)
 from repro_torch.quant.apply import segment_slices
-from repro_torch.tree import tree_index, tree_leaves
+from repro_torch.tree import tree_index, tree_leaves, tree_unstack
 
 
 class SSMLMCache(NamedTuple):
@@ -51,16 +52,22 @@ def _head(params, h, cfg, plain):
 
 
 def apply(params, tokens: torch.Tensor, cfg, *, last_only: bool = False,
-          plain: bool = False) -> torch.Tensor:
-    """tokens (B, S) -> logits (B, S, V_pad) f32 (the chunked SSD path)."""
+          plain: bool = False, remat: bool = False, with_aux: bool = False):
+    """tokens (B, S) -> logits (B, S, V_pad) f32 (the chunked SSD path);
+    ``remat`` recomputes each layer in the backward pass, ``with_aux``
+    returns (logits, {}) (no aux loss in this family)."""
     h = embed_lookup(params["embed"]["tok"], tokens, dtype_of(cfg))
+
+    def layer(p, h):
+        return h + S.ssm_block(p, norm(h, p.get("ln"), cfg), cfg, plain)
+
     for part, lo, hi in segment_slices(params["layers"]):
-        for i in range(hi - lo):
-            p = tree_index(part, i)
-            h = h + S.ssm_block(p, norm(h, p.get("ln"), cfg), cfg, plain)
+        for p in tree_unstack(part, hi - lo):
+            h = remat_call(layer, p, h, remat=remat)
     if last_only:
         h = h[:, -1:, :]
-    return _head(params, h, cfg, plain)
+    logits = _head(params, h, cfg, plain)
+    return (logits, {}) if with_aux else logits
 
 
 def init_cache(cfg, batch: int, max_seq: int, device) -> SSMLMCache:

@@ -21,11 +21,11 @@ from repro_torch.models import mlp as M
 from repro_torch.models import moe as MOE
 from repro_torch.models.common import (decode_positions, dtype_of,
                                        embed_init, embed_lookup, lm_head,
-                                       norm)
+                                       norm, remat_call)
 from repro_torch.quant.apply import segment_slices
 from repro_torch.quant.kvcache import (is_kv_page, kv_layer, kv_segment,
                                        kv_take_layers)
-from repro_torch.tree import tree_index, tree_leaves
+from repro_torch.tree import tree_index, tree_leaves, tree_unstack
 
 
 class DecodeCache(NamedTuple):
@@ -68,7 +68,8 @@ def init(cfg, gen: torch.Generator, device) -> dict:
 
 
 def _layer(p, h, positions, cfg, cache_kv=None, cache_pos=None,
-           valid_bias=None, fresh_kv=None, emit_kv=False, plain=False):
+           valid_bias=None, fresh_kv=None, emit_kv=False, plain=False,
+           aux=None):
     a, kv = A.attention(
         p["attn"], norm(h, p.get("ln1"), cfg),
         num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
@@ -78,17 +79,20 @@ def _layer(p, h, positions, cfg, cache_kv=None, cache_pos=None,
         valid_bias=valid_bias, fresh_kv=fresh_kv, emit_kv=emit_kv,
         plain=plain)
     h = h + a
-    return h + _ffn(p, norm(h, p.get("ln2"), cfg), cfg, plain), kv
+    return h + _ffn(p, norm(h, p.get("ln2"), cfg), cfg, plain, aux), kv
 
 
-def _ffn(p, hn, cfg, plain):
+def _ffn(p, hn, cfg, plain, aux=None):
     """The layer's MLP, or its experts (plus arctic's dense residual MLP on
-    the same input)."""
+    the same input); an MoE layer appends its load-balancing loss to
+    ``aux`` when given a list."""
     if cfg.num_experts == 0:
         return M.mlp(p["mlp"], hn, cfg.mlp_act, plain)
-    m, _ = MOE.moe_block(p["moe"], hn, num_experts=cfg.num_experts,
+    m, a = MOE.moe_block(p["moe"], hn, num_experts=cfg.num_experts,
                          top_k=cfg.top_k,
                          capacity_factor=cfg.capacity_factor, plain=plain)
+    if aux is not None:
+        aux.append(a["moe_aux_loss"])
     if cfg.dense_residual:
         m = m + M.mlp(p["mlp"], hn, cfg.mlp_act, plain)
     return m
@@ -101,29 +105,44 @@ def _head(params, h, cfg, plain):
 
 
 def apply(params, tokens: torch.Tensor, cfg, *, return_cache: bool = False,
-          last_only: bool = False, plain: bool = False):
+          last_only: bool = False, plain: bool = False, remat: bool = False,
+          with_aux: bool = False):
     """tokens (B, S) -> logits (B, S, V_pad) f32; with ``return_cache`` also
     the raw (L, B, S, Hkv, hd) K/V cache at position S. ``last_only`` takes
-    the head logits of the final position only (serving prefill)."""
+    the head logits of the final position only (serving prefill).
+    ``remat`` recomputes each layer in the backward pass instead of keeping
+    its activations; ``with_aux`` also returns the aux dict after the
+    logits (an MoE model's ``moe_aux_loss``, summed over its layers)."""
     b, s = tokens.shape
     h = embed_lookup(params["embed"]["tok"], tokens, dtype_of(cfg))
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device)[None].expand(b, s)
-    ks, vs = [], []
+
+    def layer(p, h):
+        aux: list = []
+        h, kv = _layer(p, h, positions, cfg, emit_kv=return_cache,
+                       plain=plain, aux=aux)
+        return h, kv, (aux[0] if aux else None)
+
+    ks, vs, auxs = [], [], []
     for part, lo, hi in segment_slices(params["layers"]):
-        for i in range(hi - lo):
-            h, kv = _layer(tree_index(part, i), h, positions, cfg,
-                           emit_kv=return_cache, plain=plain)
+        for p in tree_unstack(part, hi - lo):
+            h, kv, a = remat_call(layer, p, h, remat=remat)
+            if a is not None:
+                auxs.append(a)
             if return_cache:
                 ks.append(kv.k)
                 vs.append(kv.v)
     if last_only:
         h = h[:, -1:, :]
     logits = _head(params, h, cfg, plain)
-    if not return_cache:
-        return logits
-    pos = torch.tensor(s, dtype=torch.int32, device=tokens.device)
-    return logits, DecodeCache(k=torch.stack(ks), v=torch.stack(vs), pos=pos)
+    out = (logits,)
+    if with_aux:
+        out += ({"moe_aux_loss": torch.stack(auxs).sum()} if auxs else {},)
+    if return_cache:
+        pos = torch.tensor(s, dtype=torch.int32, device=tokens.device)
+        out += (DecodeCache(k=torch.stack(ks), v=torch.stack(vs), pos=pos),)
+    return out[0] if len(out) == 1 else out
 
 
 def init_cache(cfg, batch: int, max_seq: int, device) -> DecodeCache:

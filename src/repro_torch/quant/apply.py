@@ -70,14 +70,22 @@ def plan_segments(plan: QuantPlan,
 
 def apply_plan_stacked(stacked: Any, plan: QuantPlan, group: int = 128,
                        cuts: Sequence[int] = ()) -> SegmentedParams:
-    """``stacked`` leaves have a leading layer axis of length len(plan)."""
+    """``stacked`` leaves have a leading layer axis of length len(plan).
+    A segment that spans the whole stack may keep views of it; any other
+    segment's leaves left raw (a raw segment's, a quantized segment's norm
+    vectors) are copies, as the reference's slice copies: a compiled tree
+    never pins a raw stack its caller has dropped."""
+    n = len(plan.decisions)
     segs = []
     for precision, start, stop in plan_segments(plan, cuts):
         sliced = tree_map(lambda x: x[start:stop], stacked)
+        params = quantize_tree(sliced, precision, group, min_ndim=3)
+        if (start, stop) != (0, n):
+            params = tree_map(lambda x: x.clone()
+                              if isinstance(x, torch.Tensor) else x, params)
         segs.append(Segment(precision=precision, start=start, stop=stop,
-                            params=quantize_tree(sliced, precision, group,
-                                                 min_ndim=3)))
-    return SegmentedParams(segments=segs, num_layers=len(plan.decisions))
+                            params=params))
+    return SegmentedParams(segments=segs, num_layers=n)
 
 
 def segment_slices(layers: Any) -> list[tuple[Any, int, int]]:

@@ -5,6 +5,8 @@ from __future__ import annotations
 
 from typing import Any, Callable
 
+import torch
+
 from repro_torch.quant.qtypes import QTensor
 
 
@@ -28,3 +30,18 @@ def tree_index(tree: Any, i: int) -> Any:
     """Entry ``i`` of a tree stacked over a leading layer axis (views)."""
     return tree_map(lambda x: x.index(i) if isinstance(x, QTensor) else x[i],
                     tree)
+
+
+def tree_unstack(tree: Any, n: int) -> list:
+    """The ``n`` entries of a tree stacked over a leading layer axis (views,
+    as ``tree_index``), each tensor leaf split once by ``torch.unbind``:
+    under autograd the layers' gradients then go back to the stack in one
+    op, where ``n`` separate ``x[i]`` would each add a zero-filled copy of
+    the whole stack."""
+    split = [[x.index(i) for i in range(n)] if isinstance(x, QTensor)
+             else torch.unbind(x, 0) for x in tree_leaves(tree)]
+    out = []
+    for i in range(n):
+        it = iter([s[i] for s in split])
+        out.append(tree_map(lambda _: next(it), tree))
+    return out

@@ -73,6 +73,20 @@ def test_scans_cover_the_fastewq_modules():
     assert (PORT / "core" / "classifiers" / "__init__.py").is_file()
 
 
+def test_scans_cover_the_training_modules():
+    """The import and source scans above reach the training path: the
+    optimizer, the train step and loop, the synthetic data, the fault
+    runtime and the training launcher (each a copy of the JAX package's
+    on torch and numpy)."""
+    training = {"repro_torch.optim.adamw", "repro_torch.optim.schedule",
+                "repro_torch.train.step", "repro_torch.train.loop",
+                "repro_torch.data.synthetic", "repro_torch.runtime.fault",
+                "repro_torch.launch.train", "repro_torch.launch.steps"}
+    assert training <= set(_MODULES)
+    for pkg in ("optim", "train", "data", "runtime"):
+        assert (PORT / pkg / "__init__.py").is_file()
+
+
 def _open_spans(events: list) -> list:
     """Replays a Chrome trace's B/E events per (pid, tid) track and returns
     what is left open."""
