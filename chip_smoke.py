@@ -248,8 +248,28 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    priorities 0 and 1, one cancel_at_step, one deadline_steps and one
    queue_timeout_steps on the decode-step clock: the finish reasons and
    preemption / timeout / cancel counts the stream dictates, graph and
-   eager serves equal to the bit, no page leaked after either.
-4l. (after 4g, phase 4's params dropped) training, the first step of the
+   eager serves equal to the bit, no page leaked after either. The
+   artifact's directory stays until 4n has booted it.
+4n. (after 4g) mesh-parallel serving (``serve_mesh``): phase 4's EWQ plan
+   with int8 KV over meshes of the port's own laid on the one card (every
+   position cuda:0, each with its own shards; two positions share the
+   card's bandwidth, so tokens/s is not a deployment's). (a) a (data=1,
+   model=2) engine from CUDA graphs: prefill and teacher-forced decode
+   logits along phase 4's token stream within LOGIT_REL_L2 of the
+   mesh-less engine's, its greedy agreement (a reading: the position sums
+   reorder bf16 additions), weight bytes a position against the ratio the
+   plan's specs predict, its launches per decode step and tokens/s; (b)
+   ReplicaServe over (data=2, model=2), 4 slots a replica, against the
+   full (2, 2) engine with 8 (4 a data row) on the same requests, greedy
+   tokens identical (else the first difference is reported and the run
+   fails); (c) 4g's artifact cold-booted onto
+   (1, 2): the boot's allocation peak within 5% of the whole model's
+   bytes over the shards (no whole copy lands), tokens equal to (a)'s.
+   qmatmul, qkv, qmlp and decode attention must launch in every serve.
+   Phase 3 checks the same four kernels at a position's shapes
+   (MESH_SHAPES, ``mesh_ms``), and the kernels line carries those rows
+   (``mesh_rows``).
+4l. (after 4n, phase 4's params dropped) training, the first step of the
    reference's serve launcher: llama3.2-3b FULL from its own
    ``torch.Generator`` init (seed 0) trained 30 steps of 4 x 256 tokens
    (``train``: lr 1e-3, warmup 3, no remat, f32 moments; every loss
@@ -270,9 +290,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    held to the plain versions within LOGIT_REL_L2), the perplexities and
    their order reported, not asserted; FastEWQ's plan (phase 4k's, from
    block sizes) against the trained EWQ plan.
-4m. (after 4l) the FastEWQ dataset on the card: ``build_dataset(steps=30,
+4m. (after 4l) the FastEWQ dataset on the card: ``build_dataset(steps=15,
    seeds=(0, 1))`` over every arch of the registry
-   (benchmarks/common.py:120's arguments; each model planned with the
+   (benchmarks/common.py:120's seeds; its 30 steps halved to keep the run
+   under 1000 s of the contract's 1200; each model planned with the
    reference's analysis, paper mode, which launches no entropy kernel),
    its rows, seconds and quantized share, and
    ``evaluate_all_classifiers`` on those rows (the six accuracies and
@@ -281,7 +302,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    kernel's launch count must have risen on the serve and analysis paths,
    except the int8 quantize kernel, which no path runs. No single PyTorch
    call computes the fused MLP: its entries have library_ms null and the
-   composition's time as library_composition_ms.
+   composition's time as library_composition_ms. The four kernels of
+   phase 4n carry ``mesh_rows``: their rows at a position's shapes, each
+   with its times, bound, library call and 4n (a)'s launches.
 
 Each phase prints its seconds on a line of its own (``phase <name>:``),
 also when it fails.
@@ -456,6 +479,7 @@ def paged_pair(torch, gen, b: int, s: int, rows_needed, prec: str,
 
 
 LLAMA_ATTN = (8, 3, 128)        # KV heads, query heads per KV head, head dim
+LLAMA_TP2_ATTN = (4, 3, 128)    # one position of a (data, model=2) mesh
 WHISPER_ATTN = (16, 1, 64)
 ZAMBA_ATTN = (32, 1, 80)        # zamba2-2.7b's shared attention
 GROK_ATTN = (8, 6, 128)         # grok-1-314b: 48 heads over 8
@@ -550,6 +574,11 @@ def attention_cases(torch):
               int8, LLAMA_ATTN, ""),
              ("decode_attn_cross", SLOTS, 1500, 1, False, [1500] * SLOTS,
               ("int8", "int4"), WHISPER_ATTN, " cross"),
+             # llama3.2-3b's heads on one position of a (data, model=2)
+             # mesh (phase 4n): 12 query heads over 4 KV heads, int8
+             # groups of 64 over Hkv * hd = 512, at a row's 4 slots
+             ("decode_attn", SLOTS, 1024, 1, True, serve_valid, int8,
+              LLAMA_TP2_ATTN, " tp2"),
              ("decode_attn", SLOTS, 1024, 1, True, serve_valid, all3,
               ZAMBA_ATTN, ""),
              ("decode_attn", SLOTS, 1024, 1, True,
@@ -894,6 +923,13 @@ def check_kernels(torch, timer, rows: list) -> dict:
     check_qmatmul(*mm, MOE_SHAPES["router"], moe_ms())
     check_qmatmul(*mm, MOE_SHAPES["qmatmul"], moe_ms())
     check_qkv(*mm, MOE_SHAPES["qkv"], moe_ms())
+    # llama3.2-3b's shapes on one position of a (data, model=2) mesh
+    # (phase 4n) at every M its path gives them (mesh_ms), in the plan's
+    # precisions
+    check_qmatmul(*mm, MESH_SHAPES["qmatmul"], mesh_ms(), MESH_PRECISIONS)
+    check_qkv(*mm, MESH_SHAPES["qkv"], mesh_ms(), MESH_PRECISIONS)
+    check_qmlp(*mm, MESH_SHAPES["qmlp"], mesh_ms(),
+               precisions=MESH_PRECISIONS)
 
     # decode attention in every form (attention_cases)
     for case in attention_cases(torch):
@@ -924,6 +960,15 @@ def moe_ms() -> tuple:
     embedding plan quantizes the embedding alone), so no MoE row is at a
     prompt's head (M = 1)."""
     return (SLOTS, SLOTS * (SPEC_K + 1), matmul_ms()[-1])
+
+
+def mesh_ms() -> tuple:
+    """The M values phase 4n's mesh serves give the kernels at a position's
+    shapes: the head at a prompt's last token (1), a decode step of a
+    replica, a (2, 2) mesh row or the (1, 2) engine (SLOTS), and prompts
+    (8-row tiles: 8, 256, and the serve prompt whose last tile is
+    partial)."""
+    return (1, SLOTS, 8, 256, matmul_ms()[-1])
 
 
 def qmlp_cases() -> list:
@@ -968,7 +1013,18 @@ MOE_SHAPES = {
 }
 
 
+# llama3.2-3b's matrices on one position of a (data, model=2) mesh (phase
+# 4n), by kernel: the row-parallel wo's columns (K = 1536, 12 groups of
+# 128; an int4 shard splits the packed K/2 at a group boundary) and the
+# tied head's vocab rows through qmatmul, each position's query and KV
+# heads through qkv, its half of d_ff through qmlp
+MESH_SHAPES = {
+    "qmatmul": {"tp2 wo": (3072, 1536), "tp2 lm_head": (64128, 3072)},
+    "qkv": {"tp2 wq|wk|wv 2560x3072": ((1536, 512, 512), 3072)},
+    "qmlp": {"tp2 swiglu 3072->4096->3072": (4096, 3072)},
+}
 MATMUL_PRECISIONS = ("int8", "int4", "ternary")
+MESH_PRECISIONS = ("int8", "int4")     # the EWQ 4bit/8bit plan's
 
 
 def headline(row: dict) -> bool:
@@ -998,7 +1054,7 @@ def _timed(row, timer, fn, plain, library, nbytes, flops):
 
 
 def check_qmatmul(torch, timer, weight, act, compare, add, shapes: dict,
-                  ms_list) -> None:
+                  ms_list, precisions=MATMUL_PRECISIONS) -> None:
     """qmatmul at every precision and M of ``shapes`` (label -> (N, K)):
     against the plain version, within QMATMUL_F32 of the f32 dequantized
     product and equal to the bit over two calls, timed beside the library
@@ -1009,7 +1065,7 @@ def check_qmatmul(torch, timer, weight, act, compare, add, shapes: dict,
         if QUICK and "lm_head" in wname:
             continue
         base = weight(n, k)
-        for prec in MATMUL_PRECISIONS:
+        for prec in precisions:
             w = quantize(base, prec)
             wd = dequantize(w, torch.bfloat16)
             for m in ms_list:
@@ -1033,13 +1089,13 @@ def check_qmatmul(torch, timer, weight, act, compare, add, shapes: dict,
 
 
 def check_qkv(torch, timer, weight, act, compare, add, cases: dict,
-              ms_list) -> None:
+              ms_list, precisions=MATMUL_PRECISIONS) -> None:
     """The fused projections, ``cases`` label -> ((Nq, Nk, Nv), D), with
     qmatmul's checks."""
     from repro_torch.kernels.qmatmul import ops as QM
     from repro_torch.quant.quantize import dequantize, quantize
     for label, (ns, dm) in cases.items():
-        for prec in MATMUL_PRECISIONS:
+        for prec in precisions:
             ws = [quantize(weight(n, dm), prec) for n in ns]
             wqkv = torch.cat([dequantize(w, torch.bfloat16) for w in ws])
             for m in ms_list:
@@ -1064,7 +1120,8 @@ def check_qkv(torch, timer, weight, act, compare, add, cases: dict,
 
 
 def check_qmlp(torch, timer, weight, act, compare, add, cases: dict,
-               ms_list, form: str = "swiglu") -> None:
+               ms_list, form: str = "swiglu",
+               precisions=MATMUL_PRECISIONS) -> None:
     """The fused MLP in one form (``form`` swiglu or gelu), ``cases`` label
     -> (d_ff, d_model), at every precision and M of ``ms_list``: against
     its plain version, within QMLP_F32 of ``fused_mlp_f32`` and equal to
@@ -1081,7 +1138,7 @@ def check_qmlp(torch, timer, weight, act, compare, add, cases: dict,
     gelu = form == "gelu"
     kernel = "qmlp_gelu" if gelu else "qmlp"
     for label, (ff, d) in cases.items():
-        for prec in MATMUL_PRECISIONS:
+        for prec in precisions:
             wg = None if gelu else quantize(weight(ff, d), prec)
             wu, wdn = quantize(weight(ff, d), prec), quantize(weight(d, ff),
                                                               prec)
@@ -1560,7 +1617,24 @@ PLAIN_ROWS = {
     ("B4 S448 Hkv16 rep1 hd64 P64", "int8", SLOTS),
     ("B4 S448 Hkv16 rep1 hd64 self qs5", "int8", SLOTS),
     ("B4 S1500 Hkv16 rep1 hd64 cross qs5", "int8", SLOTS),
+    # phase 4n's shapes on one position of a (data, model=2) mesh
+    ("tp2 wo 3072x1536", "int8", SLOTS),
+    ("tp2 lm_head 64128x3072", "int8", SLOTS),
+    ("tp2 lm_head 64128x3072", "int4", SLOTS),
+    ("tp2 wq|wk|wv 2560x3072", "int8", SLOTS),
+    ("tp2 swiglu 3072->4096->3072", "int8", SLOTS),
+    ("B4 S1024 Hkv4 rep3 hd128 tp2", "int8", SLOTS),
 }
+# the rows of phase 4n's shapes beside each kernel's headline on the
+# kernels line (``mesh_rows``), at the (1, 2) engine's decode step (the
+# head int4 too: the EWQ plan puts llama3.2-3b's embedding at int4)
+MESH_ROWS = {"qmatmul": [("tp2 wo 3072x1536", "int8", SLOTS),
+                         ("tp2 lm_head 64128x3072", "int8", SLOTS),
+                         ("tp2 lm_head 64128x3072", "int4", SLOTS)],
+             "qkv": [("tp2 wq|wk|wv 2560x3072", "int8", SLOTS)],
+             "qmlp": [("tp2 swiglu 3072->4096->3072", "int8", SLOTS)],
+             "decode_attn": [("B4 S1024 Hkv4 rep3 hd128 tp2", "int8",
+                              SLOTS)]}
 # Limit on the relative L2 distance of one decode step's logits, kernels
 # against plain versions. PERF.md gives the readings that place it: the
 # kernels against the plain versions, and against the plain versions
@@ -1683,6 +1757,9 @@ def cache_tensors(cache) -> list:
 def serve_full_width(torch, build, report: dict, smoke: bool = False,
                      device: str = "cuda") -> dict:
     """Phase 4 (``smoke``/``device`` rehearse it at SMOKE size on a CPU)."""
+    import shutil
+    import tempfile
+
     from repro_torch.configs.registry import get_config
     from repro_torch.models.model import build as build_model
     from repro_torch.quant.kvcache import clone_cache
@@ -1863,12 +1940,23 @@ def serve_full_width(torch, build, report: dict, smoke: bool = False,
         _, entropy_launches = analyze_model(torch, build, report, model,
                                             params, device)
     launches["entropy"] += entropy_launches
-    with phase(report, "4g llama artifact + session"):
-        session_launches = serve_artifact_session(
-            torch, build, report, model, params, ewq, prompts, base_outs,
-            draft_stamp, min(report["analysis"][-1]["kernel_s"]), device)
-    for k, v in session_launches.items():
-        launches[k] += v
+    artifact_dir = tempfile.mkdtemp(prefix="ewq_artifact_")
+    try:
+        with phase(report, "4g llama artifact + session"):
+            session_launches = serve_artifact_session(
+                torch, build, report, model, params, ewq, prompts, base_outs,
+                draft_stamp, min(report["analysis"][-1]["kernel_s"]),
+                artifact_dir, device)
+        for k, v in session_launches.items():
+            launches[k] += v
+        with phase(report, "4n llama mesh"):
+            mesh_launches = serve_mesh(torch, build, report, model, params,
+                                       ewq, prompts, base_outs, artifact_dir,
+                                       device)
+        for k, v in mesh_launches.items():
+            launches[k] += v
+    finally:
+        shutil.rmtree(artifact_dir, ignore_errors=True)
     params = None                 # 4l trains its own llama from its init
     with phase(report, "4l llama train + EWQ + perplexity + serve"):
         train_launches = train_serve(torch, build, report, prompts, smoke,
@@ -2211,7 +2299,8 @@ def serve_fastewq(torch, build, report: dict, model, params, ewq, prompts,
 TRAIN_STEPS = 30        # 4l: the serve launcher's --train-steps default
 TRAIN_BATCH, TRAIN_SEQ = 4, 256
 EVAL = dict(batch=8, seq=64, steps=4)     # tests/test_system.py's evaluate
-DATASET_STEPS, DATASET_SEEDS = 30, (0, 1)  # benchmarks/common.py:120
+# benchmarks/common.py:120's seeds; its 30 steps halved for the run's time
+DATASET_STEPS, DATASET_SEEDS = 15, (0, 1)
 # 4l: the least mean fall, in nats, of the last five steps' losses below
 # the init's loss on the same batches (an update not applied gives 0, one
 # of the wrong sign less than 0)
@@ -3862,13 +3951,14 @@ def slo_stream(prompts) -> tuple:
 
 def serve_artifact_session(torch, build, report: dict, model, params, plan,
                            prompts, base_outs, draft_stamp, analysis_s: float,
-                           device: str) -> dict:
-    """Phase 4g (see the module docstring): the artifact round trip, the
-    chunked-prefill serve and its readings, the decode gap while a long
-    prompt arrives, and the SLO stream. Returns the launches of its serves
-    (each serve's counts set to 0 just before it)."""
+                           d: str, device: str) -> dict:
+    """Phase 4g (see the module docstring): the artifact round trip (the
+    artifact written into the empty directory ``d``, which phase 4n boots
+    again and the caller removes), the chunked-prefill serve and its
+    readings, the decode gap while a long prompt arrives, and the SLO
+    stream. Returns the launches of its serves (each serve's counts set to
+    0 just before it)."""
     import shutil
-    import tempfile
 
     import numpy as np
     from repro_torch.quant.compiler import compile_plan, save_artifact
@@ -3896,46 +3986,40 @@ def serve_artifact_session(torch, build, report: dict, model, params, plan,
     mem = ServeEngine(model, compiled.params, max_seq=1024,
                       kv_precision=compiled.kv_plan, device=device)
     mem.plan = plan
-    d = tempfile.mkdtemp(prefix="ewq_artifact_")
-    try:
-        need = 2 * mem.weight_bytes()
-        free = shutil.disk_usage(d).free
-        if free < need:
-            raise RuntimeError(
-                f"artifact: {free} bytes free under {d}, under twice the "
-                f"plan's weight bytes ({need:.0f}); the artifact cannot be "
-                "written")
-        t0 = time.perf_counter()
-        save_artifact(d, compiled)
-        save_s = time.perf_counter() - t0
-        disk = sum(f.stat().st_size for f in pathlib.Path(d).rglob("*")
-                   if f.is_file())
-        fresh_memory(torch, device)
-        t0 = time.perf_counter()
-        art = ServeEngine.from_artifact(model, d, max_seq=1024,
-                                        device=device,
-                                        spec=SpecConfig(k=SPEC_K))
-        sync()
-        boot_s = time.perf_counter() - t0
-        if art.plan.to_json() != plan.to_json():
-            raise AssertionError("artifact: the booted plan differs")
-        if art.kv_plan != mem.kv_plan:
-            raise AssertionError(f"artifact: KV plan {art.kv_plan} against "
-                                 f"{mem.kv_plan}")
-        if art.weight_bytes() != mem.weight_bytes():
-            raise AssertionError(f"artifact: weight bytes "
-                                 f"{art.weight_bytes()} against "
-                                 f"{mem.weight_bytes()}")
-        leaves = same_leaves(torch, art.params, mem.params)
-        draft = art._ensure_draft()
-        if (list(draft.precisions) != draft_stamp["precisions"]
-                or float(draft.overhead_bytes)
-                != draft_stamp["overhead_bytes"]):
-            raise AssertionError(
-                f"artifact: re-derived draft {list(draft.precisions)} "
-                f"{draft.overhead_bytes} against the stamp {draft_stamp}")
-    finally:
-        shutil.rmtree(d, ignore_errors=True)
+    need = 2 * mem.weight_bytes()
+    free = shutil.disk_usage(d).free
+    if free < need:
+        raise RuntimeError(
+            f"artifact: {free} bytes free under {d}, under twice the "
+            f"plan's weight bytes ({need:.0f}); the artifact cannot be "
+            "written")
+    t0 = time.perf_counter()
+    save_artifact(d, compiled)
+    save_s = time.perf_counter() - t0
+    disk = sum(f.stat().st_size for f in pathlib.Path(d).rglob("*")
+               if f.is_file())
+    fresh_memory(torch, device)
+    t0 = time.perf_counter()
+    art = ServeEngine.from_artifact(model, d, max_seq=1024, device=device,
+                                    spec=SpecConfig(k=SPEC_K))
+    sync()
+    boot_s = time.perf_counter() - t0
+    if art.plan.to_json() != plan.to_json():
+        raise AssertionError("artifact: the booted plan differs")
+    if art.kv_plan != mem.kv_plan:
+        raise AssertionError(f"artifact: KV plan {art.kv_plan} against "
+                             f"{mem.kv_plan}")
+    if art.weight_bytes() != mem.weight_bytes():
+        raise AssertionError(f"artifact: weight bytes "
+                             f"{art.weight_bytes()} against "
+                             f"{mem.weight_bytes()}")
+    leaves = same_leaves(torch, art.params, mem.params)
+    draft = art._ensure_draft()
+    if (list(draft.precisions) != draft_stamp["precisions"]
+            or float(draft.overhead_bytes) != draft_stamp["overhead_bytes"]):
+        raise AssertionError(
+            f"artifact: re-derived draft {list(draft.precisions)} "
+            f"{draft.overhead_bytes} against the stamp {draft_stamp}")
     draft = mem = None
     booted = ServeEngine(model, art.params, max_seq=1024,
                          kv_precision=art.kv_plan, device=device)
@@ -4103,6 +4187,222 @@ def serve_artifact_session(torch, build, report: dict, model, params, plan,
 # ---------------------------------------------------------------------------
 # phase 5: the EWQ analysis through the entropy kernel
 # ---------------------------------------------------------------------------
+
+# the kernels phase 4n's mesh serves run at a position's shapes, each of
+# which must launch in every one of its serves
+MESH_PATH = ("qmatmul", "qkv", "qmlp", "decode_attn")
+MESH_FORCED_STEPS = 8   # 4n (a)'s teacher-forced decode steps
+
+
+def forced_logits(torch, engine, prompts, forced) -> list:
+    """``engine``'s logits over SLOTS of ``prompts`` prefilled and
+    inserted, then ``forced`` (SLOTS, n) tokens stepped one at a time:
+    the prefill's last-token logits, then each step's, f32."""
+    from repro_torch.serving import batch as B
+    state = engine.init_decode_state(SLOTS)
+    for slot in range(SLOTS):
+        engine.insert(state, slot, engine.prefill_request(prompts[slot]),
+                      forced.shape[1] + 1)
+    out = [state.last_logits.float().clone()]
+    with torch.no_grad():
+        for j in range(forced.shape[1]):
+            tok = forced[:, j:j + 1]
+            if isinstance(state.cache, B.MeshCache):
+                logits = B.decode_rows(engine.model, engine._groups,
+                                       state.cache, tok)
+            else:
+                logits, cache = engine.model.decode_step(
+                    engine.params, state.cache, tok)
+                state.cache.pos.copy_(cache.pos)
+            out.append(logits[:, 0].float())
+    return out
+
+
+def first_difference(outs, ref) -> dict | None:
+    """The first request and token at which two serves differ, with both
+    chosen-token logprobs there; None when the tokens agree."""
+    import numpy as np
+    for o, r in zip(outs, ref):
+        diff = np.nonzero(o.tokens != r.tokens)[0]
+        if len(diff):
+            j = int(diff[0])
+            g = j - (len(o.tokens) - len(o.logprobs))
+            return dict(rid=o.rid, position=j, tokens=[int(o.tokens[j]),
+                                                       int(r.tokens[j])],
+                        logprobs=([float(o.logprobs[g]), float(r.logprobs[g])]
+                                  if g >= 0 else None))
+    return None
+
+
+def serve_mesh(torch, build, report: dict, model, params, plan, prompts,
+               base_outs, artifact_dir: str, device: str) -> dict:
+    """Phase 4n: llama3.2-3b under phase 4's EWQ plan and int8 KV served
+    over meshes of the port's own laid on the one card (every position
+    cuda:0, each holding its own shards), with CUDA-graph decode chunks.
+    (a) a (data=1, model=2) engine: prefill and teacher-forced decode
+    logits along the mesh-less engine's token stream held to it under
+    LOGIT_REL_L2, the greedy agreement of its serve (a reading: the
+    position sums reorder bf16 additions), its weight bytes per position
+    against the prediction from the plan's specs, its launches and
+    tokens/s; (b) ReplicaServe over (data=2, model=2), 4 slots a replica,
+    and the full (2, 2) engine with 4 a data row, on the same requests,
+    token-identical (the launcher's --check-dp-parity); (c) phase 4g's artifact cold-booted onto (1, 2):
+    the allocation never holds a whole copy besides the shards, and the
+    tokens equal (a)'s. Two positions on one card share its bandwidth:
+    tokens/s here is not a deployment's. Returns the launches of its
+    serves (each serve's counts set to 0 just before it)."""
+    import numpy as np
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import mesh_groups
+    from repro_torch.quant.compiler import compile_plan, save_artifact
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.replica import ReplicaServe
+    from repro_torch.serving.scheduler import Request
+    from repro_torch.sharding.specs import (predicted_position_nbytes,
+                                            serving_param_specs)
+    cfg = model.cfg
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    launches = {k: 0 for k in build.LAUNCHES}
+    devs = None if device == "cuda" else [device]
+    mesh12 = make_mesh((1, 2), ("data", "model"), devs)
+    mesh22 = make_mesh((2, 2), ("data", "model"), devs)
+    out: dict = {"positions_on": [str(d) for d in mesh22.device_set]}
+
+    def requests():
+        return [Request(rid=i, prompt=p, max_new_tokens=32)
+                for i, p in enumerate(prompts)]
+
+    def counted(label, fn):
+        before = dict(launches)
+        res = _counted(build, launches, label, fn, device, MESH_PATH)
+        return res, {k: launches[k] - before[k] for k in MESH_PATH}
+
+    # -- (a) the TP-only engine ------------------------------------------------
+    fresh_memory(torch, device)
+    # the groups each position holds whole: llama3.2-3b's 128 and 64 (the
+    # groups phase 4g's artifact holds), smaller at SMOKE size
+    group, kv_group = mesh_groups(cfg, 2)
+    compiled = compile_plan(model, params, plan, group, kv_precision="int8",
+                            kv_group=kv_group)
+    if (group, kv_group) != (128, 64):
+        artifact_dir = str(pathlib.Path(artifact_dir) / "mesh")
+        save_artifact(artifact_dir, compiled)
+    kw = dict(max_seq=1024, kv_precision=compiled.kv_plan, device=device)
+    single = ServeEngine(model, compiled.params, **kw)
+    whole = single.weight_bytes_per_device()
+    predicted = predicted_position_nbytes(
+        compiled.params, serving_param_specs(compiled.params, mesh12),
+        mesh12) / whole
+    log(f"mesh: predicted weight bytes per position at (1, 2), from the "
+        f"plan's specs: {predicted:.4f} of the mesh-less engine's {whole:.0f}")
+    t0 = time.perf_counter()
+    tp = ServeEngine(model, compiled.params, mesh=mesh12, **kw)
+    sync()
+    place_s = time.perf_counter() - t0
+    ratio = tp.weight_bytes_per_device() / whole
+    forced = torch.as_tensor(
+        np.stack([o.generated[:MESH_FORCED_STEPS] for o in base_outs[:SLOTS]]),
+        dtype=torch.long, device=device)
+    ref_logits = forced_logits(torch, single, prompts, forced)
+    tp_logits = forced_logits(torch, tp, prompts, forced)
+    rels = [rel_l2(a, b) for a, b in zip(tp_logits, ref_logits)]
+    forced_agree = float(np.mean([float((a.argmax(-1) == b.argmax(-1))
+                                        .float().mean())
+                                  for a, b in zip(tp_logits, ref_logits)]))
+    single = ref_logits = tp_logits = None
+    log(f"mesh (1, 2): prefill logits vs the mesh-less engine: relative L2 "
+        f"{rels[0]:.4g}; teacher-forced decode steps: max {max(rels[1:]):.4g}"
+        f" (limit {LOGIT_REL_L2}); argmax agreement {forced_agree:.3f}")
+    if max(rels) > LOGIT_REL_L2:
+        raise AssertionError(f"mesh (1, 2): logits differ from the "
+                             f"mesh-less engine's: relative L2 {rels}")
+    t0 = time.perf_counter()
+    (tp_outs, tp_stats), tp_counts = counted(
+        "4n (1, 2) serve",
+        lambda: tp.serve(requests(), num_slots=SLOTS, chunk=CHUNK))
+    tp_s = time.perf_counter() - t0
+    check_outputs("mesh (1, 2)", tp_outs, cfg.vocab_size)
+    agree = float(np.mean([np.mean(o.generated == r.generated)
+                           for o, r in zip(tp_outs, base_outs)]))
+    out["tp"] = dict(
+        mesh=dict(mesh12.shape), place_s=place_s,
+        prefill_logit_rel_l2=rels[0], decode_logit_rel_l2=rels[1:],
+        forced_argmax_agreement=forced_agree,
+        greedy_agreement_with_phase_4=agree,
+        weight_bytes_whole=whole,
+        weight_bytes_per_position=tp.weight_bytes_per_device(),
+        weight_bytes_ratio=ratio, weight_bytes_ratio_predicted=predicted,
+        tokens_per_s=tp_stats.tokens_per_s, wall_s=tp_stats.wall_s,
+        decode_steps=tp_stats.decode_steps, launches=tp_counts,
+        launches_per_decode_step={k: v / tp_stats.decode_steps
+                                  for k, v in tp_counts.items()},
+        serve_s=tp_s)
+    log("mesh (1, 2): " + json.dumps(out["tp"]))
+    tp = None
+
+    # -- (b) DP x TP replicas against the full (2, 2) engine -----------------
+    fresh_memory(torch, device)
+    rep = ReplicaServe.build(model, compiled.params, mesh=mesh22, **kw)
+    (rep_outs, rstats), rep_counts = counted(
+        "4n replicas over (2, 2)",
+        lambda: rep.serve(requests(), num_slots=SLOTS, chunk=CHUNK))
+    rep = None
+    full = ServeEngine(model, compiled.params, mesh=mesh22, **kw)
+    (full_outs, full_stats), full_counts = counted(
+        "4n (2, 2) engine",
+        lambda: full.serve(requests(), num_slots=2 * SLOTS, chunk=CHUNK))
+    full = compiled = None
+    check_outputs("mesh replicas", rep_outs, cfg.vocab_size)
+    diff = first_difference(rep_outs, full_outs)
+    out["dp"] = dict(
+        replicas=rstats.replicas, assignments=rstats.assignments,
+        occupancy_per_replica=rstats.occupancy_per_replica,
+        replica_tokens_per_s=rstats.aggregate.tokens_per_s,
+        full_mesh_tokens_per_s=full_stats.tokens_per_s,
+        replica_launches=rep_counts, full_mesh_launches=full_counts,
+        logprobs_identical=same_outputs(rep_outs, full_outs, logprobs=True),
+        greedy_agreement_with_tp=float(np.mean([
+            np.mean(o.generated == r.generated)
+            for o, r in zip(rep_outs, tp_outs)])),
+        first_difference=diff)
+    log("mesh (2, 2): " + json.dumps(out["dp"]))
+    if diff is not None:
+        raise AssertionError(f"mesh (2, 2): the replicas' greedy tokens "
+                             f"differ from the full-mesh engine's: {diff}")
+
+    # -- (c) the artifact cold-booted sharded --------------------------------
+    fresh_memory(torch, device)
+    base = torch.cuda.memory_allocated() if device == "cuda" else 0
+    t0 = time.perf_counter()
+    art = ServeEngine.from_artifact(model, artifact_dir, max_seq=1024,
+                                    mesh=mesh12, device=device)
+    sync()
+    boot_s = time.perf_counter() - t0
+    held = sum(art.mesh_params.position_nbytes().values())
+    peak = (torch.cuda.max_memory_allocated() - base if device == "cuda"
+            else None)
+    (art_outs, _), art_counts = counted(
+        "4n cold-booted (1, 2) serve",
+        lambda: art.serve(requests(), num_slots=SLOTS, chunk=CHUNK))
+    out["cold_boot"] = dict(boot_s=boot_s, shards_bytes=held,
+                            boot_peak_bytes=peak, whole_bytes=whole,
+                            launches=art_counts,
+                            tokens_equal_to_tp=same_outputs(
+                                art_outs, tp_outs, logprobs=False),
+                            logprobs_equal_to_tp=same_outputs(
+                                art_outs, tp_outs, logprobs=True))
+    art = None
+    log("mesh cold boot (1, 2): " + json.dumps(out["cold_boot"]))
+    if peak is not None and peak > held + 0.05 * whole:
+        raise AssertionError(
+            f"mesh cold boot: the allocation peaked at {peak} bytes over "
+            f"{held} bytes of shards: a whole copy landed on the card")
+    if not out["cold_boot"]["tokens_equal_to_tp"]:
+        raise AssertionError("mesh cold boot: tokens differ from (a)'s: "
+                             f"{first_difference(art_outs, tp_outs)}")
+    report["mesh"] = out
+    return launches
+
 
 def analyze_model(torch, build, report: dict, model, params,
                   device: str) -> tuple:
@@ -5075,6 +5375,22 @@ def rotate_cross(torch, cache):
 # main
 # ---------------------------------------------------------------------------
 
+def mesh_rows(rows: list, kname: str, mesh_launches: dict) -> list:
+    """Phase 3's rows of ``kname`` at phase 4n's shapes (MESH_ROWS) with
+    their times, bound and library call, and the kernel's launches in 4n's
+    (1, 2) serve, every one of them at a position's shapes."""
+    out = []
+    for key in MESH_ROWS[kname]:
+        for r in rows:
+            if r["kernel"] == kname and (r["shape"], r["precision"],
+                                         r["m"]) == key:
+                out.append({k: r.get(k) for k in (
+                    "shape", "precision", "m", "ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms", "library_composition_ms")
+                    if k in r} | {"launches": mesh_launches[kname]})
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5185,6 +5501,9 @@ def main() -> int:
             "library_ms": row.get("library_ms")}
         if "library_composition_ms" in row:
             entry["library_composition_ms"] = row["library_composition_ms"]
+        if kname in MESH_ROWS:
+            entry["mesh_rows"] = mesh_rows(rows, kname,
+                                           report["mesh"]["tp"]["launches"])
         kernels.append(entry)
     seconds = report["phase_seconds"]
     log(f"run: {time.perf_counter() - t_run:.1f} s, by phase "

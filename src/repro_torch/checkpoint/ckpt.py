@@ -255,10 +255,14 @@ def _load_shards(d: pathlib.Path) -> dict:
 
 
 def restore(directory: str, tree_like: Any, *, step: Optional[int] = None,
-            device=None) -> tuple[Any, dict]:
+            device=None, mesh=None, specs=None) -> tuple[Any, dict]:
     """Restore into the structure of ``tree_like`` (shapes and leaf kinds
     are read from it; meta tensors will do), each leaf onto ``device``.
-    Returns (tree, the checkpoint's ``extra``)."""
+    With ``mesh`` and ``specs`` (a P tree over ``tree_like``) each leaf's
+    shards go from the file's host arrays straight to their positions
+    (``sharding.specs.shard_tree``), so no device receives more of a leaf
+    than its shard, and the tree comes back as a ``MeshTree``. Returns
+    (tree, the checkpoint's ``extra``)."""
     directory = pathlib.Path(directory)
     if step is None:
         step = latest_step(directory)
@@ -270,6 +274,8 @@ def restore(directory: str, tree_like: Any, *, step: Optional[int] = None,
     with open(d / "manifest.json") as f:
         manifest = json.load(f)
     data = _load_shards(d)
+    if mesh is not None:
+        device = "cpu"                  # host views of the file's arrays
     device = torch.device("cpu") if device is None else torch.device(device)
 
     def leaf(key, like):
@@ -304,7 +310,11 @@ def restore(directory: str, tree_like: Any, *, step: Optional[int] = None,
                              f" != expected {tuple(like.shape)}")
         return _from_storable(stored, meta["dtype"], device)
 
-    return _rebuild(tree_like, leaf), manifest["extra"]
+    tree = _rebuild(tree_like, leaf)
+    if mesh is not None:
+        from repro_torch.sharding.specs import shard_tree
+        tree = shard_tree(tree, specs, mesh)
+    return tree, manifest["extra"]
 
 
 # ---------------------------------------------------------------------------
@@ -343,8 +353,11 @@ def load_artifact_manifest(directory: str) -> dict:
         return json.load(f)
 
 
-def restore_artifact(directory: str, tree_like: Any, *, device=None) -> Any:
+def restore_artifact(directory: str, tree_like: Any, *, device=None,
+                     mesh=None, specs=None) -> Any:
     """Restore the compiled tree into a (segmented, quantized) skeleton,
-    every leaf onto ``device``."""
-    tree, _ = restore(directory, tree_like, device=device)
+    every leaf onto ``device``, or (``mesh``, ``specs``) each shard onto
+    its position."""
+    tree, _ = restore(directory, tree_like, device=device, mesh=mesh,
+                      specs=specs)
     return tree

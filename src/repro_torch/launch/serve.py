@@ -28,6 +28,9 @@
     python -m repro_torch.launch.serve --arch llama3.2-3b \
         --trace-out trace.json --metrics-out metrics.prom \
         --profile-steps 8:24   # traced, metered and profiled serve
+    python -m repro_torch.launch.serve --arch llama3.2-3b --mesh data,model \
+        --mesh-shape 2,2 --dp --check-dp-parity
+                               # DP x TP replicas against the full mesh
 
 Weights start from a seeded ``torch.Generator`` init at the JAX package's
 scales (real checkpoints are not in the repository) and train
@@ -65,6 +68,15 @@ snapshot beside it), and ``--profile-steps A:B`` arms the device fences
 over decode steps [A, B), its trace written under ``--profile-dir``; the
 sinks are installed after the parity baseline, so only the measured serve
 is instrumented. The serve report renders through ``obs/render.py``.
+``--mesh data,model --mesh-shape 1,2`` serves tensor-parallel over a mesh
+of the port's own (``launch/mesh.py``: on one card every position is
+``cuda:0``, each holding its own shards); ``--dp`` splits the mesh's data
+axis into replicas, one engine each, and ``--check-dp-parity`` also serves
+on the single full-mesh engine and fails unless the greedy tokens agree. On
+a mesh the weights quantize at the largest group up to 128 that divides
+every shard's contraction axis, and the KV cache at the largest group up to
+64 that divides a position's KV heads (128 and 64 for llama3.2-3b at
+|model| = 2: the groups the kernels take).
 Without ``--device`` it runs on the GPU, and raises if there is none.
 """
 
@@ -72,6 +84,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import time
 
 import numpy as np
@@ -87,11 +100,24 @@ from repro_torch.quant.compiler import kv_tier_labels, save_artifact
 from repro_torch.serving import chaos
 from repro_torch.serving.engine import ServeEngine, resolve_device
 from repro_torch.serving.pool import PagedConfig
+from repro_torch.serving.replica import FailoverConfig, ReplicaServe
 from repro_torch.serving.quantized import plan_for_variant
 from repro_torch.serving.scheduler import SLOConfig, synthetic_stream
 from repro_torch.serving.session import DegradeConfig
 from repro_torch.serving.spec import SpecConfig
 from repro_torch.train.loop import train
+
+
+def mesh_groups(cfg, t: int, group: int = 128,
+                kv_group: int = 64) -> tuple[int, int]:
+    """The weight and KV groups a model axis of ``t`` lets each position
+    hold whole: the largest divisors of ``group`` / ``kv_group`` that
+    divide every shard's contraction axis (d_model, the heads' H * hd / t,
+    d_ff / t) and a position's KV heads (Hkv / t * hd)."""
+    ks = (cfg.d_model, cfg.num_heads * cfg.head_dim // t, cfg.d_ff // t)
+    for k in ks:
+        group = math.gcd(group, k)
+    return group, math.gcd(kv_group, cfg.num_kv_heads // t * cfg.head_dim)
 
 
 def main(argv=None) -> dict:
@@ -211,6 +237,20 @@ def main(argv=None) -> dict:
     ap.add_argument("--profile-dir", default=None,
                     help="folder of the --profile-steps trace (default: "
                          "repro_torch-profile under the temporary folder)")
+    # mesh-parallel serving
+    ap.add_argument("--mesh", default=None,
+                    help="comma-separated mesh axis names (e.g. data,model): "
+                         "shard weights/caches and serve mesh-parallel")
+    ap.add_argument("--mesh-shape", default=None,
+                    help="comma-separated per-axis device counts (e.g. 1,8); "
+                         "default puts every device on the last axis")
+    ap.add_argument("--dp", action="store_true",
+                    help="serve DP x TP: split the mesh's data axis into "
+                         "replicas, one engine each, and route the request "
+                         "stream load-aware across them")
+    ap.add_argument("--check-dp-parity", action="store_true",
+                    help="with --dp: also serve on the single full-mesh "
+                         "engine and assert token-identical greedy output")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="default: cuda; 'cpu' runs the plain versions")
@@ -218,6 +258,15 @@ def main(argv=None) -> dict:
 
     if args.poisson and not args.arrival_rate:
         raise SystemExit("--poisson requires --arrival-rate > 0")
+    if args.mesh_shape and not args.mesh:
+        raise SystemExit("--mesh-shape requires --mesh")
+    if args.dp and args.num_requests < 1:
+        raise SystemExit("--dp serves a request stream; set --num-requests")
+    if args.dp and not args.mesh:
+        raise SystemExit("--dp requires --mesh with a data axis >= 2 "
+                         "(e.g. --mesh data,model --mesh-shape 2,4)")
+    if args.check_dp_parity and not args.dp:
+        raise SystemExit("--check-dp-parity requires --dp")
     if args.check_chaos_parity and not args.chaos:
         raise SystemExit("--check-chaos-parity requires --chaos")
     if args.degrade_policy != "off" and not args.paged:
@@ -246,13 +295,35 @@ def main(argv=None) -> dict:
                          prefix_sharing=not args.no_prefix_sharing)
              if args.paged else None)
     kw = dict(max_seq=max_seq, spec=spec, paged=paged, device=device)
+    mesh, subs, group, kv_group = None, None, 128, None
+    if args.mesh:
+        from repro_torch.launch.mesh import parse_mesh, split_data_replicas
+        from repro_torch.sharding.specs import position_grid
+        mesh = parse_mesh(args.mesh, args.mesh_shape,
+                          devices=None if device.type == "cuda"
+                          else [device])
+        print(f"mesh: {dict(mesh.shape)} over {len(mesh.device_set)} "
+              f"devices")
+        group, kv_group = mesh_groups(cfg, position_grid(mesh).shape[1])
+        if args.dp:
+            subs = split_data_replicas(mesh)
+            if len(subs) < 2:
+                raise SystemExit(f"--dp found {len(subs)} replica(s) in "
+                                 f"mesh {dict(mesh.shape)}; need a data "
+                                 "axis of size >= 2")
+    kw["kv_group"] = kv_group
     boot_s = None
     if args.plan_artifact and ckpt.is_artifact(args.plan_artifact):
         # cold boot: quantized weights straight from the artifact
         t0 = time.perf_counter()
         if args.kv_precision is not None:
             kw["kv_precision"] = args.kv_precision
-        engine = ServeEngine.from_artifact(model, args.plan_artifact, **kw)
+
+        def make_engine(m):
+            return ServeEngine.from_artifact(model, args.plan_artifact,
+                                             mesh=m, **kw)
+
+        engine = make_engine(mesh)
         boot_s = time.perf_counter() - t0
         print(f"booted from artifact {args.plan_artifact} in {boot_s:.2f} s")
     else:
@@ -277,21 +348,33 @@ def main(argv=None) -> dict:
                   f"[{time.perf_counter() - t0:.2f} s]")
         kv_precision = args.kv_precision or "int8"
         if plan is not None and args.plan_artifact:
-            compiled = model.compile_plan(params, plan,
-                                          kv_precision=kv_precision)
-            engine = ServeEngine(model, compiled.params,
-                                 kv_precision=compiled.kv_plan or "bf16",
-                                 **kw)
-            engine.plan = plan
+            compiled = model.compile_plan(params, plan, group,
+                                          kv_precision=kv_precision,
+                                          kv_group=kv_group or 64)
+
+            def make_engine(m):
+                eng = ServeEngine(model, compiled.params,
+                                  kv_precision=compiled.kv_plan or "bf16",
+                                  mesh=m, **kw)
+                eng.plan = plan
+                return eng
+
+            engine = make_engine(mesh)
             if spec is not None and spec.draft_source == "model":
                 # stamp the draft so a cold boot re-derives the same one
                 compiled.draft = engine._ensure_draft().to_manifest()
-            path = save_artifact(args.plan_artifact, compiled)
+            path = save_artifact(args.plan_artifact, compiled, mesh=mesh)
             print(f"saved compiled plan artifact to {path}")
         else:
-            engine = ServeEngine(model, params, plan=plan,
-                                 kv_precision=kv_precision, **kw)
-        del params
+            def make_engine(m):
+                return ServeEngine(model, params, plan=plan, group=group,
+                                   kv_precision=kv_precision, mesh=m, **kw)
+
+            engine = make_engine(mesh)
+    replica = None
+    if subs is not None:
+        replica = ReplicaServe([make_engine(m) for m in subs])
+    params = compiled = None
     priorities = (tuple(int(p) for p in args.priorities.split(","))
                   if args.priorities else None)
     reqs = synthetic_stream(args.num_requests, vocab_size=cfg.vocab_size,
@@ -345,8 +428,19 @@ def main(argv=None) -> dict:
     if obs_on:
         obs.install(tracer, metrics_reg, prof)
     t0 = time.perf_counter()
+    rstats = None
     try:
-        outs, stats = engine.serve(reqs, degrade=degrade, **serve_kw)
+        if replica is not None:
+            # as the reference: chaos or a watchdog under --dp arm the
+            # replicas' failover (the watchdog per replica)
+            failover = (FailoverConfig(watchdog_s=serve_kw["watchdog_s"])
+                        if args.chaos or args.watchdog_ms else None)
+            outs, rstats = replica.serve(
+                reqs, degrade=degrade, failover=failover,
+                **{k: v for k, v in serve_kw.items() if k != "watchdog_s"})
+            stats = rstats.aggregate
+        else:
+            outs, stats = engine.serve(reqs, degrade=degrade, **serve_kw)
     finally:
         if injector is not None:
             chaos.install(None)
@@ -363,6 +457,11 @@ def main(argv=None) -> dict:
                        or args.watchdog_ms),
             chaos_fired=injector.log if injector is not None else None,
             spec=spec is not None,
+            replicas=(dict(replicas=rstats.replicas,
+                           mesh_shape=dict(replica.engines[0].mesh.shape),
+                           assignments=rstats.assignments,
+                           occupancy=rstats.occupancy_per_replica)
+                      if rstats is not None else None),
             paged=(dict(num_slots=args.num_slots,
                         kv_bytes_per_slot=engine.kv_bytes_per_slot(),
                         max_seq=max_seq) if paged is not None else None)):
@@ -404,6 +503,16 @@ def main(argv=None) -> dict:
                   state_bytes_by_field=engine.state_bytes_by_field())
     if boot_s is not None:
         report.update(artifact_boot_s=boot_s)
+    if mesh is not None:
+        report.update(mesh=dict(mesh.shape), weight_group=group,
+                      weight_bytes_per_device=engine.weight_bytes_per_device())
+    if args.check_dp_parity:
+        ref_out, _ = engine.serve(reqs, **serve_kw)
+        agree = (len(ref_out) == len(outs)
+                 and all(a.rid == b.rid and np.array_equal(a.tokens, b.tokens)
+                         for a, b in zip(ref_out, outs)))
+        print(f"greedy-agree vs single full-mesh engine: {float(agree):.1f}")
+        report.update(greedy_agree_with_full_mesh=agree)
     if degrade is not None or injector is not None or args.watchdog_ms:
         report.update(degrade_transitions=stats.degrade_transitions,
                       kv_tier_steps=stats.kv_tier_steps,
@@ -445,6 +554,9 @@ def main(argv=None) -> dict:
     if base is not None and not report["greedy_agree_with_fault_free"]:
         raise SystemExit("the chaos serve's greedy output differs from the "
                          "fault-free serve's (or requests were lost)")
+    if args.check_dp_parity and not report["greedy_agree_with_full_mesh"]:
+        raise SystemExit("DP x TP greedy output DIVERGED from the single "
+                         "full-mesh engine")
     return report
 
 

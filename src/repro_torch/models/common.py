@@ -159,3 +159,47 @@ def embed_lookup(table, ids: torch.Tensor, dtype) -> torch.Tensor:
 def lm_head(x: torch.Tensor, head_w, plain: bool = False) -> torch.Tensor:
     """Final projection to (padded) vocab logits in f32."""
     return qdot(x, head_w, out_dtype=torch.float32, plain=plain)
+
+
+# --------------------------------------------------------------------------
+# Vocab-parallel embedding and head (mesh serving)
+# --------------------------------------------------------------------------
+
+def _table_rows(table) -> int:
+    return (table.data if isinstance(table, QTensor) else table).shape[0]
+
+
+def embed_lookup_sharded(tables: list, ids: torch.Tensor, dtype, devices,
+                         vocab: int) -> torch.Tensor:
+    """Vocab-parallel lookup over a model-axis group: position m holds rows
+    [m * n, (m + 1) * n) of the table; each looks up the ids it owns
+    (zeros elsewhere) and the partials are summed on ``devices[0]``, which
+    equals the whole table's lookup to the bit. A replicated table (V not
+    divisible by the axis) is looked up once."""
+    from repro_torch.sharding import collective as C
+    n = _table_rows(tables[0])
+    if n == vocab:
+        return embed_lookup(tables[0], ids, dtype)
+    parts = []
+    for m, (table, own_ids) in enumerate(zip(tables,
+                                             C.broadcast(ids, devices))):
+        local = own_ids - m * n
+        own = (local >= 0) & (local < n)
+        rows = embed_lookup(table, torch.where(own, local,
+                                               torch.zeros_like(local)),
+                            dtype)
+        parts.append(torch.where(own[..., None], rows,
+                                 torch.zeros((), dtype=dtype,
+                                             device=rows.device)))
+    return C.reduce_sum(parts, devices[0])
+
+
+def lm_head_sharded(xs: list, heads: list, devices, vocab: int,
+                    plain: bool = False) -> torch.Tensor:
+    """Vocab-parallel head: each position's logits over its vocab rows,
+    gathered along V on ``devices[0]``; a replicated head runs once."""
+    from repro_torch.sharding import collective as C
+    if _table_rows(heads[0]) == vocab:
+        return lm_head(xs[0], heads[0], plain)
+    return C.gather([lm_head(x, w, plain) for x, w in zip(xs, heads)],
+                    devices[0], dim=-1)

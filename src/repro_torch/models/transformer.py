@@ -20,11 +20,14 @@ from repro_torch.models import attention as A
 from repro_torch.models import mlp as M
 from repro_torch.models import moe as MOE
 from repro_torch.models.common import (decode_positions, dtype_of,
-                                       embed_init, embed_lookup, lm_head,
-                                       norm, remat_call)
+                                       embed_init, embed_lookup,
+                                       embed_lookup_sharded, lm_head,
+                                       lm_head_sharded, norm, remat_call)
 from repro_torch.quant.apply import segment_slices
 from repro_torch.quant.kvcache import (is_kv_page, kv_layer, kv_segment,
                                        kv_take_layers)
+from repro_torch.quant.qtypes import QTensor
+from repro_torch.sharding import collective as C
 from repro_torch.tree import tree_index, tree_leaves, tree_unstack
 
 
@@ -104,6 +107,122 @@ def _head(params, h, cfg, plain):
     return lm_head(h, head_w, plain)
 
 
+# --------------------------------------------------------------------------
+# Tensor parallelism over a model-axis group (mesh serving)
+# --------------------------------------------------------------------------
+
+def _tp_segments(ps: list) -> list:
+    """[(each position's segment stack, lo, hi), ...] of a group whose
+    positions hold the same segment layout."""
+    per = [segment_slices(p["layers"]) for p in ps]
+    return [([seg[k][0] for seg in per], per[0][k][1], per[0][k][2])
+            for k in range(len(per[0]))]
+
+
+def _tp_ffn(ps: list, hns: list, cfg, plain):
+    """The MLP over a group: each position's slice of d_ff, its partial
+    outputs summed; an MLP the rules replicate (d_ff not divisible by the
+    axis) runs once."""
+    w = ps[0]["mlp"]["w_up"]
+    if (w.data if isinstance(w, QTensor) else w).shape[-2] == cfg.d_ff:
+        return M.mlp(ps[0]["mlp"], hns[0], cfg.mlp_act, plain)
+    return C.reduce_sum([M.mlp(p["mlp"], hn, cfg.mlp_act, plain)
+                         for p, hn in zip(ps, hns)], hns[0].device)
+
+
+def _tp_layer(ps: list, devices: list, h, positions: list, cfg, caches=None,
+              cache_pos=None, valid_bias=None, emit_kv=False, plain=False):
+    """One layer over a model-axis group: position m attends with its
+    num_heads / T query heads over its num_kv_heads / T KV heads (its rows
+    of wq/wk/wv, its columns of wo), and the row-parallel partials (wo,
+    w_down) are summed before each residual add. ``h`` lives on
+    ``devices[0]``; the per-position arguments are lists."""
+    t = len(ps)
+    hns = C.broadcast(norm(h, ps[0].get("ln1"), cfg), devices)
+    parts, kvs = [], []
+    for m, p in enumerate(ps):
+        a, kv = A.attention(
+            p["attn"], hns[m], num_heads=cfg.num_heads // t,
+            num_kv_heads=cfg.num_kv_heads // t, head_dim=cfg.head_dim,
+            positions=positions[m], rope_theta=cfg.rope_theta,
+            qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps,
+            cache=None if caches is None else caches[m],
+            cache_pos=None if cache_pos is None else cache_pos[m],
+            valid_bias=None if valid_bias is None else valid_bias[m],
+            emit_kv=emit_kv, plain=plain)
+        parts.append(a)
+        kvs.append(kv)
+    h = h + C.reduce_sum(parts, h.device)
+    hns = C.broadcast(norm(h, ps[0].get("ln2"), cfg), devices)
+    return h + _tp_ffn(ps, hns, cfg, plain), kvs
+
+
+def _tp_head(ps: list, devices: list, h, cfg, plain):
+    h = norm(h, ps[0]["final"].get("norm"), cfg)
+    heads = [p["final"].get("head", p["embed"]["tok"]) for p in ps]
+    return lm_head_sharded(C.broadcast(h, devices), heads, devices,
+                           cfg.padded_vocab, plain)
+
+
+def _tp_embed(ps: list, devices: list, tokens, cfg):
+    return embed_lookup_sharded([p["embed"]["tok"] for p in ps], tokens,
+                                dtype_of(cfg), devices, cfg.padded_vocab)
+
+
+def _apply_tp(group, tokens, cfg, *, return_cache, last_only, plain):
+    """``apply`` over a model-axis group; the cache comes back as a
+    ``TPCache`` of each position's raw K/V heads."""
+    ps, devs = group.shards, group.devices
+    b, s = tokens.shape
+    h = _tp_embed(ps, devs, tokens, cfg)
+    positions = C.broadcast(torch.arange(s, dtype=torch.int32,
+                                         device=tokens.device)[None]
+                            .expand(b, s), devs)
+    ks: list = [[] for _ in ps]
+    vs: list = [[] for _ in ps]
+    for parts, lo, hi in _tp_segments(ps):
+        for i in range(hi - lo):
+            h, kvs = _tp_layer([tree_index(pt, i) for pt in parts], devs, h,
+                               positions, cfg, emit_kv=return_cache,
+                               plain=plain)
+            if return_cache:
+                for m, kv in enumerate(kvs):
+                    ks[m].append(kv.k)
+                    vs[m].append(kv.v)
+    if last_only:
+        h = h[:, -1:, :]
+    logits = _tp_head(ps, devs, h, cfg, plain)
+    if not return_cache:
+        return logits
+    return logits, C.TPCache([
+        DecodeCache(k=torch.stack(ks[m]), v=torch.stack(vs[m]),
+                    pos=torch.tensor(s, dtype=torch.int32, device=devs[m]))
+        for m in range(len(ps))])
+
+
+def _decode_step_tp(group, cache, tokens, cfg, plain):
+    """``decode_step`` over a model-axis group and its ``TPCache``."""
+    ps, devs = group.shards, group.devices
+    b, s = tokens.shape
+    parts = cache.parts
+    h = _tp_embed(ps, devs, tokens, cfg)
+    positions = [decode_positions(c.pos, b, s) for c in parts]
+    valid_bias = [None if is_kv_page(c.k) else
+                  A.decode_valid_bias(c.pos, s, c.k.shape[2]) for c in parts]
+    for si, (segs, lo, hi) in enumerate(_tp_segments(ps)):
+        ksegs = [kv_segment(c.k, si, lo, hi) for c in parts]
+        vsegs = [kv_segment(c.v, si, lo, hi) for c in parts]
+        for i in range(hi - lo):
+            h, _ = _tp_layer(
+                [tree_index(pt, i) for pt in segs], devs, h, positions, cfg,
+                caches=[A.KVCache(k=kv_layer(kseg, i), v=kv_layer(vseg, i))
+                        for kseg, vseg in zip(ksegs, vsegs)],
+                cache_pos=[c.pos for c in parts], valid_bias=valid_bias,
+                plain=plain)
+    logits = _tp_head(ps, devs, h, cfg, plain)
+    return logits, C.TPCache([c._replace(pos=c.pos + s) for c in parts])
+
+
 def apply(params, tokens: torch.Tensor, cfg, *, return_cache: bool = False,
           last_only: bool = False, plain: bool = False, remat: bool = False,
           with_aux: bool = False):
@@ -112,7 +231,12 @@ def apply(params, tokens: torch.Tensor, cfg, *, return_cache: bool = False,
     the head logits of the final position only (serving prefill).
     ``remat`` recomputes each layer in the backward pass instead of keeping
     its activations; ``with_aux`` also returns the aux dict after the
-    logits (an MoE model's ``moe_aux_loss``, summed over its layers)."""
+    logits (an MoE model's ``moe_aux_loss``, summed over its layers).
+    ``params`` may be a ``TPGroup`` (mesh serving; no remat, no aux)."""
+    if isinstance(params, C.TPGroup):
+        assert not (remat or with_aux), "a TPGroup serves; it does not train"
+        return _apply_tp(params, tokens, cfg, return_cache=return_cache,
+                         last_only=last_only, plain=plain)
     b, s = tokens.shape
     h = embed_lookup(params["embed"]["tok"], tokens, dtype_of(cfg))
     positions = torch.arange(s, dtype=torch.int32,
@@ -156,7 +280,10 @@ def init_cache(cfg, batch: int, max_seq: int, device) -> DecodeCache:
 def decode_step(params, cache: DecodeCache, tokens: torch.Tensor, cfg, *,
                 plain: bool = False):
     """tokens (B, s) -> (logits (B, s, V_pad), cache). The cache's K/V are
-    written in place; the returned cache carries ``pos + s``."""
+    written in place; the returned cache carries ``pos + s``. Over a
+    ``TPGroup`` the cache is its ``TPCache``."""
+    if isinstance(params, C.TPGroup):
+        return _decode_step_tp(params, cache, tokens, cfg, plain)
     b, s = tokens.shape
     h = embed_lookup(params["embed"]["tok"], tokens, dtype_of(cfg))
     positions = decode_positions(cache.pos, b, s)

@@ -540,21 +540,31 @@ def validate_manifest(manifest: dict, cfg: ModelConfig) -> None:
     # rebuilt skeleton and the checkpoint, which ckpt.restore names
 
 
-def save_artifact(directory: str, compiled: CompiledPlan) -> str:
+def save_artifact(directory: str, compiled: CompiledPlan,
+                  mesh=None) -> str:
     """Persist a compiled plan: quantized params checkpoint + manifest.
-    ``autotune`` is ``"untuned"``: the port has no kernel autotuner."""
+    ``autotune`` is ``"untuned"``: the port has no kernel autotuner. The
+    arrays are stored whole, so the artifact restores onto any mesh or
+    none; ``mesh`` only stamps the save-time layout (``saved_mesh``)."""
     from repro_torch.checkpoint import ckpt
     manifest = compiled.manifest()
     manifest["autotune"] = "untuned"
+    if mesh is not None:
+        manifest["saved_mesh"] = {
+            "axis_names": list(mesh.axis_names),
+            "shape": [int(mesh.shape[a]) for a in mesh.axis_names]}
     return ckpt.save_artifact(directory, compiled.params, manifest)
 
 
-def load_artifact(directory: str, model, *, device=None) -> CompiledPlan:
+def load_artifact(directory: str, model, *, device=None,
+                  mesh=None) -> CompiledPlan:
     """Boot a CompiledPlan from disk without raw weights or entropy
     analysis: the manifest's plan is compiled over parameters on the meta
     device (shapes only, no memory) to rebuild the segmented, quantized
     skeleton, and the checkpoint's leaves are restored into it, each
-    straight onto ``device`` (None: the GPU)."""
+    straight onto ``device`` (None: the GPU). With ``mesh`` the skeleton's
+    TP-only serving specs place each leaf's shards on their positions as
+    it is read: ``params`` is then a ``sharding.specs.MeshTree``."""
     from repro_torch.checkpoint import ckpt
     from repro_torch.device import resolve_device
     device = resolve_device(device)
@@ -565,7 +575,13 @@ def load_artifact(directory: str, model, *, device=None) -> CompiledPlan:
     group = manifest["group"]
     meta = model.init(torch.Generator(), "meta")
     skeleton = compile_plan(model, meta, plan, group).params
-    params = ckpt.restore_artifact(directory, skeleton, device=device)
+    if mesh is not None:
+        from repro_torch.sharding.specs import serving_param_specs
+        params = ckpt.restore_artifact(
+            directory, skeleton, mesh=mesh,
+            specs=serving_param_specs(skeleton, mesh))
+    else:
+        params = ckpt.restore_artifact(directory, skeleton, device=device)
     kv_plan = (KVPlan.from_dict(manifest["kv_plan"])
                if manifest.get("kv_plan") else None)
     return CompiledPlan(family=cfg.family, config_name=cfg.name, group=group,

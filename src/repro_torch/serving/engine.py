@@ -86,6 +86,13 @@ conv/state need every token). Their speculative rounds verify by a scan
 that snapshots conv/state (``Model.spec_verify``) and propose in two
 passes on a cache clone.
 
+Over a device mesh (``mesh=``, ``launch/mesh.py``) the compiled weights are
+placed TP-only (``sharding/specs.py``): the slots split over the rows of
+the data axes, each row decoding its own through ``serving/batch.py``
+``decode_rows``; within a row the "model" positions hold their heads, their
+slice of d_ff and their vocab rows, and the prefill paths run row 0's group
+(``self.params`` is then its ``TPGroup``, or its tree on a data-only mesh).
+
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"`` (the
 tests do, and then every kernel's plain version runs). With no GPU and no
 explicit CPU request it raises; it never falls back to the CPU.
@@ -119,6 +126,7 @@ from repro_torch.serving.pool import PagedConfig, PoolSession, PrefixMatch
 from repro_torch.serving.quantized import apply_plan_to_params
 from repro_torch.serving.scheduler import Request, RequestOutput, SLOConfig
 from repro_torch.serving.spec import SpecConfig, make_spec_round
+from repro_torch.sharding import collective as C
 
 DEFAULT_CHUNK = 8
 
@@ -244,7 +252,17 @@ class ServeStats:
 
 class ServeEngine:
     """``params`` must live on ``device`` (``bridge.from_jax`` and
-    ``Model.init`` take a device)."""
+    ``Model.init`` take a device).
+
+    With ``mesh`` (``launch/mesh.py``) the compiled weights are placed
+    TP-only over the mesh (``sharding/specs.py``): each data row of
+    positions serves its share of the slots, and within a row each "model"
+    position holds its heads and its slice of d_ff, the vocab rows of the
+    embedding and the head, and its KV heads; the partial outputs are
+    summed in position order (``sharding/collective.py``). A model axis
+    larger than 1 serves the dense family whose heads divide it, without
+    the paged pool or speculative rounds; a data-only mesh serves every
+    family. Any other layout raises."""
 
     def __init__(self, model, params, *, max_seq: int,
                  plan: Optional[QuantPlan] = None, group: int = 128,
@@ -252,7 +270,10 @@ class ServeEngine:
                  kv_precision="bf16", kv_group: Optional[int] = None,
                  spec: Optional[SpecConfig] = None, paged=None, device=None,
                  cuda_graphs: bool = True,
-                 prefill_chunk: Optional[int] = None):
+                 prefill_chunk: Optional[int] = None, mesh=None):
+        self.mesh = mesh
+        if mesh is not None:
+            device = _mesh_device(mesh, device)
         self.device = resolve_device(device)
         # decode chunks replay from CUDA graphs on the card (never on the
         # CPU); a capture that fails raises
@@ -290,26 +311,118 @@ class ServeEngine:
         self._prompt_step: Optional[PromptStep] = None  # built at first use
         if plan is not None:
             params = apply_plan_to_params(model, params, plan, group)
+        if mesh is not None:
+            params = self._place(params)
         self.params = params
         if isinstance(kv_precision, KVPlan):
             self.kv_plan = kv_precision
         else:
             self.kv_plan = compile_kv_plan(self.cfg, plan, kv_precision,
                                            kv_group or DEFAULT_KV_GROUP)
+        if mesh is not None:
+            self._check_kv_split()
+
+    # -- mesh placement --------------------------------------------------------
+    def _place(self, params):
+        """Place the weights TP-only over the mesh (a ``MeshTree`` from a
+        sharded cold boot is taken as it is). Returns what the prefill
+        paths run: row 0's parameter tree, or its ``TPGroup``."""
+        from repro_torch.sharding.specs import (MeshTree, position_grid,
+                                                serving_shard)
+        self._grid = grid = position_grid(self.mesh)
+        self._check_mesh()
+        self.mesh_params = (params if isinstance(params, MeshTree)
+                            else serving_shard(params, self.mesh))
+        r_n, t = grid.shape
+        self._groups = []
+        for r in range(r_n):
+            trees = [self.mesh_params.at(grid[r, m]) for m in range(t)]
+            devs = [self.mesh.devices[grid[r, m]] for m in range(t)]
+            self._groups.append(C.TPGroup(trees, devs) if t > 1
+                                else trees[0])
+        return self._groups[0]
+
+    def _check_mesh(self) -> None:
+        """Refuse the layouts the port does not serve (never a fallback)."""
+        cfg, mesh = self.cfg, self.mesh
+        t = self._grid.shape[1]
+        if self.spec is not None or self.paged is not None:
+            if mesh.size > 1:
+                raise ValueError(
+                    f"{'speculative rounds' if self.spec else 'the paged pool'}"
+                    f" over a mesh of {mesh.size} positions "
+                    f"({dict(mesh.shape)}) is not ported (ROADMAP.md queue 1 "
+                    f"item 10); serve them per replica over a data-only "
+                    f"mesh (ReplicaServe.build)")
+        if self.graphs is not None and len(mesh.device_set) > 1:
+            raise ValueError(
+                f"CUDA-graph decode chunks capture one card; this mesh spans "
+                f"{mesh.device_set} (ROADMAP.md queue 1 item 10): pass "
+                f"cuda_graphs=False")
+        if t == 1:
+            return
+        if cfg.family != "dense":
+            raise ValueError(
+                f"a model axis of {t} for the {cfg.family} family: tensor "
+                f"parallelism of the ssm, hybrid, encdec and moe families is "
+                f"not ported (ROADMAP.md queue 1 item 10); a data-only mesh "
+                f"serves it")
+        if cfg.num_heads % t or cfg.num_kv_heads % t:
+            raise ValueError(
+                f"{cfg.num_heads} query / {cfg.num_kv_heads} KV heads over "
+                f"|model| = {t} would split a head: the rules shard the KV "
+                f"sequence there, a split-KV merge across positions the port "
+                f"does not serve (ROADMAP.md queue 1 item 10)")
+
+    def _check_kv_split(self) -> None:
+        """A quantized KV page's scale groups run along the flat heads of
+        its position; a group must not straddle two positions."""
+        t = self._grid.shape[1]
+        f = self.cfg.num_kv_heads // t * self.cfg.head_dim
+        if (t > 1 and self.kv_plan is not None
+                and any(p != "bf16" for p in self.kv_plan.precisions)
+                and f % self.kv_plan.group):
+            raise ValueError(
+                f"KV group {self.kv_plan.group} does not divide a position's "
+                f"{self.cfg.num_kv_heads // t} KV heads x {self.cfg.head_dim}"
+                f" = {f}: a scale group would straddle two positions "
+                f"(ROADMAP.md queue 1 item 10); serve with a kv_group that "
+                f"divides {f}")
+
+    def _layout_params(self):
+        """The tree whose segment layout the cache follows: the params,
+        or position 0's shard on a mesh."""
+        if self.mesh is None:
+            return self.params
+        return self.mesh_params.at(self._grid[0, 0])
+
+    def _new_cache(self, batch: int):
+        """A fresh raw batch cache at pos 0: over a model axis, row 0's
+        ``TPCache`` of each position's KV heads."""
+        if self.mesh is None or self._grid.shape[1] == 1:
+            return self.model.init_cache(batch, self.max_seq, self.device)
+        return B.split_heads(self.model.init_cache(batch, self.max_seq,
+                                                   "meta"),
+                             self._groups[0].devices)
 
     @classmethod
     def from_artifact(cls, model, directory: str, *, max_seq: int,
-                      device=None, **kw) -> "ServeEngine":
+                      device=None, mesh=None, **kw) -> "ServeEngine":
         """Boot from a persisted compiled-plan artifact: the quantized
         weights are restored straight onto the device, with no raw weight
         loading, no entropy analysis and no re-quantization
         (``quant/compiler.load_artifact``). The KV plan stamped at compile
         time is the default; ``kv_precision="auto"`` is compiled from the
         stamped plan. On the card an artifact whose weight group the
-        kernels do not take is refused here, before any leaf is read."""
+        kernels do not take is refused here, before any leaf is read. With
+        ``mesh`` each leaf's shards land on their positions as it is read
+        (``load_artifact(mesh=)``): no device holds a whole copy of a
+        sharded leaf."""
         from repro_torch.checkpoint import ckpt
         from repro_torch.kernels.qmatmul.ops import KERNEL_GROUP
         from repro_torch.quant.compiler import load_artifact
+        if mesh is not None:
+            device = _mesh_device(mesh, device)
         device = resolve_device(device)
         manifest = ckpt.load_artifact_manifest(directory)
         quantized = any(d["precision"] != "raw"
@@ -320,7 +433,7 @@ class ServeEngine:
                 f"artifact {directory!r} holds weights quantized at group "
                 f"{manifest['group']}; the CUDA kernels take group "
                 f"{KERNEL_GROUP} only (ROADMAP.md K1)")
-        compiled = load_artifact(directory, model, device=device)
+        compiled = load_artifact(directory, model, device=device, mesh=mesh)
         if compiled.kv_plan is not None:
             kw.setdefault("kv_precision", compiled.kv_plan)
         if kw.get("kv_precision") == "auto":
@@ -330,7 +443,7 @@ class ServeEngine:
                 model.cfg, compiled.plan, "auto",
                 kw.pop("kv_group", None) or DEFAULT_KV_GROUP)
         engine = cls(model, compiled.params, max_seq=max_seq, plan=None,
-                     device=device, **kw)
+                     device=device, mesh=mesh, **kw)
         engine.plan = compiled.plan
         engine._draft_stamp = compiled.draft   # checked by _ensure_draft
         obs.instant("engine/from_artifact",
@@ -348,7 +461,7 @@ class ServeEngine:
         if key is None:
             return ()
         return tuple(lo for _, lo, _ in
-                     segment_slices(self.params[key])[1:])
+                     segment_slices(self._layout_params()[key])[1:])
 
     def _wrap_cache(self, cache):
         """Raw family cache -> quantized pages per the KV plan (identity
@@ -382,12 +495,19 @@ class ServeEngine:
             return self._scan_prompt(toks)
         logits, cache = self.model.module.apply(
             self.params, toks, self.cfg, return_cache=True, last_only=True)
+        if isinstance(cache, C.TPCache):
+            return cache.map(self._pad_to_max_seq), logits[:, 0]
+        return self._pad_to_max_seq(cache), logits[:, 0]
+
+    def _pad_to_max_seq(self, cache):
+        """A prefill's (L, B, P, Hkv, hd) K/V padded to ``max_seq`` rows."""
+        s = cache.k.shape[2]
         shape = cache.k.shape[:2] + (self.max_seq,) + cache.k.shape[3:]
-        k = torch.zeros(shape, dtype=cache.k.dtype, device=self.device)
-        v = torch.zeros(shape, dtype=cache.v.dtype, device=self.device)
+        k = torch.zeros(shape, dtype=cache.k.dtype, device=cache.k.device)
+        v = torch.zeros(shape, dtype=cache.v.dtype, device=cache.v.device)
         k[:, :, :s] = cache.k
         v[:, :, :s] = cache.v
-        return cache._replace(k=k, v=v), logits[:, 0]
+        return cache._replace(k=k, v=v)
 
     def _prefill_step(self, toks: torch.Tensor, cache):
         """Score ``toks`` (B, s) in ONE multi-query decode step over a raw
@@ -528,7 +648,7 @@ class ServeEngine:
         else:
             if frames is not None:
                 raise ValueError("frames only apply to enc-dec models")
-            cache = self.model.init_cache(1, self.max_seq, self.device)
+            cache = self._new_cache(1)
         return ChunkedPrefill(prompt=prompt, cache=cache, last_logits=None,
                               pos=0, match=match)
 
@@ -618,6 +738,10 @@ class ServeEngine:
             cache = self._paged_cache(num_slots, pool_pages)
             self._page_bytes = sum(PG.page_nbytes(getattr(cache, name))
                                    for name in self._paged_fields)
+        elif self.mesh is not None and self.mesh.size > 1:
+            cache = B.shard_cache(
+                self.model.slotted_cache(num_slots, self.max_seq, "meta"),
+                self.mesh, self.model, wrap=self._wrap_cache)
         else:
             cache = self._wrap_cache(self.model.slotted_cache(
                 num_slots, self.max_seq, self.device))
@@ -685,9 +809,13 @@ class ServeEngine:
         st.done.copy_(done)
         # the K/V rows are written in place; decode_step returns the
         # advanced position as a new tensor, copied back into the state's
-        logits, cache = self.model.decode_step(self.params, st.cache,
-                                               nxt[:, None].long())
-        st.cache.pos.copy_(cache.pos)
+        if isinstance(st.cache, B.MeshCache):
+            logits = B.decode_rows(self.model, self._groups, st.cache,
+                                   nxt[:, None].long())
+        else:
+            logits, cache = self.model.decode_step(self.params, st.cache,
+                                                   nxt[:, None].long())
+            st.cache.pos.copy_(cache.pos)
         st.last_logits.copy_(logits[:, 0])
 
     def _chunk(self, state: B.DecodeState, steps: int, plain: bool = False):
@@ -862,6 +990,8 @@ class ServeEngine:
     def _slice_prefill(self, cache, i: int):
         """Row ``i`` of a batch prefill cache: the batch=1 cache ``insert``
         takes (a scalar pos is shared across the batch)."""
+        if isinstance(cache, C.TPCache):
+            return cache.map(lambda c: self._slice_prefill(c, i))
         return type(cache)(*(
             f if f.ndim == 0 else f.narrow(axis, i, 1)
             for f, axis in zip(cache, self.model.cache_batch_axes)))
@@ -986,5 +1116,34 @@ class ServeEngine:
                    else tree_nbytes(v) for v in params.values())
 
     def weight_bytes(self) -> float:
-        """Effective weight bytes (ternary counted at 1.58 bits)."""
+        """Effective weight bytes (ternary counted at 1.58 bits); on a mesh
+        those of the whole model, each sharded leaf's shards summed and a
+        replicated leaf counted once."""
+        if self.mesh is not None:
+            return self.mesh_params.logical_nbytes()
         return self._weight_bytes(self.params)
+
+    def weight_bytes_per_device(self) -> float:
+        """The most physical weight bytes one mesh position holds (its
+        shards, and the leaves the rules replicate); the whole tree's
+        bytes without a mesh. Positions that share a card are counted
+        apart: this is what one card of a deployment would hold."""
+        if self.mesh is not None:
+            return max(self.mesh_params.position_nbytes().values())
+        from repro_torch.sharding.specs import physical_nbytes
+        return physical_nbytes(self.params)
+
+
+def _mesh_device(mesh, device) -> torch.device:
+    """The engine's device on ``mesh``: its first position's. Every
+    position must be a device of that one type, and an explicit
+    ``device`` must be that type: a mesh never falls back."""
+    first = mesh.devices.flat[0]
+    kinds = {d.type for d in mesh.devices.flat}
+    want = torch.device("cuda" if device is None else device).type
+    if kinds != {want}:
+        raise ValueError(
+            f"mesh positions on {sorted(kinds)} for an engine on {want}: "
+            f"every position must be a {want} device (launch/mesh.make_mesh"
+            f"(..., devices=...)); the port never falls back")
+    return first

@@ -33,8 +33,9 @@ span on the failed replica's engine track, and counts
 aggregate's ``registry`` merges the replicas' run registries (per-replica
 labels) with the same failover events.
 
-Left out beside the reference: ``ReplicaServe.build`` over a device mesh
-(ROADMAP.md queue 1 item 10).
+``ReplicaServe.build`` over a device mesh is the DP x TP layout: one
+engine per data-axis submesh (``launch/mesh.split_data_replicas``), each
+placing the weights TP-only over its own positions.
 """
 
 from __future__ import annotations
@@ -87,6 +88,19 @@ class ReplicaServe:
         if not engines:
             raise ValueError("ReplicaServe needs at least one engine")
         self.engines = list(engines)
+
+    @classmethod
+    def build(cls, model, params, *, mesh, max_seq: int,
+              **engine_kw) -> "ReplicaServe":
+        """One engine per data-axis submesh of ``mesh``; each places the
+        (quantized) weights over its own submesh, which IS the DP
+        replication. A mesh without a data axis yields a single TP-only
+        replica."""
+        from repro_torch.launch.mesh import split_data_replicas
+        from repro_torch.serving.engine import ServeEngine
+        return cls([ServeEngine(model, params, mesh=m, max_seq=max_seq,
+                                **engine_kw)
+                    for m in split_data_replicas(mesh)])
 
     @property
     def num_replicas(self) -> int:

@@ -61,6 +61,15 @@ def test_scans_cover_the_obs_package():
     assert (PORT / "obs" / "__init__.py").is_file()
 
 
+def test_scans_cover_the_sharding_package():
+    """The import and source scans above reach mesh serving: the meshes,
+    the sharding rules, the activation context and the collectives."""
+    sharding = {"repro_torch.launch.mesh", "repro_torch.sharding.specs",
+                "repro_torch.sharding.ctx", "repro_torch.sharding.collective"}
+    assert sharding <= set(_MODULES)
+    assert (PORT / "sharding" / "__init__.py").is_file()
+
+
 def test_scans_cover_the_fastewq_modules():
     """The import and source scans above reach FastEWQ, its classifiers
     and Algorithms 1 and 2 (each a numpy copy of the JAX package's)."""
