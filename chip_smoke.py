@@ -298,6 +298,29 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    its rows, seconds and quantized share, and
    ``evaluate_all_classifiers`` on those rows (the six accuracies and
    AUCs; smoke-size models).
+4o. (after 4m) training over a mesh (``train_mesh``): llama3.2-3b FULL
+   from its seeded init, 4 x 256 tokens of 4l's stream, over meshes laid
+   on the card (every position cuda:0 with its own slices: the params
+   FSDP-sharded over "data" and TP-sharded over "model" by the reference's
+   training rules, the weights gathered layer by layer in the forward).
+   (a) one step's loss and gathered gradients on (data=2, model=1) and on
+   (2, 2) against the mesh-less step on the same batch (MESH_LOSS_RTOL,
+   MESH_GRAD_REL_L2 a leaf, the worst leaves reported; each FSDP slice's
+   gradient summed twice over the rows, a planted fault the gradient
+   limit must catch); (b) three AdamW steps of ``train(mesh=(2, 2))``
+   against three of ``train`` from the same init (f32 moments; losses
+   step by step, params within MESH_PARAM_REL_L2 a leaf; the FSDP
+   gather's backward dropping every row's slice but the first, a planted
+   fault the limit must catch); (c) ``compressed_psum_mean`` of the two
+   data rows' own gradients (params replicated, each row's backward
+   alone): the mean within COMPRESS_BOUND of the plain mean, and
+   decoded_local + new_error == corrected to the bit; (d) a (params, int8
+   AdamWState) placement of 2 of the 28 layers (ELASTIC_LAYERS, full
+   width) after one mesh step, saved on (2, 2) and restored onto (4, 1)
+   and (1, 4): the logical arrays equal to the bit and every position
+   holding its slices. Each part's seconds and peak device memory. No
+   port kernel launches in 4o (training is autograd over the raw
+   weights): asserted.
 6. a JSON line naming each kernel, then the device line last. Every
    kernel's launch count must have risen on the serve and analysis paths,
    except the int8 quantize kernel, which no path runs. No single PyTorch
@@ -1968,6 +1991,8 @@ def serve_full_width(torch, build, report: dict, smoke: bool = False,
                                            device)
     for k, v in dataset_launches.items():
         launches[k] += v
+    with phase(report, "4o llama train over a mesh"):
+        train_mesh(torch, build, report, smoke, device)
     for k in LLAMA_PATH:
         if launches[k] <= 0 and device == "cuda":
             raise AssertionError(f"kernel {k} never launched on llama's "
@@ -2559,6 +2584,367 @@ def fastewq_dataset(torch, build, report: dict, smoke: bool,
         f"models, beside phase 4k's forest at {seeded} on seeded rows and "
         f"the paper's 80%): " + json.dumps(classifiers))
     return launches
+
+
+# 4o: llama3.2-3b FULL trained over meshes laid on the one card
+MESH_TRAIN_SHAPES = ((2, 1), (2, 2))          # 4o (a)
+MESH_STEPS_SHAPE = (2, 2)                     # 4o (b)
+ELASTIC_LAYERS = 2                            # 4o (d): 2 of 28, full width
+ELASTIC_SAVE, ELASTIC_RESTORE = (2, 2), ((4, 1), (1, 4))
+# 4o limits against the mesh-less step in bf16, each between the floor
+# and a planted fault read on the card (PERF.md §6 keeps them): the loss
+# (floor 4.3e-5; the dropped-slice fault 4.0e-3 at step 2), a gradient
+# leaf (floor 0.034 at (2, 2); summed twice 1.0), a param leaf after three
+# steps (floor 0.115, w_down, whose init scale the steps' updates match;
+# the dropped-slice fault 0.548)
+MESH_LOSS_RTOL = 1e-3
+MESH_GRAD_REL_L2 = 0.1
+MESH_PARAM_REL_L2 = 0.25
+COMPRESS_BOUND = 0.05   # tests/test_sharding.py:223's bound on the mean
+
+
+@contextlib.contextmanager
+def measured(torch, out: dict, name: str, device: str, card: str):
+    """Part ``name`` of a phase: its seconds and, on the card, its peak
+    device memory (from a fresh count) into ``out[name]`` and a line."""
+    fresh_memory(torch, device)
+    t0 = time.perf_counter()
+    part = out.setdefault(name, {})
+    try:
+        yield part
+    finally:
+        if device == "cuda":
+            torch.cuda.synchronize()
+            part["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        part["seconds"] = time.perf_counter() - t0
+        log(f"train mesh: part {name}: {part['seconds']:.1f} s, peak "
+            f"{part.get('max_memory_allocated')} B allocated [{card}]")
+
+
+def within(label: str, value: float, limit: float, fault=None) -> None:
+    """Raises unless ``value`` is at most ``limit`` and the planted fault's
+    reading ``fault`` (when given) is above it. 4o's limits are placed at
+    FULL width, so its SMOKE rehearsal on the CPU passes no fault."""
+    if value > limit:
+        raise AssertionError(f"{label}: {value} over the limit {limit}")
+    if fault is not None and fault <= limit:
+        raise AssertionError(f"{label}: the limit {limit} misses the "
+                             f"planted fault ({fault})")
+
+
+def leaf_rels(torch, got_tree, want: list, names: list) -> list:
+    """[(relative L2, leaf name), ...] of a tree's leaves against ``want``
+    (tensors in the tree's leaf order), the worst first."""
+    from repro_torch.tree import tree_leaves
+    rels = [(rel_l2(g, w), name)
+            for name, g, w in zip(names, tree_leaves(got_tree), want)]
+    return sorted(rels, reverse=True)
+
+
+@contextlib.contextmanager
+def patched_unshard(mode: str):
+    """A planted fault in the FSDP gather (``FSDPLeaf.unshard``), and only
+    inside the block. ``"twice"``: each slice's gradient summed twice over
+    the data rows (the value unchanged); ``"dropped"``: every slice but the
+    first row's left out of the backward."""
+    from repro_torch.sharding import collective as C
+    orig = C.FSDPLeaf.unshard
+
+    def faulty(self):
+        x = orig(self)
+        if self.dim is None:
+            return x
+        if mode == "twice":
+            return x + (x - x.detach())
+        return C.gather([self.parts[0]] + [p.detach()
+                                           for p in self.parts[1:]],
+                        self.device, self.dim)
+
+    C.FSDPLeaf.unshard = faulty
+    try:
+        yield
+    finally:
+        C.FSDPLeaf.unshard = orig
+
+
+def shared_levels_check(torch, gs: list, errs: list, group: int = 256
+                        ) -> bool:
+    """``decoded_local + new_error == corrected`` to the bit for each
+    position of one leaf: the levels and the shared scale recomputed here
+    from the corrected gradients (absmax over the positions / 127)."""
+    corrected = [g.float().reshape(-1) for g in gs]
+    n = corrected[0].numel()
+    pad = (-n) % group
+    grs = [torch.nn.functional.pad(c, (0, pad)).reshape(-1, group)
+           for c in corrected]
+    scale = torch.stack([gr.abs().amax(dim=-1) for gr in grs]).amax(0) / 127
+    safe = torch.where(scale == 0, torch.ones_like(scale), scale)
+    for c, gr, e in zip(corrected, grs, errs):
+        q = torch.clamp(torch.round(gr / safe[:, None]), -127, 127)
+        local = (q * scale[:, None]).reshape(-1)[:n]
+        if not torch.equal(local + e.reshape(-1), c):
+            return False
+    return True
+
+
+def train_mesh(torch, build, report: dict, smoke: bool, device: str) -> None:
+    """Phase 4o: llama3.2-3b FULL trained over meshes of the port's own laid
+    on the card (every position ``cuda:0``, each with its own slices), held
+    to the mesh-less step: (a) one step's loss and gathered gradients on
+    (2, 1) and (2, 2); (b) three AdamW steps of ``train(mesh=(2, 2))``
+    against three of ``train``; (c) ``compressed_psum_mean`` of the two
+    data rows' own gradients; (d) a (params, int8 AdamWState) placement of
+    2 of the 28 layers saved on (2, 2) and restored onto (4, 1) and
+    (1, 4). No port kernel runs (training is autograd over the raw
+    weights, as the reference leaves it to XLA): asserted."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import synthetic_batch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_optimizer
+    from repro_torch.models.model import build as build_model
+    from repro_torch.optim.compress import compressed_psum_mean, init_error
+    from repro_torch.quant.qtypes import QTensor
+    from repro_torch.sharding.specs import (flatten_with_names, gather_tree,
+                                            opt_state_specs, param_specs,
+                                            shard_tree)
+    from repro_torch.train.loop import train
+    from repro_torch.train.step import (make_grad_fn, make_loss_fn,
+                                        make_train_step)
+    from repro_torch.tree import tree_leaves, tree_map
+    card = report.get("nvidia_smi", f"{device} (no card)")
+    out: dict = {"card": card}
+    report["train_mesh"] = out
+    cfg = get_config("llama3.2-3b", smoke=smoke)
+    seq = TRAIN_SEQ if not smoke else 32
+    devices = None if device == "cuda" else [device]
+
+    def mesh_of(shape):
+        return make_mesh(shape, ("data", "model"), devices=devices)
+
+    def quiet(line):
+        pass
+
+    build.reset_launches()
+    model = build_model(cfg)
+    run = RunConfig(learning_rate=1e-3, warmup_steps=3, remat=False)
+    opt = make_optimizer(run)
+    batch = synthetic_batch(cfg, batch=TRAIN_BATCH, seq=seq, step=0,
+                            device=device)
+
+    # (a) one step's loss and gradients against the mesh-less step's
+    with measured(torch, out, "a", device, card) as part:
+        params = model.init(torch.Generator(device=device).manual_seed(0),
+                            device)
+        names = [n for n, _ in flatten_with_names(params)]
+        (loss0, _), g = make_train_step(model, opt, run).compute_grads(
+            params, batch)
+        want = tree_leaves(g)
+        g = None
+        part["meshless_loss"] = float(loss0)
+        for shape in MESH_TRAIN_SHAPES:
+            mesh = mesh_of(shape)
+            placed = shard_tree(params, param_specs(params, mesh), mesh)
+            step = make_train_step(model, opt, run, mesh=mesh)
+            (loss, _), g = step.compute_grads(placed, batch)
+            rels = leaf_rels(torch, gather_tree(g), want, names)
+            g = None
+            got = dict(loss=float(loss),
+                       loss_rel_diff=abs(float(loss) - float(loss0))
+                       / abs(float(loss0)), worst_grads=rels[:6])
+            if shape == MESH_TRAIN_SHAPES[0]:
+                with patched_unshard("twice"):
+                    (_, _), g = step.compute_grads(placed, batch)
+                    fault = leaf_rels(torch, gather_tree(g), want, names)
+                    g = None
+                got["planted_fault_twice"] = fault[:3]
+            part[f"{shape[0]}x{shape[1]}"] = got
+            placed = None
+            log(f"train mesh: (a) {shape}: loss {got['loss']:.6f} against "
+                f"the mesh-less {float(loss0):.6f} (relative "
+                f"{got['loss_rel_diff']:.3g}, limit {MESH_LOSS_RTOL}); "
+                f"gradients, relative L2 by leaf, worst first "
+                f"{[(round(r, 6), n) for r, n in rels[:6]]} (limit "
+                f"{MESH_GRAD_REL_L2})" + (
+                    f"; planted fault (each slice's gradient summed twice "
+                    f"over the data rows) {fault[0]}"
+                    if "planted_fault_twice" in got else "") + f" [{card}]")
+            within(f"4o (a) {shape} loss", got["loss_rel_diff"],
+                   MESH_LOSS_RTOL)
+            within(f"4o (a) {shape} gradients {rels[0][1]}", rels[0][0],
+                   MESH_GRAD_REL_L2, fault[0][0]
+                   if "planted_fault_twice" in got and not smoke else None)
+        params = None
+        want = None
+
+    # (b) three AdamW steps: train(mesh=) against train()
+    with measured(torch, out, "b", device, card) as part:
+        run3 = dataclasses.replace(run, steps=3)
+        res = train(cfg, run3, batch=TRAIN_BATCH, seq=seq, device=device,
+                    log_fn=quiet)
+        meshless = res["losses"]
+        want = tree_leaves(res["params"])
+        res = None
+        fresh_memory(torch, device)
+        mesh = mesh_of(MESH_STEPS_SHAPE)
+        runs = {}
+        for label, fault in (("mesh", None), ("planted_fault_dropped",
+                                              "dropped")):
+            with (patched_unshard(fault) if fault else
+                  contextlib.nullcontext()):
+                res = train(cfg, run3, batch=TRAIN_BATCH, seq=seq,
+                            mesh=mesh, log_fn=quiet)
+            runs[label] = dict(losses=res["losses"], worst_params=leaf_rels(
+                torch, gather_tree(res["params"]), want, names)[:6],
+                step_s=res["step_s"])
+            res = None
+        rels = runs["mesh"]["worst_params"]
+        fault = runs["planted_fault_dropped"]["worst_params"]
+        part.update(meshless_losses=meshless, **runs)
+        log(f"train mesh: (b) three steps on {MESH_STEPS_SHAPE}: losses "
+            f"{runs['mesh']['losses']} against the mesh-less {meshless}; "
+            f"params, relative L2 by leaf, worst first "
+            f"{[(round(r, 6), n) for r, n in rels]} (limit "
+            f"{MESH_PARAM_REL_L2}); mesh step s "
+            f"{[round(s, 3) for s in runs['mesh']['step_s']]}; planted "
+            f"fault (the FSDP gather's backward drops every row's slice "
+            f"but the first) {fault[0]} [{card}]")
+        diffs = {label: max(abs(a - b) / abs(b) for a, b in zip(
+            run_["losses"], meshless)) for label, run_ in runs.items()}
+        part["loss_rel_diff"] = diffs
+        within("4o (b) loss", diffs["mesh"], MESH_LOSS_RTOL,
+               None if smoke else diffs["planted_fault_dropped"])
+        within(f"4o (b) params {rels[0][1]}", rels[0][0], MESH_PARAM_REL_L2,
+               None if smoke else fault[0][0])
+        want = None
+
+    # (c) the int8 error-feedback mean of the two data rows' gradients
+    with measured(torch, out, "c", device, card) as part:
+        params = model.init(torch.Generator(device=device).manual_seed(0),
+                            device)
+        grad_fn = make_grad_fn(make_loss_fn(model, remat=False))
+        rows = [{k: v.chunk(2, 0)[r] for k, v in batch.items()}
+                for r in range(2)]
+        gs = [tree_leaves(grad_fn(params, r)[1]) for r in rows]
+        params = None
+        worst, exact = [], True
+        for name, a, b in zip(names, *gs):
+            leaf = [{"g": a}, {"g": b}]
+            means, errs = compressed_psum_mean(
+                leaf, [init_error(x) for x in leaf])
+            plain = (a.float() + b.float()) / 2
+            rel = float((means[0]["g"].float() - plain).abs().max()
+                        / plain.abs().max().clamp_min(1e-30))
+            worst.append((rel, name))
+            exact &= shared_levels_check(torch, [a, b],
+                                         [e["g"] for e in errs])
+            means = errs = plain = None
+        gs = None
+        worst.sort(reverse=True)
+        part.update(worst_mean_rel=worst[:6], error_feedback_exact=exact)
+        log(f"train mesh: (c) compressed_psum_mean of the two rows' "
+            f"gradients against their plain mean, max |difference| / max "
+            f"|mean| by leaf, worst first "
+            f"{[(round(r, 6), n) for r, n in worst[:6]]} (the reference "
+            f"test's bound {COMPRESS_BOUND}); decoded_local + new_error == "
+            f"corrected to the bit on every leaf: {exact} [{card}]")
+        within(f"4o (c) mean {worst[0][1]}", worst[0][0], COMPRESS_BOUND)
+        if not exact:
+            raise AssertionError("4o (c): decoded_local + new_error differs "
+                                 "from the corrected gradient")
+
+    # (d) elastic restore: int8 moments, 2 of 28 layers at full width
+    with measured(torch, out, "d", device, card) as part:
+        cfg2 = dataclasses.replace(cfg, num_layers=ELASTIC_LAYERS)
+        model2 = build_model(cfg2)
+        run8 = dataclasses.replace(run, moment_dtype="int8")
+        opt8 = make_optimizer(run8)
+        params = model2.init(torch.Generator(device=device).manual_seed(0),
+                             device)
+        mesh = mesh_of(ELASTIC_SAVE)
+        placed = shard_tree(params, param_specs(params, mesh), mesh)
+        like = tree_map(lambda p: torch.empty_like(p, device="meta"),
+                        params)
+        like = (like, opt8.init(like))
+        params = None
+        state = opt8.init(placed)
+        placed, state, _ = make_train_step(model2, opt8, run8, mesh=mesh)(
+            placed, state, batch)       # the moments nonzero
+        saved = (placed, state)
+        logical_tree = (gather_tree(placed), gather_tree(state))
+        logical = ckpt.flatten_with_paths(logical_tree)
+        nbytes = sum(sum(t.numel() * t.element_size() for t in (
+            (x.data, x.scale) if isinstance(x, QTensor) else (x,)))
+            for _, x in logical)
+        directory = tempfile.mkdtemp(prefix="mesh_ckpt_")
+        try:
+            free = shutil.disk_usage(directory).free
+            if free < 2 * nbytes:
+                raise AssertionError(f"4o (d): {free} B free for a "
+                                     f"{nbytes} B checkpoint")
+            t0 = time.perf_counter()
+            ckpt.save(directory, 1, saved, extra={"mesh": "2x2"})
+            part["save_s"] = time.perf_counter() - t0
+            saved = placed = state = None
+            for shape in ELASTIC_RESTORE:
+                mesh = mesh_of(shape)
+                pspecs = param_specs(like[0], mesh)
+                t0 = time.perf_counter()
+                restored, extra = ckpt.restore(
+                    directory, like, mesh=mesh,
+                    specs=(pspecs, opt_state_specs(like[1], pspecs, mesh)))
+                seconds = time.perf_counter() - t0
+                back = ckpt.flatten_with_paths(gather_tree(restored))
+                equal = [k for k, _ in back] == [k for k, _ in logical]
+                for (_, x), (_, y) in zip(back, logical):
+                    pairs = ((x.data, y.data), (x.scale, y.scale)) \
+                        if isinstance(y, QTensor) else ((x, y),)
+                    equal &= all(torch.equal(u, v) for u, v in pairs)
+                slices = elastic_slices_hold(torch, restored, logical_tree)
+                part[f"{shape[0]}x{shape[1]}"] = dict(
+                    restore_s=seconds, logical_equal=equal,
+                    positions_hold_their_slices=slices, extra=extra)
+                log(f"train mesh: (d) saved on {ELASTIC_SAVE}, restored "
+                    f"onto {shape} in {seconds:.2f} s: logical arrays equal "
+                    f"to the bit {equal}, each position's slices those its "
+                    f"specs name {slices} ({nbytes} B of params and int8 "
+                    f"moments; save {part['save_s']:.2f} s) [{card}]")
+                if not (equal and slices):
+                    raise AssertionError(f"4o (d) onto {shape}: equal "
+                                         f"{equal}, slices {slices}")
+                restored = None
+        finally:
+            shutil.rmtree(directory, ignore_errors=True)
+    launched = {k: v for k, v in build.LAUNCHES.items() if v}
+    out["kernel_launches"] = launched
+    if launched:
+        raise AssertionError(f"4o launched port kernels {launched}: mesh "
+                             f"training runs the raw forward")
+
+
+def elastic_slices_hold(torch, restored, logical_tree) -> bool:
+    """Every position of ``restored`` holding, to the bit, the slices
+    ``shard_tree`` cuts for it from the logical arrays under the same
+    specs."""
+    from repro_torch.checkpoint.ckpt import flatten_with_paths
+    from repro_torch.quant.qtypes import QTensor
+    from repro_torch.sharding.specs import positions, shard_tree
+    want = shard_tree(logical_tree, restored.specs, restored.mesh)
+    for pos in positions(restored.mesh):
+        got, exp = (flatten_with_paths(restored.at(pos)),
+                    flatten_with_paths(want.at(pos)))
+        if [k for k, _ in got] != [k for k, _ in exp]:
+            return False
+        for (_, x), (_, y) in zip(got, exp):
+            pairs = (((x.data, y.data), (x.scale, y.scale))
+                     if isinstance(y, QTensor) else ((x, y),))
+            if not all(torch.equal(u, v) for u, v in pairs):
+                return False
+    return True
 
 
 def check_outputs(label: str, outs, vocab: int, max_new: int = 32) -> None:

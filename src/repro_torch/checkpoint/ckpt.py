@@ -25,6 +25,12 @@ manifest, through a torch view (no ``ml_dtypes``).
 Restores go by key into a skeleton tree (tensors on the meta device are
 enough: only shapes and the leaf kinds are read), and every leaf moves from
 the host arrays straight onto the target device.
+
+A tree placed on a mesh (``sharding.specs.MeshTree``, or a tuple of them:
+a mesh train step's ``(params, AdamWState)``) is saved as its logical
+arrays under the keys of an unsharded save, so a checkpoint does not
+record the mesh that wrote it (beyond what a caller puts in ``extra``),
+and ``restore(mesh=, specs=)`` lays it onto any mesh, or none.
 """
 
 from __future__ import annotations
@@ -167,9 +173,22 @@ def _rebuild(tree: Any, fn: Callable[[str, Any], Any], prefix: str = ""):
     return fn(prefix, tree)
 
 
+def _logical(tree: Any) -> Any:
+    """``tree`` with each ``MeshTree`` (at the top, or an entry of a top
+    tuple or list) gathered to its logical arrays on the host."""
+    from repro_torch.sharding.specs import MeshTree, gather_tree
+    if isinstance(tree, MeshTree):
+        return gather_tree(tree, "cpu")
+    if isinstance(tree, (list, tuple)) and not hasattr(tree, "_fields"):
+        return type(tree)(_logical(x) for x in tree)
+    return tree
+
+
 def save(directory: str, step: int, tree: Any, *, extra: Optional[dict] = None,
          keep: int = 3, process_index: int = 0) -> str:
-    """Atomically save ``tree`` (tensors and QTensors) at ``step``."""
+    """Atomically save ``tree`` (tensors and QTensors) at ``step``; a
+    placed tree as its logical arrays."""
+    tree = _logical(tree)
     directory = pathlib.Path(directory)
     directory.mkdir(parents=True, exist_ok=True)
     final = directory / f"step_{step:08d}"

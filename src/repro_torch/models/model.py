@@ -45,7 +45,10 @@ class Model:
         aux dict holding an MoE model's ``moe_aux_loss`` summed over its
         layers (empty for the other families). ``remat`` recomputes each
         layer's activations in the backward pass
-        (``torch.utils.checkpoint``)."""
+        (``torch.utils.checkpoint``). ``params`` may also be a
+        ``TPGroup``, one data row of a mesh (dense family): its shards
+        serving, or, in a mesh train step, training (``FSDPLeaf``s gathered
+        layer by layer)."""
         kw = dict(last_only=last_only, plain=plain, remat=remat,
                   with_aux=with_aux)
         if self.cfg.family == "encdec":

@@ -28,6 +28,7 @@ from repro_torch.quant.kvcache import (is_kv_page, kv_layer, kv_segment,
                                        kv_take_layers)
 from repro_torch.quant.qtypes import QTensor
 from repro_torch.sharding import collective as C
+from repro_torch.sharding.ctx import unshard_fsdp
 from repro_torch.tree import tree_index, tree_leaves, tree_unstack
 
 
@@ -130,20 +131,60 @@ def _tp_ffn(ps: list, hns: list, cfg, plain):
                          for p, hn in zip(ps, hns)], hns[0].device)
 
 
+def _tp_kv_heads(ps: list, devices: list, cfg) -> tuple[list, int]:
+    """(the group's trees, KV heads a position) where position m's KV rows
+    hold whole heads for its query heads. When the KV heads do not divide
+    the model axis the rules still split wk / wv by rows (the SMOKE
+    llama's 2 KV heads over 4 positions: half a head each), so wk and wv
+    are gathered over the group and each position keeps the KV heads its
+    query heads read (KV heads replicated, as Megatron does; one per query
+    head when its query heads straddle KV heads unevenly). Serving refuses
+    such a mesh (``serving/batch.py`` ``_check_heads``); training takes it,
+    as the reference does."""
+    t = len(ps)
+    if cfg.num_heads % t:
+        raise NotImplementedError(
+            f"{cfg.num_heads} query heads over a model axis of {t}: a shard "
+            f"would split a head (ROADMAP.md queue 1 item 10)")
+    if cfg.num_kv_heads % t == 0:
+        return ps, cfg.num_kv_heads // t
+    nq, hd = cfg.num_heads // t, cfg.head_dim
+    rep = cfg.num_heads // cfg.num_kv_heads
+    out = []
+    for m, (p, dev) in enumerate(zip(ps, devices)):
+        heads = [(m * nq + j) // rep for j in range(nq)]
+        uniq = sorted(set(heads))
+        if nq % len(uniq) == 0 and heads == [
+                uniq[j // (nq // len(uniq))] for j in range(nq)]:
+            heads = uniq
+        rows = torch.tensor([h * hd + i for h in heads for i in range(hd)],
+                            device=dev)
+        attn = dict(p["attn"])
+        for name in ("wk", "wv"):
+            whole = C.gather([q["attn"][name] for q in ps], dev, dim=-2)
+            attn[name] = torch.index_select(whole, -2, rows)
+        out.append({**p, "attn": attn})
+    return out, len(heads)
+
+
 def _tp_layer(ps: list, devices: list, h, positions: list, cfg, caches=None,
               cache_pos=None, valid_bias=None, emit_kv=False, plain=False):
     """One layer over a model-axis group: position m attends with its
     num_heads / T query heads over its num_kv_heads / T KV heads (its rows
     of wq/wk/wv, its columns of wo), and the row-parallel partials (wo,
     w_down) are summed before each residual add. ``h`` lives on
-    ``devices[0]``; the per-position arguments are lists."""
+    ``devices[0]``; the per-position arguments are lists. A training
+    placement's FSDP leaves are gathered first (``unshard_fsdp``, where
+    the reference's layer body calls it: ``transformer.py:87``, ``:124``)."""
+    ps = [unshard_fsdp(p) for p in ps]
+    ps, kv_heads = _tp_kv_heads(ps, devices, cfg)
     t = len(ps)
     hns = C.broadcast(norm(h, ps[0].get("ln1"), cfg), devices)
     parts, kvs = [], []
     for m, p in enumerate(ps):
         a, kv = A.attention(
             p["attn"], hns[m], num_heads=cfg.num_heads // t,
-            num_kv_heads=cfg.num_kv_heads // t, head_dim=cfg.head_dim,
+            num_kv_heads=kv_heads, head_dim=cfg.head_dim,
             positions=positions[m], rope_theta=cfg.rope_theta,
             qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps,
             cache=None if caches is None else caches[m],
@@ -157,47 +198,66 @@ def _tp_layer(ps: list, devices: list, h, positions: list, cfg, caches=None,
     return h + _tp_ffn(ps, hns, cfg, plain), kvs
 
 
-def _tp_head(ps: list, devices: list, h, cfg, plain):
-    h = norm(h, ps[0]["final"].get("norm"), cfg)
-    heads = [p["final"].get("head", p["embed"]["tok"]) for p in ps]
+def _tp_head(ps: list, devices: list, h, cfg, plain, tables: list):
+    """The vocab-parallel head; a tied head reads the embedding tables
+    ``_tp_embed`` gathered (the reference's ``transformer.py:182``)."""
+    finals = [unshard_fsdp(p["final"]) for p in ps]
+    h = norm(h, finals[0].get("norm"), cfg)
+    heads = [f.get("head", tab) for f, tab in zip(finals, tables)]
     return lm_head_sharded(C.broadcast(h, devices), heads, devices,
                            cfg.padded_vocab, plain)
 
 
 def _tp_embed(ps: list, devices: list, tokens, cfg):
-    return embed_lookup_sharded([p["embed"]["tok"] for p in ps], tokens,
-                                dtype_of(cfg), devices, cfg.padded_vocab)
+    """(h, each position's embedding table, gathered under a training
+    placement: the reference's ``transformer.py:124``)."""
+    tables = [unshard_fsdp(p["embed"])["tok"] for p in ps]
+    return embed_lookup_sharded(tables, tokens, dtype_of(cfg), devices,
+                                cfg.padded_vocab), tables
 
 
-def _apply_tp(group, tokens, cfg, *, return_cache, last_only, plain):
+def _apply_tp(group, tokens, cfg, *, return_cache, last_only, plain,
+              remat=False, with_aux=False):
     """``apply`` over a model-axis group; the cache comes back as a
-    ``TPCache`` of each position's raw K/V heads."""
+    ``TPCache`` of each position's raw K/V heads. ``remat`` recomputes each
+    layer (its FSDP gathers included) in the backward pass; ``with_aux``
+    adds the empty aux dict of a dense model."""
+    if cfg.num_experts > 0:
+        raise NotImplementedError("tensor parallelism of the MoE family "
+                                  "(ROADMAP.md queue 1 item 10)")
     ps, devs = group.shards, group.devices
     b, s = tokens.shape
-    h = _tp_embed(ps, devs, tokens, cfg)
+    h, tables = _tp_embed(ps, devs, tokens, cfg)
     positions = C.broadcast(torch.arange(s, dtype=torch.int32,
                                          device=tokens.device)[None]
                             .expand(b, s), devs)
+
+    def layer(layer_ps, h):
+        return _tp_layer(layer_ps, devs, h, positions, cfg,
+                         emit_kv=return_cache, plain=plain)
+
     ks: list = [[] for _ in ps]
     vs: list = [[] for _ in ps]
     for parts, lo, hi in _tp_segments(ps):
+        stacks = [tree_unstack(pt, hi - lo) for pt in parts]
         for i in range(hi - lo):
-            h, kvs = _tp_layer([tree_index(pt, i) for pt in parts], devs, h,
-                               positions, cfg, emit_kv=return_cache,
-                               plain=plain)
+            h, kvs = remat_call(layer, [st[i] for st in stacks], h,
+                                remat=remat)
             if return_cache:
                 for m, kv in enumerate(kvs):
                     ks[m].append(kv.k)
                     vs[m].append(kv.v)
     if last_only:
         h = h[:, -1:, :]
-    logits = _tp_head(ps, devs, h, cfg, plain)
-    if not return_cache:
-        return logits
-    return logits, C.TPCache([
-        DecodeCache(k=torch.stack(ks[m]), v=torch.stack(vs[m]),
-                    pos=torch.tensor(s, dtype=torch.int32, device=devs[m]))
-        for m in range(len(ps))])
+    logits = _tp_head(ps, devs, h, cfg, plain, tables)
+    out = (logits,) + (({},) if with_aux else ())
+    if return_cache:
+        out += (C.TPCache([
+            DecodeCache(k=torch.stack(ks[m]), v=torch.stack(vs[m]),
+                        pos=torch.tensor(s, dtype=torch.int32,
+                                         device=devs[m]))
+            for m in range(len(ps))]),)
+    return out[0] if len(out) == 1 else out
 
 
 def _decode_step_tp(group, cache, tokens, cfg, plain):
@@ -205,7 +265,7 @@ def _decode_step_tp(group, cache, tokens, cfg, plain):
     ps, devs = group.shards, group.devices
     b, s = tokens.shape
     parts = cache.parts
-    h = _tp_embed(ps, devs, tokens, cfg)
+    h, tables = _tp_embed(ps, devs, tokens, cfg)
     positions = [decode_positions(c.pos, b, s) for c in parts]
     valid_bias = [None if is_kv_page(c.k) else
                   A.decode_valid_bias(c.pos, s, c.k.shape[2]) for c in parts]
@@ -219,7 +279,7 @@ def _decode_step_tp(group, cache, tokens, cfg, plain):
                         for kseg, vseg in zip(ksegs, vsegs)],
                 cache_pos=[c.pos for c in parts], valid_bias=valid_bias,
                 plain=plain)
-    logits = _tp_head(ps, devs, h, cfg, plain)
+    logits = _tp_head(ps, devs, h, cfg, plain, tables)
     return logits, C.TPCache([c._replace(pos=c.pos + s) for c in parts])
 
 
@@ -232,11 +292,12 @@ def apply(params, tokens: torch.Tensor, cfg, *, return_cache: bool = False,
     ``remat`` recomputes each layer in the backward pass instead of keeping
     its activations; ``with_aux`` also returns the aux dict after the
     logits (an MoE model's ``moe_aux_loss``, summed over its layers).
-    ``params`` may be a ``TPGroup`` (mesh serving; no remat, no aux)."""
+    ``params`` may be a ``TPGroup``: one data row of a mesh, serving or
+    (its shards holding ``FSDPLeaf``s) training."""
     if isinstance(params, C.TPGroup):
-        assert not (remat or with_aux), "a TPGroup serves; it does not train"
         return _apply_tp(params, tokens, cfg, return_cache=return_cache,
-                         last_only=last_only, plain=plain)
+                         last_only=last_only, plain=plain, remat=remat,
+                         with_aux=with_aux)
     b, s = tokens.shape
     h = embed_lookup(params["embed"]["tok"], tokens, dtype_of(cfg))
     positions = torch.arange(s, dtype=torch.int32,

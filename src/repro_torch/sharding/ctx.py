@@ -16,8 +16,10 @@ Logical dims:
   "seq"    -> "model"
 A dim is only sharded when its size divides the axis size.
 
-``unshard_fsdp`` is the reference's FSDP materialization point, a no-op
-here (the port holds no FSDP-sharded weight); ``cost_mode`` /
+``unshard_fsdp`` is the reference's FSDP materialization point: under a
+training placement (a mesh train step, ``train/step.py``) it gathers each
+weight's data-axis slices to its TP-only shape; serving weights are placed
+TP-only, so there it is the identity. ``cost_mode`` /
 ``unroll_flag`` are kept for the dry-run, which lowers reduced-depth
 variants with every layer loop unrolled.
 """
@@ -30,7 +32,9 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from repro_torch.sharding.collective import FSDPLeaf
 from repro_torch.sharding.specs import P
+from repro_torch.tree import tree_leaves, tree_map
 
 _STATE = threading.local()
 
@@ -98,10 +102,17 @@ def model_shards() -> int:
 
 
 def unshard_fsdp(tree):
-    """The FSDP materialization point of a layer body: ``tree`` as it is.
-    The port places serving weights TP-only (``specs.serving_shard``), so
-    no FSDP dim is left to gather."""
-    return tree
+    """FSDP materialization of a layer body (or the embedding, or the
+    head): every ``FSDPLeaf`` of ``tree`` gathered over the data rows of
+    its model column to the leaf's TP-only shape (the reference strips the
+    FSDP axes from each leaf's spec), in position order on the row
+    position's device. The gathers carry gradients, so the backward sums
+    each slice's gradient over the rows. A tree without an ``FSDPLeaf``
+    (serving, or any mesh-less tree) comes back as it is."""
+    if not any(isinstance(x, FSDPLeaf) for x in tree_leaves(tree)):
+        return tree
+    return tree_map(lambda x: x.unshard() if isinstance(x, FSDPLeaf) else x,
+                    tree)
 
 
 @contextlib.contextmanager

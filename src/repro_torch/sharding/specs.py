@@ -47,6 +47,7 @@ import torch
 from repro_torch.quant.apply import Segment, SegmentedParams
 from repro_torch.quant.kvcache import KVPage, PagedKV
 from repro_torch.quant.qtypes import QTensor
+from repro_torch.sharding.collective import FSDPLeaf
 
 COLUMN_PARALLEL = ("wq", "wk", "wv", "w_gate", "w_up", "w_in")
 ROW_PARALLEL = ("wo", "w_down", "w_out")
@@ -370,9 +371,14 @@ def _sharded_dims(spec, ndim: int) -> list:
 
 def _place_qtensor(q: QTensor, spec: QTensor, coords: dict, mesh, device,
                    memo: dict, name: str) -> QTensor:
+    """Position ``coords``' QTensor: payload and scales each by its spec. A
+    scale spec of ``P()`` (an int8 Adam moment, ``opt_state_specs``)
+    replicates the whole scale array beside the payload's slice: the
+    optimizer finds a slice's groups in it (``optim/adamw.py``)."""
     dspec, sspec = spec.data, spec.scale
     nd = q.data.ndim
-    if _sharded_dims(dspec, nd) != _sharded_dims(sspec, q.scale.ndim):
+    if len(sspec) and (_sharded_dims(dspec, nd)
+                       != _sharded_dims(sspec, q.scale.ndim)):
         raise GroupSplitError(
             f"{name}: the payload shards dims {_sharded_dims(dspec, nd)} but "
             f"its group scales {_sharded_dims(sspec, q.scale.ndim)}: a shard "
@@ -410,10 +416,20 @@ def _zip_map(fn, tree, specs, name: str = ""):
     if isinstance(tree, Segment):
         return dataclasses.replace(tree, params=_zip_map(fn, tree.params,
                                                          specs.params, name))
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_zip_map(fn, v, sv, f"{name}/{k}") for k, v, sv
+                            in zip(tree._fields, tree, specs)))
     if isinstance(tree, (list, tuple)):
         return type(tree)(_zip_map(fn, v, sv, f"{name}/{i}")
                           for i, (v, sv) in enumerate(zip(tree, specs)))
     return tree
+
+
+def refill(tree, specs, leaves: list):
+    """``tree`` with its leaves (a QTensor one leaf) replaced, in order, by
+    ``leaves``."""
+    it = iter(leaves)
+    return _zip_map(lambda *_: next(it), tree, specs)
 
 
 def place_tree(tree, specs, mesh, pos: tuple, memo: Optional[dict] = None):
@@ -481,6 +497,14 @@ class MeshTree:
     def at(self, pos: tuple):
         return self.trees[pos]
 
+    def field(self, i: int) -> "MeshTree":
+        """The placement of entry ``i`` of a placed tuple (a restored
+        ``(params, AdamWState)``: 0 the params, 1 the optimizer state)."""
+        trees = np.empty(self.trees.shape, dtype=object)
+        for pos in positions(self.mesh):
+            trees[pos] = self.trees[pos][i]
+        return MeshTree(mesh=self.mesh, specs=self.specs[i], trees=trees)
+
     def position_nbytes(self) -> dict:
         """Physical bytes each position holds, by position."""
         return {pos: physical_nbytes(self.trees[pos])
@@ -508,6 +532,148 @@ def shard_tree(tree, specs, mesh) -> MeshTree:
     for pos in positions(mesh):
         trees[pos] = place_tree(tree, specs, mesh, pos, memo)
     return MeshTree(mesh=mesh, specs=specs, trees=trees)
+
+
+# --------------------------------------------------------------------------
+# A placement's slices (training: gradients, the optimizer, checkpoints)
+# --------------------------------------------------------------------------
+
+def _slice_bounds(spec, shape: tuple, coords: dict, mesh) -> tuple:
+    """(lo, hi) of each dim of a position's slice of local ``shape`` under
+    ``spec``, in the coordinates of the logical array."""
+    out = []
+    for i, n in enumerate(shape):
+        entry = spec[i] if i < len(spec) else None
+        count = 1 if entry is None else _axis_size(mesh, entry)
+        out.append(_bounds(entry, n * count, coords, mesh))
+    return tuple(out)
+
+
+def _by_leaf(mt: MeshTree) -> list:
+    """For each leaf of ``mt`` in tree order, [(position, leaf, spec,
+    coords), ...] over the positions in C order."""
+    out: list = []
+    for pos in positions(mt.mesh):
+        coords = dict(zip(mt.mesh.axis_names, pos))
+        leaves = _leaves(mt.trees[pos], mt.specs)
+        if not out:
+            out = [[] for _ in leaves]
+        for k, (leaf, spec) in enumerate(leaves):
+            out[k].append((pos, leaf, spec, coords))
+    return out
+
+
+def placed_slices(mt: MeshTree) -> list:
+    """For each leaf of ``mt`` in tree order, [(position, bounds, leaf),
+    ...] over the positions in C order: ``bounds`` are the slice's (lo, hi)
+    per dim in the logical leaf (a QTensor's, its payload's). Positions
+    with equal bounds hold the same slice (one tensor on one device)."""
+    out = []
+    for entries in _by_leaf(mt):
+        row = []
+        for pos, leaf, spec, coords in entries:
+            data, dspec = ((leaf.data, spec.data) if isinstance(leaf, QTensor)
+                           else (leaf, spec))
+            row.append((pos, _slice_bounds(dspec, tuple(data.shape), coords,
+                                           mt.mesh), leaf))
+        out.append(row)
+    return out
+
+
+def distinct_leaves(mt: MeshTree) -> list:
+    """Each distinct leaf object of ``mt`` once, first seen in position
+    order (a leaf the positions on one device share counts once)."""
+    seen: dict = {}
+    for pos in positions(mt.mesh):
+        for leaf, _ in _leaves(mt.trees[pos], mt.specs):
+            seen.setdefault(id(leaf), leaf)
+    return list(seen.values())
+
+
+def map_placed(fn, mt: MeshTree) -> MeshTree:
+    """``mt`` with ``fn`` applied once to each distinct leaf: a leaf that
+    positions share stays shared."""
+    memo: dict = {}
+
+    def one(leaf, spec, name):
+        if id(leaf) not in memo:
+            memo[id(leaf)] = fn(leaf)
+        return memo[id(leaf)]
+
+    trees = np.empty(mt.trees.shape, dtype=object)
+    for pos in positions(mt.mesh):
+        trees[pos] = _zip_map(one, mt.trees[pos], mt.specs)
+    return MeshTree(mesh=mt.mesh, specs=mt.specs, trees=trees)
+
+
+def _assemble(parts: list, device) -> torch.Tensor:
+    """One array from its slices [(bounds, tensor), ...]; repeated bounds
+    (replicas) are written once."""
+    shape = tuple(max(b[i][1] for b, _ in parts)
+                  for i in range(len(parts[0][0])))
+    out = torch.empty(shape, dtype=parts[0][1].dtype, device=device)
+    if out.device.type == "meta":
+        return out
+    done = set()
+    for b, x in parts:
+        if b not in done:
+            done.add(b)
+            out[tuple(slice(lo, hi) for lo, hi in b)].copy_(x)
+    return out
+
+
+def gather_tree(mt: MeshTree, device=None):
+    """The logical tree of a placement (the inverse of ``shard_tree``):
+    every leaf's slices written into one array on ``device`` (default the
+    first position's; "meta" gives a skeleton), in position order. A
+    QTensor's payload and scales are each assembled by their specs."""
+    first = positions(mt.mesh)[0]
+    device = torch.device(mt.mesh.devices[first] if device is None
+                          else device)
+    whole = []
+    for entries in _by_leaf(mt):
+        leaf0 = entries[0][1]
+        if not isinstance(leaf0, QTensor):
+            whole.append(_assemble([
+                (_slice_bounds(spec, tuple(x.shape), c, mt.mesh), x)
+                for _, x, spec, c in entries], device))
+            continue
+        data = _assemble([(_slice_bounds(spec.data, tuple(x.data.shape), c,
+                                         mt.mesh), x.data)
+                          for _, x, spec, c in entries], device)
+        scale = _assemble([(_slice_bounds(spec.scale, tuple(x.scale.shape),
+                                          c, mt.mesh), x.scale)
+                           for _, x, spec, c in entries], device)
+        shape = tuple(n * data.shape[i] // leaf0.data.shape[i]
+                      for i, n in enumerate(leaf0.shape))
+        whole.append(QTensor(data=data, scale=scale,
+                             precision=leaf0.precision, shape=shape,
+                             group=leaf0.group))
+    return refill(mt.trees[first], mt.specs, whole)
+
+
+def fsdp_view(mt: MeshTree, row: int, col: int):
+    """Position (``row``, ``col``) of ``position_grid``'s tree for a mesh
+    train step: each leaf the specs shard over the data axes becomes an
+    ``FSDPLeaf`` of its model column's slices (every data row's, in
+    position order) to be gathered on this position's device; every other
+    leaf is the position's own (TP-sharded or replicated)."""
+    mesh = mt.mesh
+    grid = position_grid(mesh)
+    fsdp = fsdp_axes(mesh)
+    column = [[leaf for leaf, _ in _leaves(mt.trees[grid[r, col]], mt.specs)]
+              for r in range(grid.shape[0])]
+    own = mt.trees[grid[row, col]]
+    device = mesh.devices[grid[row, col]]
+    out = []
+    for k, (leaf, spec) in enumerate(_leaves(own, mt.specs)):
+        if isinstance(leaf, QTensor):
+            raise TypeError("a mesh train step takes raw weights, not "
+                            "QTensors")
+        dims = [i for i, ax in enumerate(spec) if ax == fsdp]
+        out.append(FSDPLeaf([c[k] for c in column], dims[0], device)
+                   if dims and len(column) > 1 else leaf)
+    return refill(own, mt.specs, out)
 
 
 def serving_param_specs(params, mesh):

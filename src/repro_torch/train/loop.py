@@ -3,7 +3,8 @@
 Composes the deterministic synthetic data (``data/synthetic.py``), the
 train step (``train/step.py``), atomic checkpoints with auto-resume
 (``checkpoint/ckpt.py``) and the fault-tolerance runtime
-(``runtime/fault.py``) on one device.
+(``runtime/fault.py``), on one device or on a mesh (the reference's
+contract: ``launch/train.py`` passes none, a caller may).
 """
 
 from __future__ import annotations
@@ -21,38 +22,70 @@ from repro_torch.device import resolve_device
 from repro_torch.launch.steps import make_optimizer
 from repro_torch.models.model import Model, build
 from repro_torch.runtime.fault import PreemptionGuard, StepWatchdog
+from repro_torch.sharding.specs import (opt_state_specs, param_specs,
+                                        positions, shard_tree)
 from repro_torch.train.step import make_eval_step, make_train_step
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map
+
+
+def _restore(run: RunConfig, opt, params, mesh, device):
+    """(params, opt_state, extra), each from the latest checkpoint of
+    ``run.checkpoint_dir`` when there is one (extra None when not). Over a
+    mesh the init's params are placed by ``param_specs`` and the state
+    zeroed on the placement, or both restored straight onto the mesh: a
+    checkpoint holds logical arrays, whichever mesh (or none) wrote it."""
+    last = (ckpt.latest_step(run.checkpoint_dir) if run.checkpoint_dir
+            else None)
+    if mesh is None:
+        opt_state = opt.init(params)
+        if last is None:
+            return params, opt_state, None
+        (params, opt_state), extra = ckpt.restore(
+            run.checkpoint_dir, (params, opt_state), device=device)
+        return params, opt_state, extra
+    pspecs = param_specs(params, mesh)
+    if last is None:
+        placed = shard_tree(params, pspecs, mesh)
+        return placed, opt.init(placed), None
+    like = tree_map(lambda p: torch.empty_like(p, device="meta"), params)
+    like = (like, opt.init(like))
+    placed, extra = ckpt.restore(
+        run.checkpoint_dir, like, mesh=mesh,
+        specs=(pspecs, opt_state_specs(like[1], pspecs, mesh)))
+    return placed.field(0), placed.field(1), extra
 
 
 def train(cfg: ModelConfig, run: RunConfig, *, batch: int = 8, seq: int = 64,
-          log_every: int = 10, log_fn: Callable[[str], None] = print,
-          device=None) -> dict:
+          mesh=None, log_every: int = 10,
+          log_fn: Callable[[str], None] = print, device=None) -> dict:
     """Train ``cfg`` for ``run.steps`` on synthetic data on ``device``
-    (None: the GPU), from an init drawn by a ``torch.Generator`` seeded
-    with ``run.seed``. Auto-resumes from ``run.checkpoint_dir`` when it
-    holds a checkpoint. Returns the params, the optimizer state, the loss
-    of each step, each step's wall seconds and the watchdog's stragglers."""
+    (None: the GPU; with a ``mesh``, its first position's device), from an
+    init drawn by a ``torch.Generator`` seeded with ``run.seed``.
+    Auto-resumes from ``run.checkpoint_dir`` when it holds a checkpoint.
+    With ``mesh`` (``launch/mesh.py``; the dense family) the params and the
+    optimizer state are placed on it by the reference's training rules
+    and every step is a mesh step; its results equal the mesh-less run's
+    to rounding, checkpoints hold the logical arrays, and ``params`` and
+    ``opt_state`` come back placed (``sharding.specs.MeshTree``). Returns
+    the params, the optimizer state, the loss of each step, each step's
+    wall seconds and the watchdog's stragglers."""
+    if mesh is not None and device is None:
+        device = mesh.devices[positions(mesh)[0]]
     device = resolve_device(device)
     model = build(cfg)
     opt = make_optimizer(run)
     gen = torch.Generator(device=device).manual_seed(run.seed)
-    params = model.init(gen, device)
-    opt_state = opt.init(params)
+    params, opt_state, extra = _restore(run, opt, model.init(gen, device),
+                                        mesh, device)
     loader = DataLoader(cfg, global_batch=batch, seq=seq, seed=run.seed,
                         device=device)
     start_step = 0
+    if extra is not None:
+        loader.restore(extra["data"])
+        start_step = int(extra["step"])
+        log_fn(f"resumed from step {start_step}")
 
-    if run.checkpoint_dir:
-        last = ckpt.latest_step(run.checkpoint_dir)
-        if last is not None:
-            (params, opt_state), extra = ckpt.restore(
-                run.checkpoint_dir, (params, opt_state), device=device)
-            loader.restore(extra["data"])
-            start_step = int(extra["step"])
-            log_fn(f"resumed from step {start_step}")
-
-    step_fn = make_train_step(model, opt, run)
+    step_fn = make_train_step(model, opt, run, mesh=mesh)
     watchdog = StepWatchdog()
     history, step_s = [], []
 

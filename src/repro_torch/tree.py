@@ -32,14 +32,21 @@ def tree_index(tree: Any, i: int) -> Any:
                     tree)
 
 
+def _unstack_leaf(x: Any, n: int):
+    if isinstance(x, QTensor):
+        return [x.index(i) for i in range(n)]
+    if isinstance(x, torch.Tensor):
+        return torch.unbind(x, 0)
+    return x.unstack(n)         # a mesh train step's FSDPLeaf
+
+
 def tree_unstack(tree: Any, n: int) -> list:
     """The ``n`` entries of a tree stacked over a leading layer axis (views,
     as ``tree_index``), each tensor leaf split once by ``torch.unbind``:
     under autograd the layers' gradients then go back to the stack in one
     op, where ``n`` separate ``x[i]`` would each add a zero-filled copy of
     the whole stack."""
-    split = [[x.index(i) for i in range(n)] if isinstance(x, QTensor)
-             else torch.unbind(x, 0) for x in tree_leaves(tree)]
+    split = [_unstack_leaf(x, n) for x in tree_leaves(tree)]
     out = []
     for i in range(n):
         it = iter([s[i] for s in split])

@@ -70,6 +70,15 @@ def test_scans_cover_the_sharding_package():
     assert (PORT / "sharding" / "__init__.py").is_file()
 
 
+def test_scans_cover_the_compress_module():
+    """The import and source scans above reach the int8 error-feedback
+    gradient mean, and mesh training's modules."""
+    assert {"repro_torch.optim.compress", "repro_torch.optim.adamw",
+            "repro_torch.train.step", "repro_torch.train.loop"} \
+        <= set(_MODULES)
+    assert (PORT / "optim" / "compress.py").is_file()
+
+
 def test_scans_cover_the_fastewq_modules():
     """The import and source scans above reach FastEWQ, its classifiers
     and Algorithms 1 and 2 (each a numpy copy of the JAX package's)."""
